@@ -1,9 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
 """Smoke test of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-Runs the port's main path -- halo grid -> DFT-D3(BJ) -> erfc real-space
-Coulomb -> PME reciprocal space -- through its public entry points, with
-the hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
+Runs the port's paths through their public entry points, with the
+hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
 
 1. environment: a CUDA device (else it fails), the card's name and power
    limit, TF32 off for matmuls and cuDNN;
@@ -17,14 +16,37 @@ the hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    stage times (CUDA events) and peak memory;
 5. kernel vs plain: every kernel call of phases 3 and 4 is replayed on its
    captured inputs through the kernel and through its plain PyTorch
-   version, compared within a stated f32 tolerance and timed.
+   version, compared within a stated f32 tolerance and timed;
+6. batched D3, dense: ``batch_dftd3`` on 128 x 2,000 atoms in 41.2 A boxes
+   at 21.2 A (4 image combos) and in 27 A boxes at 9 A (minimum image),
+   the systems of the JAX package's batched D3 benchmark; the router must
+   pick dense; f32 forces against the port's f64 plain path on the card
+   (first 2 systems at 21.2 A; at 9 A the first 4, through the dense and
+   the grid engine), then dense against grid;
+7. batched D3, grid: 4 x 16,000 atoms in 54 A boxes at 9 A; the router
+   must pick the grid;
+8. PME, dense and batched: 64 x 2,000 atoms (27 A, 32^3, E+F; auto must
+   pick dense) against the windowed engine; the 1,024-atom composite
+   through the dense engine against the f64 reference; the 109,744-atom
+   system with a tile capacity below its occupancy, so the dense fallback
+   runs at 128^3, against the phase-4 windowed forces, both against the
+   dense path on the plain kernels in f64; 8 x 2,000 atoms at 64^3 on the
+   windowed engine (tiles of 16);
+9. kernel vs plain for the kernels of phases 6-8, as in phase 5: the 9 A
+   batch, the grid branch (cap 104) and the windowed batch (W = 20) right
+   after their runs, the 21.2 A batch and the dense PME with bounds.
 
-The last two lines of standard output are the kernel table and the device
-record, each one JSON object.  Any failure raises (non-zero exit) before
-either is printed.  Usage: ``python3 chip_smoke.py`` from the repo root.
+Each phase sets the launch counts to 0 just before it drives its path and
+reads them just after; a kernel of the path that did not launch fails the
+run.  The last three lines of standard output are the card's name and
+power limit, the kernel table and the device record, each on a line of its
+own.  Any failure raises (non-zero exit) before they are printed.  Usage:
+``python3 chip_smoke.py`` from the repo root.
 """
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -43,13 +65,37 @@ JAX_F32_BARS = {"d3": (7.54e-4, 7.21e-4), "coulomb": (1.82e-5, 1.69e-5),
                 "pme": (7.51e-5, 9.13e-5)}
 BAR_FACTOR = 1.25
 # kernel vs plain, f32: max |kernel - plain| <= KERNEL_RTOL * max |plain|
-# per output.  Both sum in f32 in different orders (and the pair sweep's
-# j-side sums with atomics in a run-dependent order); 1e-5 is ~100 f32 ulps
-# of the output's scale.
+# per output.  Both sum in f32 in different orders (and the pair sweeps'
+# j-side sums and the dense spread with atomics in a run-dependent order);
+# 1e-5 is ~100 f32 ulps of the output's scale.
 KERNEL_RTOL = 1e-5
 NET_FORCE_RTOL = 1e-3      # |sum_i F_i| / sum_i |F_i| per stage
 FULL_N_REP = 38            # 2 * 38^3 = 109,744 atoms
 FULL_MESH = (128, 128, 128)
+# the card's published peaks (H100 SXM, at its full 700 W power limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# the JAX package's batched benchmark configurations
+# (benchmarks/benchmark_config.yaml: dftd3_batch, pme_batch)
+D3_BATCH = dict(b=128, n=2000, box=27.0, cutoff=9.0, zmax=16,
+                matched_box=41.2, matched_cutoff=21.2)
+D3_PARAMS = (0.4, 4.2, 1.8)               # a1, a2, s8
+D3_GRID = dict(b=4, n=16000, box=54.0, cutoff=9.0)
+PME_BATCH = dict(b=64, n=2000, box=27.0, mesh=(32, 32, 32), alpha=0.35)
+PME_WINDOWED = dict(b=8, mesh=(64, 64, 64))
+REFERENCE_D3_BATCH_MS = 46.049            # BASELINE.md:32, H100, 21.2 A
+# cross-engine bars (max rel, RMS rel), both engines in f32: 1.25x the
+# larger of two readings of runs whose engines each met their f64 witness
+# (NVIDIA H100 80GB HBM3, 700 W); 2x for the 32^3 PME batch, whose reading
+# moved by 10% between the runs with the order of the spread's atomics.  Dense D3 against the grid at 9 A read 3.961e-4 /
+# 4.029e-5: one pair of system 0 lies 3.7e-7 A inside the cutoff, and the
+# grid's f32 r^2 rounds to exactly 81, so the grid drops it (D3 has no
+# smooth cutoff).  The 128^3 PME dense fallback against the windowed path
+# read 5.201e-5 / 2.367e-5, and the 64 x 2,000 dense PME against the
+# windowed engine 7.424e-7 / 4.468e-7 (and 6.728e-7 / 4.444e-7).
+D3_DENSE_VS_GRID_BAR = (4.95e-4, 5.04e-5)
+PME_FALLBACK_VS_WINDOWED_BAR = (6.50e-5, 2.96e-5)
+PME_DENSE_VS_WINDOWED_BAR = (1.49e-6, 8.94e-7)
 
 KERNEL_SOURCES = {
     "window_sweep": ("nvalchemiops_torch/csrc/window_sweep.cu",
@@ -58,7 +104,20 @@ KERNEL_SOURCES = {
                         "nvalchemiops_tpu/pallas/windowed_gather.py:134"),
     "windowed_gather_grad": ("nvalchemiops_torch/csrc/windowed_gather.cu",
                              "nvalchemiops_tpu/pallas/windowed_gather.py:80"),
+    "dense_pairs": ("nvalchemiops_torch/csrc/dense_pairs.cu",
+                    "nvalchemiops_tpu/pallas/dense_sweep.py:64"),
+    "separable_spread": ("nvalchemiops_torch/csrc/separable_spline.cu",
+                         "nvalchemiops_tpu/pallas/spread.py:45"),
+    "separable_gather": ("nvalchemiops_torch/csrc/separable_spline.cu",
+                         "nvalchemiops_tpu/pallas/spread.py:87"),
 }
+
+# flops per pair inside the cutoff (exp, rsqrt and a divide count as one
+# operation each, a multiply-add as two), for the bound column; the
+# displacement and r^2 of every visited pair count 8 more
+PAIR_FLOPS = {"cn": 10, "d3_direct": 35, "chain": 20, "coulomb": 35,
+              "direct": 35}
+DIST_FLOPS = 8
 
 
 def phase(msg):
@@ -107,7 +166,8 @@ class Capture:
 
 def install_capture():
     from nvalchemiops_torch import grid, spline_windowed
-    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+    from nvalchemiops_torch.interactions.electrostatics import pme
 
     cap = Capture()
     for mod in (grid, grid_d3):
@@ -115,19 +175,144 @@ def install_capture():
     cap.wrap(spline_windowed, "spread_windows", lambda *a: "windowed_spread")
     cap.wrap(spline_windowed, "gather_grad_planes",
              lambda *a: "windowed_gather_grad")
+    cap.wrap(dense_d3, "dense_pairs", lambda body, *a: f"dense_pairs[{body}]")
+    cap.wrap(pme, "separable_spread", lambda *a: "separable_spread")
+    cap.wrap(pme, "separable_gather", lambda *a: "separable_gather")
     return cap
 
 
 def count_key_of(key):
     """Launch-count key of a kernel table name ("window_sweep[cn]" ->
     "window_sweep_cn")."""
-    if key.startswith("window_sweep["):
-        return f"window_sweep_{key[len('window_sweep['):-1]}"
-    return key
+    return key.replace("[", "_").rstrip("]")
 
 
-def compare_kernels(calls, label):
-    """Replay each captured call through kernel and plain version."""
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def pairs_in_cutoff(n_systems, n, volume, cutoff):
+    """Atom pairs (over all images) within the cutoff at the systems' mean
+    density, pairs once: ``S n^2 (4 pi / 3) rc^3 / (2 V)``."""
+    return n_systems * n * n * (4.0 * math.pi / 3.0) * cutoff ** 3 / (
+        2.0 * volume)
+
+
+def work(key, args, kwargs, out, ctx):
+    """(bytes, flops) the kernel's function needs on these inputs: each
+    input the function reads, read once, each output written once; pair
+    work counted for the pairs these systems hold within the cutoff
+    (``ctx``)."""
+    base = key.split("[")[0]
+    outs = out if isinstance(out, tuple) else (out,)
+    reads = [*args, *kwargs.values()]
+    if base == "windowed_spread":
+        # the spread reads Sx | Sy | Sz; the derivative columns feed the gather
+        smat, q_t, w = args
+        reads = [smat[..., :3 * w], q_t]
+    if base == "window_sweep":
+        # the half-space windows never reach the low z halo, nor the low y
+        # halo of the first interior plane; j_out is written where read
+        rz, ry = args[1][0], args[1][1]
+        cand, j_out = args[3], outs[1]
+        reads = [a for a in reads if a is not cand] + [cand[:, rz + 1:],
+                                                       cand[:, rz, ry:]]
+        outs = (outs[0], j_out[:, rz + 1:], j_out[:, rz, ry:])
+    nbytes = _nbytes(*reads, *outs)
+    if base == "window_sweep":
+        body = key[len("window_sweep["):-1]
+        pairs = pairs_in_cutoff(1, ctx["n"], ctx["volume"], ctx["cutoff"])
+        extra = 6 * ctx.get("mesh", 0) if body == "d3_direct" else 0
+        return nbytes, pairs * (DIST_FLOPS + PAIR_FLOPS[body] + extra)
+    if base == "dense_pairs":
+        body = key[len("dense_pairs["):-1]
+        s, n, n_combos = ctx["systems"], ctx["n"], ctx["combos"]
+        visited = s * n * (n - 1) / 2 * n_combos
+        pairs = pairs_in_cutoff(s, n, ctx["volume"], ctx["cutoff"])
+        extra = 6 * ctx["mesh"] if body == "direct" else 0
+        return nbytes, (visited * DIST_FLOPS
+                        + pairs * (PAIR_FLOPS[body] + extra))
+    o3 = ctx["order"] ** 3
+    if base in ("windowed_spread", "separable_spread"):
+        return nbytes, ctx["atoms"] * o3 * 3
+    if base == "windowed_gather_grad":
+        return nbytes, ctx["atoms"] * o3 * 8
+    if base == "separable_gather":
+        with_grad = len(args) > 3 and args[3] is not None
+        return nbytes, ctx["atoms"] * o3 * (8 if with_grad else 2)
+    raise KeyError(key)
+
+
+def library_call(key, args):
+    """One PyTorch call that computes the kernel's function on the same
+    inputs (operands rearranged beforehand, untimed), or None."""
+    base = key.split("[")[0]
+    if base == "windowed_spread":
+        smat, q_t, w = args
+        sx, sy, sz = (smat[..., k * w:(k + 1) * w] for k in range(3))
+        qsz = q_t[..., None] * sz
+        tyx = (sy[..., :, None] * sx[..., None, :]).flatten(-2)
+        return lambda: torch.einsum("tcz,tcm->tzm", qsz, tyx)
+    if base == "windowed_gather_grad":
+        smat, win, w = args
+        sx, sy, sz, dsx, dsy, dsz = (smat[..., k * w:(k + 1) * w]
+                                     for k in range(6))
+
+        def tyx(a, b):
+            return (a[..., :, None] * b[..., None, :]).flatten(-2)
+
+        p = torch.stack([tyx(sy, sx), tyx(sy, dsx), tyx(dsy, sx),
+                         tyx(sy, sx)], dim=2)            # [t, c, 4, W^2]
+        z = torch.stack([sz, sz, sz, dsz], dim=2)         # [t, c, 4, W]
+        return lambda: torch.einsum("tckm,tzm,tckz->tck", p, win, z)
+    if base.startswith("separable"):
+        if base == "separable_spread":
+            gidx, w, q, dims = args
+            b = q.shape[0]
+        else:
+            mesh, gidx, w = args[:3]
+            b, dims = mesh.shape[0], tuple(mesh.shape[1:])
+        nx, ny, nz = (int(d) for d in dims)
+        o = w.shape[-1]
+        g = gidx.long()
+        sys_id = torch.arange(b, device=w.device).reshape(b, 1, 1, 1, 1)
+        flat = (((sys_id * nx + g[:, :, 0, :, None, None]) * ny
+                 + g[:, :, 1, None, :, None]) * nz
+                + g[:, :, 2, None, None, :]).reshape(-1, o ** 3)
+
+        def wxyz(wx, wy, wz):
+            return (wx[..., :, None, None] * wy[..., None, :, None]
+                    * wz[..., None, None, :]).reshape(-1, o ** 3)
+
+        if base == "separable_spread":
+            vals = (q.reshape(-1, 1) * wxyz(w[:, :, 0], w[:, :, 1],
+                                            w[:, :, 2])).reshape(-1)
+            idx = flat.reshape(-1)
+            total = b * nx * ny * nz
+            return lambda: torch.zeros(total, dtype=w.dtype,
+                                       device=w.device).index_add_(
+                                           0, idx, vals)
+        dw = args[3] if len(args) > 3 else None
+        sets = [(w[:, :, 0], w[:, :, 1], w[:, :, 2])]
+        if dw is not None:
+            sets += [(dw[:, :, 0], w[:, :, 1], w[:, :, 2]),
+                     (w[:, :, 0], dw[:, :, 1], w[:, :, 2]),
+                     (w[:, :, 0], w[:, :, 1], dw[:, :, 2])]
+        weights = torch.cat([wxyz(*s) for s in sets])
+        idx = flat.repeat(len(sets), 1)
+        table = mesh.reshape(-1, 1)
+        return lambda: torch.nn.functional.embedding_bag(
+            idx, table, per_sample_weights=weights, mode="sum")
+    return None
+
+
+def compare_kernels(calls, label, ctx=None):
+    """Replay each captured call through kernel and plain version; with
+    ``ctx`` also time the library call and compute the bound."""
+    from nvalchemiops_torch.kernels import dense_pairs as ds
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import separable_spline as ss
     from nvalchemiops_torch.kernels import window_sweep as ws
     from nvalchemiops_torch.kernels import windowed_gather as wg
 
@@ -136,12 +321,14 @@ def compare_kernels(calls, label):
         "windowed_spread": (wg.spread_windows, wg.spread_windows_plain),
         "windowed_gather_grad": (wg.gather_grad_planes,
                                  wg.gather_grad_planes_plain),
+        "dense_pairs": (ds.dense_pairs, ds.dense_pairs_plain),
+        "separable_spread": (ss.separable_spread, ss.separable_spread_plain),
+        "separable_gather": (ss.separable_gather, ss.separable_gather_plain),
     }
-    from nvalchemiops_torch.kernels import launch_counts
-
     rows = {}
     for key, (args, kwargs) in sorted(calls.items()):
-        kern, plain = pairs[key.split("[")[0]]
+        base = key.split("[")[0]
+        kern, plain = pairs[base]
         count_key = count_key_of(key)
         before = launch_counts[count_key]
         out_k = kern(*args, **kwargs)
@@ -149,12 +336,12 @@ def compare_kernels(calls, label):
             raise AssertionError(f"{label} {key}: launch count did not move")
         out_p = plain(*args, **kwargs)
         torch.cuda.synchronize()
-        out_k = [t for t in (out_k if isinstance(out_k, tuple) else (out_k,))]
-        out_p = [t for t in (out_p if isinstance(out_p, tuple) else (out_p,))]
+        split = base in ("window_sweep", "dense_pairs")
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         max_abs, worst_rel = 0.0, 0.0
         for tk, tp in zip(out_k, out_p):
-            for a, b in zip(tk.reshape(len(tk), -1) if tk.dim() == 5 else [tk],
-                            tp.reshape(len(tp), -1) if tp.dim() == 5 else [tp]):
+            for a, b in zip(tk if split else [tk], tp if split else [tp]):
                 err = (a.double() - b.double()).abs().max().item()
                 scale = b.double().abs().max().item()
                 if not np.isfinite(err) or err > KERNEL_RTOL * scale:
@@ -165,23 +352,407 @@ def compare_kernels(calls, label):
                 worst_rel = max(worst_rel, err / scale if scale else 0.0)
         ms = cuda_time_ms(lambda: kern(*args, **kwargs))
         plain_ms = cuda_time_ms(lambda: plain(*args, **kwargs))
-        shape = tuple(args[2].shape) if key.startswith("window_sweep") else \
-            tuple(args[0].shape)
-        phase(f"{label} {key}: input {shape} max_abs_err {max_abs:.3e} "
-              f"(rel {worst_rel:.2e}) kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms")
-        rows[key] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        shape = tuple(next(a for a in args
+                           if isinstance(a, torch.Tensor)).shape)
+        row = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        msg = (f"{label} {key}: input {shape} max_abs_err {max_abs:.3e} "
+               f"(rel {worst_rel:.2e}) kernel {ms:.4f} ms plain "
+               f"{plain_ms:.4f} ms")
+        if ctx is not None:
+            nbytes, flops = work(key, args, kwargs, out_k if len(out_k) > 1
+                                 else out_k[0], ctx)
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FP32_PER_S * 1e3
+            lib = library_call(key, args)
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["library_ms"] = cuda_time_ms(lib) if lib else None
+            msg += (f" library {row['library_ms']} ms bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                    f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        phase(msg)
+        rows[key] = row
     return rows
+
+
+def profile_step(label, fn, top=6):
+    """Host wall (synchronized, median of 3 after a warm-up), device busy
+    time (the sum of CUDA kernel times in one torch.profiler run), the idle
+    share and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    launches = sum(e.count for e in kern)
+    if busy == 0.0:
+        phase(f"profile {label}: host wall {wall:.3f} ms; device time not "
+              "measured (the profiler saw no kernel time)")
+        return
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    tops = "; ".join(f"{e.key[:60]} x{e.count} "
+                     f"{e.self_device_time_total / 1e3:.3f} ms"
+                     for e in kern[:top])
+    phase(f"profile {label}: host wall {wall:.3f} ms (synchronized, median "
+          f"of 3), device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall:.3f}, {launches} kernel launches; "
+          f"top: {tops}")
 
 
 def check_forces(name, forces):
     if not torch.isfinite(forces).all():
         raise AssertionError(f"{name}: non-finite forces")
-    net = forces.double().sum(0).abs().max().item()
-    l1 = forces.double().abs().sum().item()
+    net = forces.double().sum(-2).abs().max().item()
+    l1 = forces.double().abs().sum(-1).sum(-1).min().item()
     if net > NET_FORCE_RTOL * l1:
         raise AssertionError(f"{name}: net force {net:.3e} vs sum |F| {l1:.3e}")
     return net / l1
+
+
+def force_errors(forces, ref):
+    """(max rel, RMS rel) of ``forces`` against ``ref`` (both tensors)."""
+    f, r = forces.double(), ref.double()
+    rel = ((f - r).abs().max() / r.abs().max()).item()
+    rms = (torch.sqrt(((f - r) ** 2).mean())
+           / torch.sqrt((r ** 2).mean())).item()
+    return rel, rms
+
+
+@contextlib.contextmanager
+def plain_kernels(module, **plain):
+    """Route ``module``'s kernel wrappers to their plain versions, which run
+    in any dtype: the f64 witnesses."""
+    saved = {k: getattr(module, k) for k in plain}
+    for k, v in plain.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def check_errors(name, forces, ref, bar):
+    """Print and check the (max rel, RMS rel) force errors against a
+    ``(max, rms)`` bar."""
+    rel, rms = force_errors(forces, ref)
+    phase(f"{name}: max rel {rel:.3e} (bar {bar[0]:.3e}), rms rel {rms:.3e} "
+          f"(bar {bar[1]:.3e})")
+    if not (rel <= bar[0] and rms <= bar[1]):
+        raise AssertionError(f"{name}: above its bar")
+    return rel, rms
+
+
+def drive(name, fn, expect, forbid=()):
+    """Counts to 0, run ``fn`` once (CUDA-event timed, peak memory), read
+    the counts; fail unless every kernel in ``expect`` launched and none in
+    ``forbid`` did."""
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in expect if not counts[k]]
+    wrong = [k for k in forbid if counts[k]]
+    if missing or wrong:
+        raise AssertionError(f"{name}: kernels not launched {missing}, "
+                             f"launched off the path {wrong}: {counts}")
+    phase(f"{name}: first call {a.elapsed_time(b):.3f} ms (CUDA events), "
+          f"peak memory {peak / 2**20:.1f} MiB, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return out, counts
+
+
+def d3_batch_system(dev):
+    """The JAX package's batched D3 benchmark system (run_benchmarks.py
+    bench_dftd3_batch): numpy ``default_rng(4)``, zmax-16 random tables,
+    positions in 27 A boxes, element ids, then positions in 41.2 A boxes;
+    then (drawn after those) the 4 x 16,000-atom grid-branch batch."""
+    cfg = D3_BATCH
+    rng = np.random.default_rng(4)
+    zmax, b, n = cfg["zmax"], cfg["b"], cfg["n"]
+    rcov = np.r_[0, rng.uniform(0.6, 1.2, zmax)]
+    r4r2 = np.r_[0, rng.uniform(2, 5, zmax)]
+    cna = np.vstack([np.zeros(5),
+                     np.cumsum(rng.uniform(0.3, 1, (zmax, 5)), 1)])
+    c6 = rng.uniform(5, 40, (zmax + 1, zmax + 1, 5, 5))
+    c6[0] = 0
+    c6[:, 0] = 0
+    c6 = 0.5 * (c6 + np.swapaxes(np.swapaxes(c6, 0, 1), 2, 3))
+    pos = rng.uniform(0, cfg["box"], (b, n, 3))
+    numbers = rng.integers(1, zmax + 1, (b, n)).astype(np.int32)
+    pos_m = rng.uniform(0, cfg["matched_box"], (b, n, 3))
+    g = D3_GRID
+    pos_g = rng.uniform(0, g["box"], (g["b"], g["n"], 3))
+    numbers_g = rng.integers(1, zmax + 1, (g["b"], g["n"])).astype(np.int32)
+    tables = tuple(np.asarray(t, np.float32) for t in (rcov, r4r2, c6, cna))
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return tables, f32(pos), numbers, f32(pos_m), f32(pos_g), numbers_g
+
+
+def run_batched_d3(dev):
+    """Phases 6 and 7; returns the dense capture, counts and bound
+    context."""
+    from nvalchemiops_torch.interactions.dispersion import dense_d3
+    from nvalchemiops_torch.interactions.dispersion.dense_d3 import (
+        _image_combos, batch_dense_dftd3, batch_dftd3, batch_route,
+    )
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
+        batch_grid_dftd3,
+    )
+    from nvalchemiops_torch.kernels.dense_pairs import dense_pairs_plain
+    from nvalchemiops_torch.grid import (
+        batch_build_atom_grid, estimate_grid_geometry,
+    )
+
+    cfg = D3_BATCH
+    tables, pos, numbers, pos_m, pos_g, numbers_g = d3_batch_system(dev)
+    a1, a2, s8 = D3_PARAMS
+    pbc = np.array([True] * 3)
+    dense_keys = ["dense_pairs_cn", "dense_pairs_direct", "dense_pairs_chain"]
+    grid_keys = ["window_sweep_cn", "window_sweep_d3_direct",
+                 "window_sweep_chain"]
+    d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
+
+    def f64_witness(p, cell_, cut_):
+        """Forces of the port's dense D3 on the plain sweep in f64."""
+        with plain_kernels(dense_d3, dense_pairs=dense_pairs_plain):
+            return batch_dense_dftd3(
+                p.double(), numbers[:len(p)], cell_.double(), cut_,
+                *(t.astype(np.float64) for t in tables), a1, a2, s8)[1]
+
+    # -- 21.2 A in 41.2 A boxes: 4 image combos --------------------------
+    box, cut = cfg["matched_box"], cfg["matched_cutoff"]
+    cell = torch.eye(3, device=dev) * box
+    combos = _image_combos(True, np.eye(3) * box, cut)
+    if batch_route(np.eye(3) * box, pbc, cut, cfg["n"]) != "dense" or \
+            len(combos) != 4:
+        raise AssertionError(f"21.2 A batch: route or combos wrong {combos}")
+
+    def run_m():
+        return batch_dftd3(pos_m, numbers, cell, pbc, cut, *tables, a1, a2,
+                           s8)
+
+    capture = install_capture()
+    (e_m, f_m, cn_m), counts_m = drive(
+        f"batched D3 {cfg['b']} x {cfg['n']} at {cut} A", run_m, dense_keys,
+        forbid=grid_keys)
+    capture.restore()
+    for name, t in (("energy", e_m), ("cn", cn_m)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"21.2 A batch: non-finite {name}")
+    frac = check_forces("21.2 A batch", f_m)
+    steady = cuda_time_ms(run_m, reps=3)
+    profile_step("batched D3 21.2 A", run_m)
+    phase(f"batched D3 21.2 A: steady {steady:.3f} ms (CUDA events, median "
+          f"of 3; the reference library's published H100 row is "
+          f"{REFERENCE_D3_BATCH_MS} ms, a loose comparison point), net "
+          f"force / sum|F| {frac:.2e}, energy[0] {e_m[0].item():.6e}")
+    # f32 kernel path against the f64 plain path on the card
+    check_errors("batched D3 21.2 A accuracy (f32 kernels vs f64 plain, "
+                 "first 2 systems)", f_m[:2], f64_witness(pos_m[:2], cell, cut),
+                 d3_bar)
+
+    # -- 9 A in 27 A boxes: minimum image --------------------------------
+    box9, cut9 = cfg["box"], cfg["cutoff"]
+    cell9 = torch.eye(3, device=dev) * box9
+    if batch_route(np.eye(3) * box9, pbc, cut9, cfg["n"]) != "dense":
+        raise AssertionError("9 A batch: router did not pick dense")
+
+    def run_9():
+        return batch_dftd3(pos, numbers, cell9, pbc, cut9, *tables, a1, a2,
+                           s8)
+
+    label9 = f"batched D3 {cfg['b']} x {cfg['n']} at {cut9} A"
+    capture9 = install_capture()
+    (e_9, f_9, _), _ = drive(label9, run_9, dense_keys, forbid=grid_keys)
+    capture9.restore()
+    compare_kernels(capture9.calls, label9)
+    del capture9
+    frac9 = check_forces("9 A batch", f_9)
+    steady9 = cuda_time_ms(run_9, reps=3)
+    profile_step("batched D3 9 A", run_9)
+    phase(f"batched D3 9 A: steady {steady9:.3f} ms, net force / sum|F| "
+          f"{frac9:.2e}")
+    # each engine against the f64 plain witness, then dense against grid
+    _, f_g4, _ = batch_grid_dftd3(pos[:4], numbers[:4], cell9, pbc, cut9,
+                                  *tables, a1, a2, s8)
+    f_w9 = f64_witness(pos[:4], cell9, cut9)
+    check_errors("batched D3 9 A dense f32 vs f64 plain (first 4 systems)",
+                 f_9[:4], f_w9, d3_bar)
+    check_errors("batched D3 9 A grid f32 vs f64 plain (first 4 systems)",
+                 f_g4, f_w9, d3_bar)
+    check_errors("batched D3 9 A dense vs grid (first 4 systems)", f_9[:4],
+                 f_g4, D3_DENSE_VS_GRID_BAR)
+
+    # -- grid branch: 4 x 16,000 atoms in 54 A boxes ---------------------
+    g = D3_GRID
+    cell_g = torch.eye(3, device=dev) * g["box"]
+    if batch_route(np.eye(3) * g["box"], pbc, g["cutoff"], g["n"]) != "grid":
+        raise AssertionError("16,000-atom batch: router did not pick grid")
+    dims, radius, _ = estimate_grid_geometry(np.eye(3) * g["box"], pbc,
+                                             g["cutoff"], g["n"])
+    occ = int(batch_build_atom_grid(pos_g, cell_g, pbc, dims, radius,
+                                    8).counts_max.max())
+    gcap = int(np.ceil((occ + 2) / 8)) * 8
+
+    def run_g():
+        return batch_dftd3(pos_g, numbers_g, cell_g, pbc, g["cutoff"],
+                           *tables, a1, a2, s8, cap=gcap)
+
+    label_g = (f"batched D3 grid branch {g['b']} x {g['n']} at "
+               f"{g['cutoff']} A (dims {dims}, cap {gcap}, observed "
+               f"occupancy {occ})")
+    capture_g = install_capture()
+    (e_g, f_g, _), _ = drive(label_g, run_g, grid_keys, forbid=dense_keys)
+    capture_g.restore()
+    compare_kernels(capture_g.calls, f"batched D3 grid branch cap {gcap}")
+    del capture_g
+    if not torch.isfinite(e_g).all():
+        raise AssertionError("grid branch: non-finite energy")
+    fracg = check_forces("grid branch", f_g)
+    phase(f"batched D3 grid branch: steady {cuda_time_ms(run_g, reps=3):.3f}"
+          f" ms, net force / sum|F| {fracg:.2e}")
+    ctx = {"systems": cfg["b"], "n": cfg["n"], "volume": box ** 3,
+           "cutoff": cut, "combos": len(combos), "mesh": tables[3].shape[1]}
+    return capture.calls, counts_m, ctx
+
+
+def run_pme(dev, f_p_full, pme_err, full_inputs):
+    """Phase 8; returns the dense and fallback captures, counts, contexts."""
+    from nvalchemiops_torch import composite
+    from nvalchemiops_torch.interactions.electrostatics import pme
+    from nvalchemiops_torch.interactions.electrostatics.pme import (
+        batch_pme_reciprocal, pme_reciprocal_space,
+    )
+    from nvalchemiops_torch.kernels.separable_spline import (
+        separable_gather_plain, separable_spread_plain,
+    )
+
+    cfg = PME_BATCH
+    win_keys = ["windowed_spread", "windowed_gather_grad"]
+    dense_keys = ["separable_spread", "separable_gather"]
+    rng = np.random.default_rng(5)      # run_benchmarks.py bench_pme_batch
+    b, n = cfg["b"], cfg["n"]
+    pos = torch.as_tensor(rng.uniform(0, cfg["box"], (b * n, 3)),
+                          dtype=torch.float32, device=dev).reshape(b, n, 3)
+    q = torch.as_tensor(rng.normal(size=b * n), dtype=torch.float32,
+                        device=dev).reshape(b, n)
+    cell = torch.eye(3, device=dev) * cfg["box"]
+
+    def run_dense():
+        return batch_pme_reciprocal(pos, q, cell, cfg["alpha"], cfg["mesh"],
+                                    compute_forces=True)
+
+    capture = install_capture()
+    (e_d, f_d), counts = drive(
+        f"batched PME {b} x {n} at {cfg['mesh'][0]}^3 (auto engine)",
+        run_dense, dense_keys, forbid=win_keys)
+    capture.restore()
+    dense_calls = capture.calls
+    if not (torch.isfinite(e_d).all() and torch.isfinite(f_d).all()):
+        raise AssertionError("batched PME: non-finite outputs")
+    steady = cuda_time_ms(run_dense, reps=3)
+    profile_step("batched PME dense E+F", run_dense)
+    e_w, f_w = batch_pme_reciprocal(pos, q, cell, cfg["alpha"], cfg["mesh"],
+                                    compute_forces=True, engine="windowed")
+    phase(f"batched PME dense: steady {steady:.3f} ms (E+F, CUDA events); "
+          f"energies dense vs windowed max |diff| "
+          f"{(e_d - e_w).abs().max().item():.3e}")
+    check_errors("batched PME dense vs windowed forces", f_d, f_w,
+                 PME_DENSE_VS_WINDOWED_BAR)
+
+    # -- the 1,024-atom composite through the dense engine ----------------
+    pos_c, cell_c, _, charges, *_ = composite.build_system()
+    ref = composite.load_reference()
+    (_, f_c), _ = drive(
+        "composite PME on the dense engine (B = 1)",
+        lambda: batch_pme_reciprocal(
+            torch.as_tensor(pos_c, dtype=torch.float32, device=dev)[None],
+            torch.as_tensor(charges, dtype=torch.float32, device=dev)[None],
+            torch.as_tensor(cell_c, dtype=torch.float32, device=dev),
+            composite.ALPHA, composite.MESH, compute_forces=True,
+            engine="dense"), dense_keys, forbid=win_keys)
+    forces = {"pme": f_c[0].double().cpu().numpy()}
+    rel_c = composite.relative_errors(forces, ref)["pme"]
+    rms_c = composite.rms_errors(forces, ref)["pme"]
+    bar_c = (BAR_FACTOR * pme_err[0], BAR_FACTOR * pme_err[1])
+    phase(f"composite PME dense engine vs f64 reference: max rel {rel_c:.3e}"
+          f" (bar {bar_c[0]:.3e} = 1.25 x windowed {pme_err[0]:.3e}), rms "
+          f"rel {rms_c:.3e} (bar {bar_c[1]:.3e})")
+    if not (rel_c <= bar_c[0] and rms_c <= bar_c[1]):
+        raise AssertionError("composite PME dense engine above its bar")
+
+    # -- 128^3 fallback: tile capacity below the occupancy ---------------
+    pos_f, q_f, cell_f, alpha_f = full_inputs
+    capture = install_capture()
+    (_, f_fb), counts_fb = drive(
+        "PME 128^3 tile-overflow fallback (tile capacity 1)",
+        lambda: pme_reciprocal_space(pos_f, q_f, cell_f, alpha_f,
+                                     mesh_dimensions=FULL_MESH,
+                                     compute_forces=True, tile_capacity=1),
+        dense_keys, forbid=win_keys)
+    capture.restore()
+    fallback_calls = capture.calls
+    # both f32 engines against the dense path on the plain kernels in f64:
+    # the fallback within 1.25x the windowed engine's own error, then the
+    # two against each other
+    with plain_kernels(pme, separable_spread=separable_spread_plain,
+                       separable_gather=separable_gather_plain):
+        _, f_fb64 = pme_reciprocal_space(
+            pos_f.double(), q_f.double(), cell_f.double(), alpha_f,
+            mesh_dimensions=FULL_MESH, compute_forces=True, tile_capacity=1)
+    err_w = check_errors("PME 128^3 windowed f32 vs f64 plain dense", f_p_full,
+                         f_fb64, (math.inf, math.inf))
+    check_errors("PME 128^3 fallback f32 vs f64 plain dense", f_fb, f_fb64,
+                 tuple(BAR_FACTOR * v for v in err_w))
+    check_errors("PME 128^3 fallback vs phase-4 windowed forces", f_fb,
+                 f_p_full, PME_FALLBACK_VS_WINDOWED_BAR)
+    del f_fb64
+
+    # -- windowed engine: 8 x 2,000 atoms at 64^3 ------------------------
+    bw, mesh_w = PME_WINDOWED["b"], PME_WINDOWED["mesh"]
+    label_w = f"batched PME windowed {bw} x {n} at {mesh_w[0]}^3"
+    capture = install_capture()
+    (e_w8, f_w8), counts_w = drive(
+        label_w,
+        lambda: batch_pme_reciprocal(pos[:bw], q[:bw], cell, cfg["alpha"],
+                                     mesh_w, compute_forces=True,
+                                     engine="windowed"),
+        win_keys, forbid=dense_keys)
+    capture.restore()
+    compare_kernels(capture.calls, f"{label_w} (tile 16, W = 20)")
+    if counts_w["windowed_spread"] != bw:
+        raise AssertionError(f"windowed batch: {counts_w}")
+    check_forces("windowed batch", f_w8)
+    ctx = {"atoms": b * n, "order": 4}
+    ctx_fb = {"atoms": pos_f.shape[0], "order": 4}
+    return dense_calls, counts, ctx, fallback_calls, ctx_fb
 
 
 def main():
@@ -199,12 +770,8 @@ def main():
         raise RuntimeError("TF32 could not be switched off")
     phase(f"environment: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
-    print(card, flush=True)
+          f"count {torch.cuda.device_count()} card {card}")
 
-    from benchmarks.composite_accuracy import (
-        load_reference, relative_errors, rms_errors,
-    )
     from nvalchemiops_torch import composite
     from nvalchemiops_torch.grid import (
         build_atom_grid, choose_grid_geometry, grid_coulomb_energy_forces,
@@ -230,7 +797,7 @@ def main():
         print(log.strip(), flush=True)
 
     # -- phase 3: accuracy against the committed f64 reference -------------
-    ref = load_reference()
+    ref = composite.load_reference()
     if ref is None:
         raise RuntimeError("benchmarks/data/bench_acc_ref.npz not found")
     capture = install_capture()
@@ -239,7 +806,8 @@ def main():
     small_counts = dict(launch_counts)
     capture.restore()
     small_calls = capture.calls
-    rel, rms = relative_errors(forces, ref), rms_errors(forces, ref)
+    rel = composite.relative_errors(forces, ref)
+    rms = composite.rms_errors(forces, ref)
     for k, (bar_max, bar_rms) in JAX_F32_BARS.items():
         phase(f"accuracy {k}: max rel {rel[k]:.3e} (bar "
               f"{BAR_FACTOR * bar_max:.3e}), rms rel {rms[k]:.3e} (bar "
@@ -247,7 +815,10 @@ def main():
         if not (rel[k] <= BAR_FACTOR * bar_max
                 and rms[k] <= BAR_FACTOR * bar_rms):
             raise AssertionError(f"accuracy {k} above the 1.25x JAX f32 bar")
-    if not all(small_counts.values()):
+    main_path = ("window_sweep_cn", "window_sweep_d3_direct",
+                 "window_sweep_chain", "window_sweep_coulomb",
+                 "windowed_spread", "windowed_gather_grad")
+    if not all(small_counts[k] for k in main_path):
         raise AssertionError(f"composite skipped a kernel: {small_counts}")
 
     # -- phase 4: full width through the public entry points ---------------
@@ -327,22 +898,45 @@ def main():
     phase(f"full width peak memory: {peak / 2**20:.1f} MiB "
           "(torch.cuda.max_memory_allocated)")
     phase(f"full width launch counts: {main_counts}")
-    missing = [k for k, v in main_counts.items() if v == 0]
+    missing = [k for k in main_path if main_counts[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
 
     # -- phase 5: kernel vs plain on the captured main-path inputs ----------
     compare_kernels(small_calls, "composite 1,024 atoms")
-    full_rows = compare_kernels(full_calls, f"full width {n} atoms")
+    ctx_full = {"n": n, "volume": float(abs(np.linalg.det(cell_np))),
+                "cutoff": cutoff, "mesh": cna.shape[1], "atoms": n,
+                "order": 4}
+    full_rows = compare_kernels(full_calls, f"full width {n} atoms",
+                                ctx_full)
     del g, full_calls, small_calls
 
+    # -- phases 6 and 7: batched D3, dense and grid branch -----------------
+    d3_calls, d3_counts, d3_ctx = run_batched_d3(dev)
+
+    # -- phase 8: PME, dense and batched -------------------------------------
+    (pme_calls, pme_counts, pme_ctx, fb_calls,
+     fb_ctx) = run_pme(dev, f_p, (rel["pme"], rms["pme"]),
+                       (pos, q, cell, alpha))
+
+    # -- phase 9: kernel vs plain for the new kernels ----------------------
+    d3_rows = compare_kernels(
+        d3_calls, f"batched D3 {D3_BATCH['b']} x {D3_BATCH['n']} at "
+        f"{D3_BATCH['matched_cutoff']} A", d3_ctx)
+    pme_rows = compare_kernels(
+        pme_calls, f"batched PME {PME_BATCH['b']} x {PME_BATCH['n']}",
+        pme_ctx)
+    compare_kernels(fb_calls, f"PME fallback {n} atoms at 128^3", fb_ctx)
+
     kernels = []
-    for key, row in sorted(full_rows.items()):
-        base = key.split("[")[0]
-        source, replaces = KERNEL_SOURCES[base]
-        kernels.append({"name": key, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": main_counts[count_key_of(key)], **row})
+    for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),
+                         (pme_rows, pme_counts)):
+        for key, row in sorted(rows.items()):
+            source, replaces = KERNEL_SOURCES[key.split("[")[0]]
+            kernels.append({"name": key, "route": "cuda", "source": source,
+                            "replaces": replaces,
+                            "launches": counts[count_key_of(key)], **row})
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

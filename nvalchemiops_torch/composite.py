@@ -6,12 +6,16 @@ Counterpart of ``benchmarks/composite_accuracy.py``.  :func:`build_system`
 is numpy-only and reproduces the JAX one bit for bit (same
 ``default_rng(seed)`` draws, tables and reference-CN grid), so the port's
 forces compare directly with the committed f64 reference
-``benchmarks/data/bench_acc_ref.npz`` (1,024 atoms, ``n_rep = 8``).
+``benchmarks/data/bench_acc_ref.npz`` (1,024 atoms, ``n_rep = 8``), which
+:func:`load_reference` reads; :func:`relative_errors` and
+:func:`rms_errors` are the accuracy metrics of that comparison.
 :func:`compute_forces` runs the stages through the public entry points the
 same way ``composite_accuracy.compute_forces`` does.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -36,7 +40,9 @@ from nvalchemiops_torch.interactions.electrostatics.pme import (
 from nvalchemiops_torch.spline_windowed import observed_tile_capacity
 
 __all__ = ["N_REP", "A_LAT", "CUTOFF", "ALPHA", "MESH", "D3_A1", "D3_A2",
-           "D3_S8", "build_system", "compute_forces"]
+           "D3_S8", "REF_PATH", "REF_VERSION", "build_system",
+           "compute_forces", "load_reference", "relative_errors",
+           "rms_errors"]
 
 N_REP = 8          # 1,024 atoms: the committed f64 reference's system
 A_LAT = 4.123      # CsCl conventional lattice constant, Angstrom
@@ -49,6 +55,14 @@ _AUTOANG = 0.52917726
 D3_A1 = 0.4289
 D3_A2 = 4.4407 * _AUTOANG
 D3_S8 = 0.7875
+
+#: the committed f64 reference forces of the composite, and the version key
+#: it was written with
+REF_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "benchmarks", "data", "bench_acc_ref.npz")
+REF_VERSION = (f"cscl-v5-realtables:n_rep={N_REP}:cutoff={CUTOFF}:"
+               f"alpha={ALPHA}:mesh={MESH}")
 
 
 def build_system(n_rep=N_REP, seed=0):
@@ -78,10 +92,11 @@ def build_system(n_rep=N_REP, seed=0):
     return pos, cell, numbers, charges, rcov, r4r2, cna, c6
 
 
-def compute_forces(dtype=torch.float32, device="cpu", n_rep=N_REP,
+def compute_forces(dtype=torch.float32, device="cuda", n_rep=N_REP,
                    cutoff=CUTOFF, alpha=ALPHA, mesh=MESH):
     """Per-stage force arrays ``{d3, coulomb, pme}`` (numpy f64) for the
-    composite, computed in ``dtype`` on ``device``."""
+    composite, computed in ``dtype`` on ``device`` (the card unless the
+    caller asks for the CPU)."""
     pos_np, cell_np, numbers, charges, rcov, r4r2, cna, c6 = build_system(
         n_rep)
     numbers, rcov, r4r2, c6, cna = compact_d3_elements(numbers, rcov, r4r2,
@@ -107,3 +122,30 @@ def compute_forces(dtype=torch.float32, device="cpu", n_rep=N_REP,
                                   tile_capacity=tile_cap)
     return {k: v.detach().cpu().numpy().astype(np.float64)
             for k, v in (("d3", f_d3), ("coulomb", f_c), ("pme", f_p))}
+
+
+def load_reference():
+    """The committed f64 reference forces (an ``npz`` with ``d3``,
+    ``coulomb`` and ``pme``), or None when the file is missing or was
+    written for other composite parameters."""
+    try:
+        ref = np.load(REF_PATH)
+    except OSError:
+        return None
+    return ref if str(ref["version"]) == REF_VERSION else None
+
+
+def relative_errors(forces, ref):
+    """``max |f - f_ref| / max |f_ref|`` per stage.  The f32 D3 value has a
+    conditioning floor (CN rounding amplified through dC6/dCN on weak-force
+    atoms), so it is compared against the reference engine's own f32
+    error, not an absolute bar."""
+    return {k: float(np.abs(f - ref[k]).max() / np.abs(ref[k]).max())
+            for k, f in forces.items()}
+
+
+def rms_errors(forces, ref):
+    """``RMS |f - f_ref| / RMS |f_ref|`` per stage."""
+    return {k: float(np.sqrt(((f - ref[k]) ** 2).mean())
+                     / np.sqrt((np.asarray(ref[k]) ** 2).mean()))
+            for k, f in forces.items()}

@@ -67,6 +67,15 @@ __device__ __forceinline__ float erfc_approx(float x) {
   return x >= 0.0f ? y : 2.0f - y;
 }
 
+// r^2 rounded as the plain version rounds it, (dx^2 + dy^2) + dz^2 with no
+// fused multiply-add, so both take the same pairs at the cutoff: D3 has no
+// smooth cutoff, and a pair on the other side of it moves a force by the
+// whole pair term.
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
 // Candidate feature f of candidate j lives at cs[f * ncand + j].
 #define CAND(f) cs[(f) * ncand + j]
 
@@ -80,7 +89,7 @@ struct CnBody {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
     const float dz = CAND(2) - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float d2 = dist2(dx, dy, dz);
     if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
     const float inv_r = rsqrtf(d2);
     const float rc = o[3] + CAND(3);
@@ -104,7 +113,7 @@ struct D3DirectBody {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
     const float dz = CAND(2) - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float d2 = dist2(dx, dy, dz);
     if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
     const float w = o[4] * CAND(4);
     if (!(w > 1e-12f)) return false;  // every output is zero there
@@ -167,7 +176,7 @@ struct ChainBody {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
     const float dz = CAND(2) - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float d2 = dist2(dx, dy, dz);
     if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
     const float inv_r = rsqrtf(d2);
     const float rrq = (o[3] + CAND(3)) * inv_r;
@@ -194,7 +203,7 @@ struct CoulombBody {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
     const float dz = CAND(2) - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float d2 = dist2(dx, dy, dz);
     if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
     const float inv_r = rsqrtf(d2);
     const float qq = o[3] * CAND(3);

@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
-from nvalchemiops_torch.mathops.math import apply_mat3, divmod_floor
+from nvalchemiops_torch.mathops.math import (
+    apply_mat3_batched, divmod_floor,
+)
 from nvalchemiops_torch.neighborlist.neighbor_utils import pack_shifts
 from nvalchemiops_torch.types import INDEX_DTYPE
 
@@ -40,6 +42,8 @@ __all__ = [
     "AtomGrid",
     "estimate_grid_geometry",
     "build_atom_grid",
+    "batch_build_atom_grid",
+    "system_grid",
     "choose_grid_origin",
     "choose_grid_geometry",
     "scatter_to_grid",
@@ -118,33 +122,35 @@ def estimate_grid_geometry(cell, pbc, cutoff: float, total_atoms: int,
 
 
 def _bin_coords(positions, cell, pbc, dims, origin):
-    """Per-atom (x, y, z) bin coordinates, the periodic wrap count and the
-    linear cell index, by the build's binning rule (wrap on periodic axes,
-    clamp elsewhere)."""
+    """Per-atom (x, y, z) periodic wrap count and linear cell index, by the
+    build's binning rule (wrap on periodic axes, clamp elsewhere), over any
+    leading system axes: ``positions [.., n, 3]``, ``cell [.., 3, 3]``."""
     dtype = positions.dtype
     cz, cy, cx = dims
     pbc_t = torch.tensor(_pbc_list(pbc), device=positions.device)
     cpd_xyz = torch.tensor([cx, cy, cz], dtype=INDEX_DTYPE,
                            device=positions.device)
-    frac = apply_mat3(positions, torch.linalg.inv(cell))
+    frac = apply_mat3_batched(positions, torch.linalg.inv(cell))
     bin_pos = frac * cpd_xyz.to(dtype)
     if origin is not None:
         bin_pos = bin_pos - torch.as_tensor(
-            origin, dtype=dtype, device=positions.device).reshape(1, 3)
+            origin, dtype=dtype, device=positions.device).reshape(3)
     coords = torch.floor(bin_pos).to(INDEX_DTYPE)
     wrap, wrapped = divmod_floor(coords, cpd_xyz)
     clamped = torch.minimum(torch.clamp(coords, min=0), cpd_xyz - 1)
-    ccoords = torch.where(pbc_t[None, :], wrapped, clamped)
-    aps = torch.where(pbc_t[None, :], wrap, torch.zeros_like(wrap))
-    lin = ccoords[:, 0] + cx * (ccoords[:, 1] + cy * ccoords[:, 2])
+    ccoords = torch.where(pbc_t, wrapped, clamped)
+    aps = torch.where(pbc_t, wrap, torch.zeros_like(wrap))
+    lin = ccoords[..., 0] + cx * (ccoords[..., 1] + cy * ccoords[..., 2])
     return aps, lin
 
 
-def _extend(plane, radius, pbc, fill):
-    """Halo-pad the three leading axes: wrap on periodic axes, ``fill``
-    elsewhere (axis order z, y, x; pbc is x, y, z)."""
+def _extend(plane, radius, pbc, fill, first_axis: int = 0):
+    """Halo-pad the three cell axes from ``first_axis`` on: wrap on
+    periodic axes, ``fill`` elsewhere (axis order z, y, x; pbc is x, y,
+    z)."""
     out = plane
-    for ax, (r, periodic) in enumerate(zip(radius, (pbc[2], pbc[1], pbc[0]))):
+    for ax, (r, periodic) in enumerate(zip(radius, (pbc[2], pbc[1], pbc[0])),
+                                       start=first_axis):
         if r == 0:
             continue
         n = out.shape[ax]
@@ -162,106 +168,138 @@ def _extend(plane, radius, pbc, fill):
 
 def build_atom_grid(positions, cell, pbc, dims, radius, cap,
                     origin=None) -> AtomGrid:
-    """Bin, sort, fill the slot planes, and halo-extend.
+    """Bin, sort, fill the slot planes, and halo-extend: the batched build
+    (:func:`batch_build_atom_grid`) on a batch of one, with a 0-d
+    ``counts_max``.
 
     ``origin`` (optional [3], xyz order, in bin units) shifts the periodic
     bin partition (see :func:`choose_grid_origin`).
     """
-    n = positions.shape[0]
-    dtype = positions.dtype
-    device = positions.device
-    cell = torch.as_tensor(cell, dtype=dtype, device=device).reshape(3, 3)
+    cell = torch.as_tensor(cell, dtype=positions.dtype,
+                           device=positions.device).reshape(3, 3)
+    return system_grid(batch_build_atom_grid(
+        positions[None], cell, pbc, dims, radius, cap, origin=origin), 0)
+
+
+def batch_build_atom_grid(positions, cells, pbc, dims, radius, cap,
+                          origin=None) -> AtomGrid:
+    """Whole-batch grid build: ``positions [B, npa, 3]`` -> an AtomGrid
+    whose array fields carry a leading system axis (``counts_max [B]``).
+
+    One stable sort over the compound keys ``system * ncells + cell`` (so
+    per-system ranks equal the single-system build's), one flat histogram
+    and exclusive cumsum over ``B * ncells`` cells; slots, atom ids (local
+    to each system, int32), shift codes and ``counts_max`` equal the JAX
+    package's ``batch_build_atom_grid`` exactly.  Geometry is shared by the
+    batch; ``cells`` may be ``[3, 3]`` or ``[B, 3, 3]``.
+    """
+    b, npa, _ = positions.shape
+    dtype, device = positions.dtype, positions.device
+    cells = torch.as_tensor(cells, dtype=dtype, device=device)
+    if cells.dim() == 2:
+        cells = cells.reshape(1, 3, 3).expand(b, 3, 3)
     pbc_l = _pbc_list(pbc)
     cz, cy, cx = (int(d) for d in dims)
     rz, ry, rx = (int(r) for r in radius)
     cap = int(cap)
     ncells = cx * cy * cz
 
-    aps, lin = _bin_coords(positions, cell, pbc_l, (cz, cy, cx), origin)
+    aps, lin = _bin_coords(positions, cells, pbc_l, (cz, cy, cx), origin)
     # wrapped positions (images moved into the box) so ghost shifts are exact
-    shift_cart = apply_mat3(aps.to(dtype), cell)
-    wp = positions - shift_cart
+    wp = (positions - apply_mat3_batched(aps.to(dtype), cells)).reshape(-1,
+                                                                         3)
+    sys_id = torch.arange(b, dtype=INDEX_DTYPE, device=device)
+    lin_g = (lin + sys_id[:, None] * ncells).reshape(-1)   # compound key
 
-    # stable bucket sort by cell; rank within the run; slot ids
-    iota = torch.arange(n, dtype=torch.int64, device=device)
-    sorted_lin, order = torch.sort(lin, stable=True)
-    boundary = torch.ones(n, dtype=torch.bool, device=device)
-    if n > 1:
+    n_tot = b * npa
+    iota = torch.arange(n_tot, dtype=torch.int64, device=device)
+    sorted_lin, order = torch.sort(lin_g, stable=True)
+    boundary = torch.ones(n_tot, dtype=torch.bool, device=device)
+    if n_tot > 1:
         boundary[1:] = sorted_lin[1:] != sorted_lin[:-1]
     run_start = torch.cummax(torch.where(boundary, iota, 0), dim=0).values
     rank_sorted = (iota - run_start).to(INDEX_DTYPE)
-    if n:
-        counts_max = (rank_sorted.max() + 1).to(INDEX_DTYPE)
-    else:
-        counts_max = torch.zeros((), dtype=INDEX_DTYPE, device=device)
-    flat = torch.zeros(n, dtype=INDEX_DTYPE, device=device)
+    sys_sorted = torch.div(sorted_lin, ncells, rounding_mode="floor")
+    counts_max = torch.zeros(b, dtype=INDEX_DTYPE, device=device).scatter_reduce(
+        0, sys_sorted.long(), rank_sorted + 1, reduce="amax")
+    local_lin = sorted_lin - sys_sorted * ncells
+    flat = torch.zeros(n_tot, dtype=INDEX_DTYPE, device=device)
     flat[order] = torch.where(rank_sorted >= cap,
                               torch.full_like(rank_sorted, ncells * cap),
-                              sorted_lin * cap + rank_sorted)
+                              local_lin * cap + rank_sorted)
 
-    # per-cell run starts via histogram + exclusive cumsum; each slot reads
-    # the run entry starts + r (clamped to the run end, then masked)
-    counts = torch.bincount(lin.long(), minlength=ncells)
+    counts = torch.bincount(lin_g.long(), minlength=b * ncells)
     starts = torch.cumsum(counts, 0) - counts
     ends = starts + counts
-    src = starts[:, None] + torch.arange(cap, device=device)[None, :]
-    valid = src < ends[:, None]
-    srcc = torch.minimum(src, ends[:, None]).reshape(-1)
-    svals = torch.cat([wp[order], torch.zeros((cap, 3), dtype=dtype,
-                                              device=device)])
+    valid = torch.arange(cap, device=device)[None, :] < counts[:, None]
+    srcc = torch.minimum(starts[:, None] + torch.arange(cap, device=device),
+                         ends[:, None]).reshape(-1)
+    svals = torch.cat([wp[order], wp.new_zeros((cap, 3))])
     planes = torch.where(valid.reshape(-1, 1), svals[srcc],
                          torch.zeros((), dtype=dtype, device=device))
-    planes = planes.reshape(cz, cy, cx, cap, 3)
-    aid_src = torch.cat([order.to(INDEX_DTYPE),
-                         torch.full((cap,), n, dtype=INDEX_DTYPE,
-                                    device=device)])
+    planes = planes.reshape(b, cz, cy, cx, cap, 3)
+    order_local = (order - torch.div(order, npa, rounding_mode="floor") * npa
+                   ).to(INDEX_DTYPE)
+    aid_src = torch.cat([order_local, torch.full((cap,), npa,
+                                                 dtype=INDEX_DTYPE,
+                                                 device=device)])
     g_aid = torch.where(valid.reshape(-1), aid_src[srcc],
-                        torch.full((), n, dtype=INDEX_DTYPE, device=device)
-                        ).reshape(cz, cy, cx, cap)
-    g_valid = valid.reshape(cz, cy, cx, cap)
+                        torch.full((), npa, dtype=INDEX_DTYPE, device=device)
+                        ).reshape(b, cz, cy, cx, cap)
+    g_valid = valid.reshape(b, cz, cy, cx, cap)
 
-    # displacement-based validity: park every empty slot far away, at a
-    # unique x, so the distance test alone excludes it from every pair body
+    # per-system park iota: systems never interact
     slot_iota = torch.arange(ncells * cap, dtype=dtype,
-                             device=device).reshape(cz, cy, cx, cap)
+                             device=device).reshape(1, cz, cy, cx, cap)
     park = torch.where(g_valid, torch.zeros((), dtype=dtype, device=device),
                        DISPLACE + slot_iota * DISPLACE_SPACING)
-    g_px = planes[..., 0] + park
-
     radius_t = (rz, ry, rx)
-    ext_px = _extend(g_px, radius_t, pbc_l, DISPLACE)
-    ext_py = _extend(planes[..., 1], radius_t, pbc_l, 0.0)
-    ext_pz = _extend(planes[..., 2], radius_t, pbc_l, 0.0)
-    ext_valid = _extend(g_valid, radius_t, pbc_l, False)
-    ext_aid = _extend(g_aid, radius_t, pbc_l, n)
 
-    # per-extended-cell unit shift; ghost positions get S @ cell
+    def ext(plane, fill):
+        return _extend(plane, radius_t, pbc_l, fill, first_axis=1)
+
+    ext_px = ext(planes[..., 0] + park, DISPLACE)
+    ext_py = ext(planes[..., 1], 0.0)
+    ext_pz = ext(planes[..., 2], 0.0)
+    ext_valid = ext(g_valid, False)
+    ext_aid = ext(g_aid, npa)
+
     ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
 
     def shift(e, r, c):
-        iota = torch.arange(e, dtype=INDEX_DTYPE, device=device)
-        return divmod_floor(iota - r, c)[0]
+        return divmod_floor(torch.arange(e, dtype=INDEX_DTYPE, device=device)
+                            - r, c)[0]
 
     sz = shift(ez, rz, cz)[:, None, None].expand(ez, ey, ex)
     sy = shift(ey, ry, cy)[None, :, None].expand(ez, ey, ex)
     sx = shift(ex, rx, cx)[None, None, :].expand(ez, ey, ex)
     sxf, syf, szf = sx.to(dtype), sy.to(dtype), sz.to(dtype)
-    shx = sxf * cell[0, 0] + syf * cell[1, 0] + szf * cell[2, 0]
-    shy = sxf * cell[0, 1] + syf * cell[1, 1] + szf * cell[2, 1]
-    shz = sxf * cell[0, 2] + syf * cell[1, 2] + szf * cell[2, 2]
+    c = cells.reshape(b, 1, 1, 1, 3, 3)
+    shx = sxf * c[..., 0, 0] + syf * c[..., 1, 0] + szf * c[..., 2, 0]
+    shy = sxf * c[..., 0, 1] + syf * c[..., 1, 1] + szf * c[..., 2, 1]
+    shz = sxf * c[..., 0, 2] + syf * c[..., 1, 2] + szf * c[..., 2, 2]
     return AtomGrid(
         ext_px=ext_px + shx[..., None],
         ext_py=ext_py + shy[..., None],
         ext_pz=ext_pz + shz[..., None],
         ext_valid=ext_valid,
         ext_aid=ext_aid,
-        ext_shift_code=pack_shifts(sx, sy, sz),
-        flat_slot=flat,
+        ext_shift_code=pack_shifts(sx, sy, sz).expand((b, ez, ey, ex)),
+        flat_slot=flat.reshape(b, npa),
         counts_max=counts_max,
         dims=(cz, cy, cx),
         radius=(rz, ry, rx),
         cap=cap,
     )
+
+
+def system_grid(grid: AtomGrid, b: int) -> AtomGrid:
+    """System ``b`` of a batched AtomGrid, as a single-system AtomGrid."""
+    return AtomGrid(
+        **{f: getattr(grid, f)[b] for f in (
+            "ext_px", "ext_py", "ext_pz", "ext_valid", "ext_aid",
+            "ext_shift_code", "flat_slot", "counts_max")},
+        dims=grid.dims, radius=grid.radius, cap=grid.cap)
 
 
 def scatter_to_grid(grid: AtomGrid, values, fill=0.0):

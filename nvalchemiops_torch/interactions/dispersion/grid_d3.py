@@ -34,15 +34,18 @@ from nvalchemiops_torch.grid import (
     AtomGrid,
     _extend_like,
     _interior,
+    batch_build_atom_grid,
+    estimate_grid_geometry,
     fold_halo,
     gather_rows_from_grid,
     scatter_rows_to_grid,
+    system_grid,
 )
 from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
 from nvalchemiops_torch.types import INDEX_DTYPE
 
 __all__ = ["compact_d3_elements", "element_cn_ref", "element_c6_mask",
-           "grid_dftd3"]
+           "grid_dftd3", "batch_grid_dftd3"]
 
 _SQRT3 = 1.7320508075688772
 
@@ -293,3 +296,38 @@ def grid_dftd3(
     f1, f2, f3, coord_num = gather_rows_from_grid(
         grid, (fx_pl, fy_pl, fz_pl, cn_pl))
     return energy, torch.stack([f1, f2, f3], dim=-1), coord_num
+
+
+def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
+                     r4r2, c6ab, cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0,
+                     k3=-4.0, cap: int | None = None,
+                     engine: str | None = None):
+    """Batched DFT-D3(BJ) on one whole-batch halo grid.
+
+    The systems share the grid geometry estimated from ``cells[0]``; the
+    grid is built once for the batch (:func:`grid.batch_build_atom_grid`)
+    and each system runs :func:`grid_dftd3` on its part, in a loop over
+    systems.  ``positions [B, n, 3]``, ``numbers [B, n]`` (0 = padding
+    atom), ``cells`` ``[3, 3]`` or ``[B, 3, 3]``; ``cap`` overrides the
+    estimated slot capacity (target occupancy 0.66, as in the JAX
+    package).  Returns ``(energy [B], forces [B, n, 3], cn [B, n])``.
+    ``engine`` accepts only ``None`` or ``"window"`` (the JAX package
+    defaults to its xla engine here, which agrees with the window engine
+    to f64 rounding).
+    """
+    if engine not in (None, "window"):
+        raise NotImplementedError(
+            f"batch_grid_dftd3 engine={engine!r} is not ported (ROADMAP.md, "
+            "'Engines off the default path')")
+    b, n = positions.shape[0], positions.shape[1]
+    cells_np = np.asarray(_np(cells), dtype=np.float64)
+    dims, radius, cap_est = estimate_grid_geometry(
+        cells_np if cells_np.ndim == 2 else cells_np[0], pbc, cutoff, n,
+        target_occupancy=0.66)
+    g = batch_build_atom_grid(positions, cells, pbc, dims, radius,
+                              cap or cap_est)
+    numbers_np = _np(numbers)
+    outs = [grid_dftd3(system_grid(g, i), numbers_np[i], rcov, r4r2, c6ab,
+                       cn_ref_elem, cutoff, a1, a2, s8, s6=s6, k1=k1, k3=k3)
+            for i in range(b)]
+    return tuple(torch.stack(o) for o in zip(*outs))

@@ -14,6 +14,11 @@ launch_counts = {
     "window_sweep_coulomb": 0,
     "windowed_spread": 0,
     "windowed_gather_grad": 0,
+    "dense_pairs_cn": 0,
+    "dense_pairs_direct": 0,
+    "dense_pairs_chain": 0,
+    "separable_spread": 0,
+    "separable_gather": 0,
 }
 
 

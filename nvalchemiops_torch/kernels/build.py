@@ -1,7 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
 """Build the CUDA sources into one shared library at first use; load it.
 
-``nvcc`` compiles every ``nvalchemiops_torch/csrc/*.cu`` into one shared
+``nvcc`` compiles every ``nvalchemiops_torch/csrc/*.cu`` (one process per
+source, all started together) and links the objects into one shared
 library with a plain C interface for ``sm_90a`` (Hopper), which ``ctypes``
 loads.  Nothing links against PyTorch, so a build takes seconds.  The
 library lands in ``build/nvalchemiops_torch/`` beside the package, named by
@@ -29,7 +30,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "nvalchemiops_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,10 @@ _SIGNATURES = {
                        + [_I, _I, _P],
     "nv_windowed_gather_grad": [_P] * 6 + [_I] * 4 + [_P],
     "nv_windowed_spread": [_P] * 3 + [_I] * 4 + [_P],
+    "nv_dense_pairs": [_I] + [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I] * 3
+                      + [ctypes.POINTER(_I), _P],
+    "nv_separable_spread": [_P] * 4 + [_I] * 6 + [_P],
+    "nv_separable_gather": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 def find_nvcc() -> str:
@@ -90,15 +95,38 @@ def build_library(extra_flags=()) -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, *_sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = None
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+    if failed is None:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             check=False)
+        log.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed = (f"nvcc link failed ({res.returncode}): {' '.join(cmd)}"
+                      f"\n{res.stdout}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed is not None:
+        raise RuntimeError(failed)
     os.replace(tmp, path)
-    return path, res.stdout + res.stderr
+    return path, "".join(log)
 
 
 @functools.cache

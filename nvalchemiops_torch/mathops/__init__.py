@@ -3,9 +3,11 @@
 
 from nvalchemiops_torch.mathops.math import (
     apply_mat3,
+    apply_mat3_batched,
     divmod_floor,
     erfc_approx,
     sinc_normalized,
 )
 
-__all__ = ["apply_mat3", "divmod_floor", "erfc_approx", "sinc_normalized"]
+__all__ = ["apply_mat3", "apply_mat3_batched", "divmod_floor", "erfc_approx",
+           "sinc_normalized"]

@@ -57,3 +57,12 @@ def apply_mat3(vecs, m):
     """
     return (vecs[..., 0:1] * m[0] + vecs[..., 1:2] * m[1]
             + vecs[..., 2:3] * m[2])
+
+
+def apply_mat3_batched(vecs, m):
+    """``vecs [.., n, 3] @ m [.., 3, 3]`` per leading index, in the
+    multiply-add order of :func:`apply_mat3` (``m [3, 3]`` with ``vecs [n,
+    3]`` is :func:`apply_mat3` itself)."""
+    m = m[..., None, :, :]
+    return (vecs[..., 0:1] * m[..., 0, :] + vecs[..., 1:2] * m[..., 1, :]
+            + vecs[..., 2:3] * m[..., 2, :])

@@ -46,7 +46,7 @@ def grid_fields(g):
 def port_grid(g, dtype=F64):
     """The port's AtomGrid holding exactly the JAX grid's state."""
     return interop.atom_grid_from_numpy(grid_fields(g), g.dims, g.radius,
-                                        g.cap, dtype=dtype)
+                                        g.cap, dtype=dtype, device="cpu")
 
 
 def jax_d3_planes(g, numbers, rcov, r4r2, c6, cna, cutoff, a1, a2, s8,

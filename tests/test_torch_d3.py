@@ -81,7 +81,7 @@ def test_grid_dftd3_matches_jax(tables):
     e_j, f_j, cn_j = jd3.grid_dftd3(gj, jnp.asarray(numbers),
                                     *(jnp.asarray(a) for a in tab), cutoff,
                                     A1, A2, S8, engine="xla")
-    tt = interop.d3_tables_from_numpy(*tab)
+    tt = interop.d3_tables_from_numpy(*tab, device="cpu")
     e_t, f_t, cn_t = td3.grid_dftd3(port_grid(gj), numbers, tt["rcov"],
                                     tt["r4r2"], tt["c6ab"],
                                     tt["cn_ref_elem"], cutoff, A1, A2, S8)

@@ -86,7 +86,8 @@ def _tiles_from_jax(tj):
     fields = {f: np.asarray(getattr(tj, f))
               for f in interop.MESH_TILES_FIELDS}
     return interop.mesh_tiles_from_numpy(fields, tj.mesh_dims, tj.tile,
-                                         tj.cap, tj.order, tj.has_grad)
+                                         tj.cap, tj.order, tj.has_grad,
+                                         device="cpu")
 
 
 def test_windowed_spread_matches_jax(system, tiles):
@@ -163,12 +164,19 @@ def test_pme_reciprocal_space_matches_jax(system, compute_forces):
 
 
 def test_pme_raises_where_jax_falls_back(system):
+    """Tile overflow now falls back to the dense path, as in the JAX
+    package; a mesh the windowed path does not support still raises."""
     pos, cell, q = system
     args = (torch.as_tensor(pos), torch.as_tensor(q), torch.as_tensor(cell),
             ALPHA)
-    with pytest.raises(ValueError, match="tile overflow"):
-        tpme.pme_reciprocal_space(*args, mesh_dimensions=MESH,
-                                  compute_forces=True, tile_capacity=1)
+    out_t = tpme.pme_reciprocal_space(*args, mesh_dimensions=MESH,
+                                      compute_forces=True, tile_capacity=1)
+    out_j = jpme.pme_reciprocal_space(jnp.asarray(pos), jnp.asarray(q),
+                                      jnp.asarray(cell), ALPHA,
+                                      mesh_dimensions=MESH,
+                                      compute_forces=True, tile_capacity=1)
+    for a, b in zip(out_t, out_j):
+        assert_close(a, b, rtol=1e-9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpme.pme_reciprocal_space(*args, mesh_dimensions=(15, 16, 16))
 
