@@ -34,7 +34,27 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    windowed engine (tiles of 16);
 9. kernel vs plain for the kernels of phases 6-8, as in phase 5: the 9 A
    batch, the grid branch (cap 104) and the windowed batch (W = 20) right
-   after their runs, the 21.2 A batch and the dense PME with bounds.
+   after their runs, the 21.2 A batch and the dense PME with bounds;
+10. the 1,024-atom composite on the other grid engines: ``grid_dftd3``
+    on the super-chunk (``"block"``, kernel 8) and per-row (``"pallas"``,
+    kernel 7) sweeps, ``grid_coulomb_energy_forces(engine="block")`` and
+    the fused ``grid_dftd3_coulomb`` on the block and window engines, with
+    and without ``combine_forces``; f32 forces against the f64 reference
+    at 1.25x the JAX bars (combined forces against the sum of the two
+    channels at the D3 bar);
+11. the same engines at full width on phase 4's grid, against phase 4's
+    window-engine D3 and Coulomb forces at the cross-engine bars, with
+    bounds;
+12. the voxel stencil (kernel 9) and the hybrid D3 engine on the
+    110,592-atom simple-cubic crystal of the JAX package's hybrid probe
+    (48^3, a = 3.0 A, 9 A, zmax-16 random tables): the stencil Coulomb and
+    ``grid_dftd3(stencil=...)`` with both ``hybrid_cn`` values against the
+    window engine on the row grid; then the f32 kernels against the port's
+    plain path in f64 on the card on the same recipe at 13,824 atoms.
+
+Every drive of phases 10-12 captures its kernel calls and replays them
+against their plain versions, and forbids every pair-sweep kernel off its
+path.
 
 Each phase sets the launch counts to 0 just before it drives its path and
 reads them just after; a kernel of the path that did not launch fails the
@@ -96,6 +116,26 @@ REFERENCE_D3_BATCH_MS = 46.049            # BASELINE.md:32, H100, 21.2 A
 D3_DENSE_VS_GRID_BAR = (4.95e-4, 5.04e-5)
 PME_FALLBACK_VS_WINDOWED_BAR = (6.50e-5, 2.96e-5)
 PME_DENSE_VS_WINDOWED_BAR = (1.49e-6, 8.94e-7)
+# cross-engine bars of phases 11 and 12 (max rel, RMS rel), both engines in
+# f32: the block, pallas and fused engines against phase 4's window engine
+# (D3, Coulomb, and D3 + Coulomb for combine_forces), the hybrid D3 and the
+# stencil Coulomb against the window engine on the crystal's row grid.
+# 1.25x the largest of three readings of sound runs (rounded up; NVIDIA
+# H100 80GB HBM3, 700 W): D3 6.936e-6 / 2.929e-6 (the pallas engine),
+# Coulomb 2.394e-6 / 9.801e-7 (block; it read 2.210e-6 and 2.302e-6 in the
+# others: the order of the atomics), combined 3.303e-6 / 1.463e-6 (window;
+# 2.993e-6 twice), hybrid 1.209e-5 / 2.401e-6 (stencil CN), stencil
+# Coulomb 5.864e-6 / 1.315e-6.
+ENGINE_BARS = {"d3": (8.67e-6, 3.67e-6), "coulomb": (3.00e-6, 1.23e-6),
+               "combined": (4.13e-6, 1.83e-6),
+               "hybrid_d3": (1.52e-5, 3.01e-6),
+               "stencil_coulomb": (7.33e-6, 1.65e-6)}
+# the JAX package's hybrid probe system (benchmarks/hybrid_probe.py:33-71):
+# jittered simple-cubic crystal from default_rng(0), zmax-16 random tables,
+# a1/a2/s8 = 0.4/4.2/1.8; charges drawn after the tables; the f64 witness
+# runs the same recipe at witness_n_rep
+HYBRID = dict(n_rep=48, a=3.0, jitter=0.2, cutoff=9.0, alpha=0.35, zmax=16,
+              witness_n_rep=24)
 
 KERNEL_SOURCES = {
     "window_sweep": ("nvalchemiops_torch/csrc/window_sweep.cu",
@@ -110,13 +150,25 @@ KERNEL_SOURCES = {
                          "nvalchemiops_tpu/pallas/spread.py:45"),
     "separable_gather": ("nvalchemiops_torch/csrc/separable_spline.cu",
                          "nvalchemiops_tpu/pallas/spread.py:87"),
+    "row_sweep": ("nvalchemiops_torch/csrc/row_sweep.cu",
+                  "nvalchemiops_tpu/pallas/row_sweep.py:89"),
+    "chunk_sweep": ("nvalchemiops_torch/csrc/chunk_sweep.cu",
+                    "nvalchemiops_tpu/pallas/block_sweep.py:101"),
+    "stencil_sweep": ("nvalchemiops_torch/csrc/stencil_sweep.cu",
+                      "nvalchemiops_tpu/pallas/stencil_sweep.py:46"),
 }
+# the half-space pair sweeps over the halo grid (kernels 1, 7, 8)
+GRID_SWEEPS = ("window_sweep", "row_sweep", "chunk_sweep")
+# launch-count prefixes of every pair-sweep kernel: a drive of phases 10-12
+# forbids each one off its path
+SWEEP_COUNT_PREFIXES = ("window_sweep_", "row_sweep_", "chunk_sweep_",
+                        "stencil_sweep_", "dense_pairs_")
 
 # flops per pair inside the cutoff (exp, rsqrt and a divide count as one
 # operation each, a multiply-add as two), for the bound column; the
 # displacement and r^2 of every visited pair count 8 more
 PAIR_FLOPS = {"cn": 10, "d3_direct": 35, "chain": 20, "coulomb": 35,
-              "direct": 35}
+              "direct": 35, "d3_direct_coulomb": 70}
 DIST_FLOPS = 8
 
 
@@ -165,13 +217,17 @@ class Capture:
 
 
 def install_capture():
-    from nvalchemiops_torch import grid, spline_windowed
+    from nvalchemiops_torch import grid, spline_windowed, stencil
     from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
     from nvalchemiops_torch.interactions.electrostatics import pme
 
     cap = Capture()
     for mod in (grid, grid_d3):
         cap.wrap(mod, "window_sweep", lambda body, *a: f"window_sweep[{body}]")
+        cap.wrap(mod, "chunk_sweep", lambda body, *a: f"chunk_sweep[{body}]")
+    cap.wrap(grid_d3, "row_sweep", lambda body, *a: f"row_sweep[{body}]")
+    cap.wrap(stencil, "stencil_sweep",
+             lambda body, *a: f"stencil_sweep[{body}]")
     cap.wrap(spline_windowed, "spread_windows", lambda *a: "windowed_spread")
     cap.wrap(spline_windowed, "gather_grad_planes",
              lambda *a: "windowed_gather_grad")
@@ -211,19 +267,30 @@ def work(key, args, kwargs, out, ctx):
         # the spread reads Sx | Sy | Sz; the derivative columns feed the gather
         smat, q_t, w = args
         reads = [smat[..., :3 * w], q_t]
-    if base == "window_sweep":
+    if base in GRID_SWEEPS:
         # the half-space windows never reach the low z halo, nor the low y
         # halo of the first interior plane; j_out is written where read
         rz, ry = args[1][0], args[1][1]
-        cand, j_out = args[3], outs[1]
-        reads = [a for a in reads if a is not cand] + [cand[:, rz + 1:],
-                                                       cand[:, rz, ry:]]
+        cand, j_out, cf = args[3], outs[1], kwargs.get("cf")
+        reads = [a for a in reads if a is not cand and a is not cf] + [
+            cand[:, rz + 1:], cand[:, rz, ry:]]
+        if cf is not None:
+            # the zm-wide rows cf [.., cap, 2 zm] are [z_j == z] e_j, mostly
+            # zeros: the function needs kernel 1's candidate features z,
+            # e[mesh], edc[mesh] (1 + 2 mesh floats a slot), so the extra
+            # traffic of the wide form shows as distance from the bound
+            nk = 1 + 2 * ctx["mesh"]
+            reads += [cf[rz + 1:, ..., :nk], cf[rz, ry:, ..., :nk]]
         outs = (outs[0], j_out[:, rz + 1:], j_out[:, rz, ry:])
     nbytes = _nbytes(*reads, *outs)
-    if base == "window_sweep":
-        body = key[len("window_sweep["):-1]
+    if base in GRID_SWEEPS or base == "stencil_sweep":
+        # every pair inside the cutoff once (the full-space stencil visits
+        # each twice: that shows as distance from the bound); the D3 bodies'
+        # three C6 dots have the mesh length on every engine (the zm-wide
+        # dots of kernels 7 and 8 add zeros)
+        body = key[len(base) + 1:-1]
         pairs = pairs_in_cutoff(1, ctx["n"], ctx["volume"], ctx["cutoff"])
-        extra = 6 * ctx.get("mesh", 0) if body == "d3_direct" else 0
+        extra = 6 * ctx["mesh"] if body.startswith("d3_direct") else 0
         return nbytes, pairs * (DIST_FLOPS + PAIR_FLOPS[body] + extra)
     if base == "dense_pairs":
         body = key[len("dense_pairs["):-1]
@@ -310,9 +377,12 @@ def library_call(key, args):
 def compare_kernels(calls, label, ctx=None):
     """Replay each captured call through kernel and plain version; with
     ``ctx`` also time the library call and compute the bound."""
+    from nvalchemiops_torch.kernels import chunk_sweep as cs
     from nvalchemiops_torch.kernels import dense_pairs as ds
     from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import row_sweep as rs
     from nvalchemiops_torch.kernels import separable_spline as ss
+    from nvalchemiops_torch.kernels import stencil_sweep as st
     from nvalchemiops_torch.kernels import window_sweep as ws
     from nvalchemiops_torch.kernels import windowed_gather as wg
 
@@ -324,6 +394,9 @@ def compare_kernels(calls, label, ctx=None):
         "dense_pairs": (ds.dense_pairs, ds.dense_pairs_plain),
         "separable_spread": (ss.separable_spread, ss.separable_spread_plain),
         "separable_gather": (ss.separable_gather, ss.separable_gather_plain),
+        "row_sweep": (rs.row_sweep, rs.row_sweep_plain),
+        "chunk_sweep": (cs.chunk_sweep, cs.chunk_sweep_plain),
+        "stencil_sweep": (st.stencil_sweep, st.stencil_sweep_plain),
     }
     rows = {}
     for key, (args, kwargs) in sorted(calls.items()):
@@ -336,7 +409,8 @@ def compare_kernels(calls, label, ctx=None):
             raise AssertionError(f"{label} {key}: launch count did not move")
         out_p = plain(*args, **kwargs)
         torch.cuda.synchronize()
-        split = base in ("window_sweep", "dense_pairs")
+        # the pair sweeps return stacked planes: each plane on its own scale
+        split = base in GRID_SWEEPS + ("dense_pairs", "stencil_sweep")
         out_k = out_k if isinstance(out_k, tuple) else (out_k,)
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         max_abs, worst_rel = 0.0, 0.0
@@ -755,6 +829,256 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
     return dense_calls, counts, ctx, fallback_calls, ctx_fb
 
 
+def off_path(expect):
+    """Every pair-sweep launch count outside ``expect``."""
+    from nvalchemiops_torch.kernels import launch_counts
+
+    return [k for k in launch_counts
+            if k.startswith(SWEEP_COUNT_PREFIXES) and k not in expect]
+
+
+def drive_and_replay(label, fn, expect, ctx=None, profile=False):
+    """One drive of phases 10-12: ``fn`` returns a dict of output tensors
+    (force channels named ``d3``, ``coulomb`` or ``combined``); the launch
+    counts must show ``expect`` and no other pair sweep.  Checks finite
+    outputs and the net force, prints the steady time (and with
+    ``profile`` the device busy time and idle share) and replays every
+    captured kernel call against its plain version.  Returns ``(out,
+    counts, rows)``."""
+    capture = install_capture()
+    out, counts = drive(label, fn, expect, forbid=off_path(expect))
+    capture.restore()
+    for name, t in out.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+    nets = {ch: check_forces(f"{label} {ch}", out[ch])
+            for ch in ("d3", "coulomb", "combined") if ch in out}
+    phase(f"{label}: steady {cuda_time_ms(fn, reps=3):.3f} ms (CUDA events, "
+          f"median of 3 after a warm-up), net force / sum|F| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in nets.items()))
+    if profile:
+        profile_step(label, fn)
+    rows = compare_kernels(capture.calls, label, ctx)
+    return out, counts, rows
+
+
+def keep_rows(table, rows, counts):
+    """Add each kernel row not yet in ``table`` with its drive's launches."""
+    for key, row in rows.items():
+        table.setdefault(key, (row, counts[count_key_of(key)]))
+
+
+def engine_runs(g, d3_args, q, alpha):
+    """``(label, fn, expect)`` of the other grid engines on grid ``g``: the
+    D3 engines, the block Coulomb and the fused D3 + Coulomb sweep (its
+    Coulomb cutoff is the D3 cutoff)."""
+    from nvalchemiops_torch.grid import grid_coulomb_energy_forces
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
+        grid_dftd3, grid_dftd3_coulomb,
+    )
+
+    def d3(engine):
+        def fn():
+            e, f, cn = grid_dftd3(g, *d3_args, engine=engine)
+            return {"energy": e, "cn": cn, "d3": f}
+        return fn
+
+    def coulomb():
+        e, f = grid_coulomb_energy_forces(g, q, d3_args[5], alpha,
+                                          engine="block")
+        return {"energy": e, "coulomb": f}
+
+    def fused(combine, **engine):
+        def fn():
+            e, f, cn, ec, fc = grid_dftd3_coulomb(
+                g, d3_args[0], q, *d3_args[1:], coulomb_cutoff=d3_args[5],
+                alpha=alpha, combine_forces=combine, **engine)
+            if combine:
+                return {"energy": e, "cn": cn, "ec": ec, "combined": f}
+            return {"energy": e, "cn": cn, "ec": ec, "d3": f, "coulomb": fc}
+        return fn
+
+    def passes(kernel, direct):
+        return [f"{kernel}_cn", f"{kernel}_{direct}", f"{kernel}_chain"]
+
+    return [
+        ("grid_dftd3(engine='block')", d3("block"),
+         passes("chunk_sweep", "d3_direct")),
+        ("grid_dftd3(engine='pallas')", d3("pallas"),
+         passes("row_sweep", "d3_direct")),
+        ("grid_coulomb_energy_forces(engine='block')", coulomb,
+         ["chunk_sweep_coulomb"]),
+        ("grid_dftd3_coulomb() [block]", fused(False),
+         passes("chunk_sweep", "d3_direct_coulomb")),
+        ("grid_dftd3_coulomb(combine_forces=True) [block]", fused(True),
+         passes("chunk_sweep", "d3_direct_coulomb")),
+        ("grid_dftd3_coulomb(engine='window')", fused(False, engine="window"),
+         passes("window_sweep", "d3_direct_coulomb")),
+        ("grid_dftd3_coulomb(engine='window', combine_forces=True)",
+         fused(True, engine="window"),
+         passes("window_sweep", "d3_direct_coulomb")),
+    ]
+
+
+def run_engines(label, g, d3_args, q, alpha, refs, ref_label, bars,
+                ctx=None):
+    """Phases 10 and 11: each engine of :func:`engine_runs` driven and
+    replayed, its force channels held to ``refs`` (named ``ref_label``) at
+    ``bars``, ``combined`` against the sum of the D3 and Coulomb
+    references.  Returns the kernel rows with their launches."""
+    table = {}
+    refs = dict(refs, combined=refs["d3"] + refs["coulomb"])
+    for name, fn, expect in engine_runs(g, d3_args, q, alpha):
+        out, counts, rows = drive_and_replay(f"{label} {name}", fn, expect,
+                                             ctx, profile=ctx is not None)
+        for ch in ("d3", "coulomb", "combined"):
+            if ch in out:
+                check_errors(f"{label} {name} {ch} forces vs {ref_label}",
+                             out[ch], refs[ch], bars[ch])
+        keep_rows(table, rows, counts)
+    return table
+
+
+def hybrid_system(n_rep):
+    """benchmarks/hybrid_probe.py:33-71 in numpy: the jittered crystal,
+    element ids and zmax-16 tables from ``default_rng(0)``, then normal
+    charges.  Returns ``(pos, cell, numbers, charges, tables)``."""
+    cfg = HYBRID
+    rng = np.random.default_rng(0)
+    zmax = cfg["zmax"]
+    pts = np.stack(np.meshgrid(*([np.arange(n_rep)] * 3), indexing="ij"),
+                   -1).reshape(-1, 3) * cfg["a"]
+    pos = pts + rng.uniform(-cfg["jitter"], cfg["jitter"], pts.shape)
+    n = pos.shape[0]
+    numbers = rng.integers(1, zmax + 1, n).astype(np.int32)
+    rcov = np.r_[0.0, rng.uniform(0.6, 1.2, zmax)]
+    r4r2 = np.r_[0.0, rng.uniform(2.0, 5.0, zmax)]
+    cna = np.vstack([np.zeros(5),
+                     np.cumsum(rng.uniform(0.3, 1.0, (zmax, 5)), 1)])
+    c6 = rng.uniform(5.0, 40.0, (zmax + 1, zmax + 1, 5, 5))
+    c6[0] = 0.0
+    c6[:, 0] = 0.0
+    c6 = 0.5 * (c6 + np.swapaxes(np.swapaxes(c6, 0, 1), 2, 3))
+    charges = rng.normal(size=n)
+    return (pos, np.eye(3) * (n_rep * cfg["a"]), numbers, charges,
+            (rcov, r4r2, c6, cna))
+
+
+def run_stencil(dev):
+    """Phase 12; returns the kernel rows with their launches."""
+    from nvalchemiops_torch import composite, stencil
+    from nvalchemiops_torch.grid import grid_coulomb_energy_forces
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import grid_dftd3
+    from nvalchemiops_torch.kernels.stencil_sweep import stencil_sweep_plain
+    from nvalchemiops_torch.kernels.window_sweep import window_sweep_plain
+
+    cfg = HYBRID
+    cutoff, alpha = cfg["cutoff"], cfg["alpha"]
+    a1, a2, s8 = D3_PARAMS
+    pbc = np.array([True] * 3)
+
+    def setup(n_rep, dtype):
+        """The system on the card in ``dtype``, from its f32 values: the
+        f64 witness widens the f32 inputs, so it measures the kernels'
+        arithmetic.  (At 9 A = 3a the (3, 0, 0) shell straddles D3's hard
+        cutoff; positions rounded to f32 move pairs across it.)"""
+        pos, cell, numbers, charges, tables = hybrid_system(n_rep)
+
+        def on_card(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(
+                dtype)
+
+        pos, cell, q = on_card(pos), on_card(cell), on_card(charges)
+        g = composite.build_grid(pos, cell, cutoff)
+        sg = stencil.build_stencil_auto(pos, cell, pbc, cutoff)
+        if sg is None or int(sg.counts_max) != 1:
+            raise AssertionError(f"crystal n_rep {n_rep}: no occupancy-1 "
+                                 "stencil")
+        return g, sg, numbers, q, tuple(on_card(t) for t in tables)
+
+    def runs(g, sg, numbers, q, tables):
+        def hybrid(cn_mode):
+            def fn():
+                e, f, cn = grid_dftd3(g, numbers, *tables, cutoff, a1, a2, s8,
+                                      stencil=sg, hybrid_cn=cn_mode)
+                return {"energy": e, "cn": cn, "d3": f}
+            return fn
+
+        def stencil_coulomb():
+            e, f = stencil.stencil_coulomb_energy_forces(sg, q, cutoff, alpha)
+            return {"energy": e, "coulomb": f}
+        return hybrid, stencil_coulomb
+
+    n_full = cfg["n_rep"] ** 3
+    g, sg, numbers, q, tables = setup(cfg["n_rep"], torch.float32)
+    label = f"crystal {n_full} atoms"
+    phase(f"{label}: row grid dims {g.dims} radius {g.radius} cap {g.cap} "
+          f"(counts_max {int(g.counts_max)}); stencil dims {sg.dims} radius "
+          f"{sg.radius} occupancy {int(sg.counts_max)}")
+    if sg.dims != (cfg["n_rep"],) * 3 or sg.radius != (3, 3, 3):
+        raise AssertionError(f"{label}: stencil geometry {sg.dims} "
+                             f"{sg.radius}, expected 48^3 voxels, radius 3")
+    hybrid, stencil_coulomb = runs(g, sg, numbers, q, tables)
+    ctx = {"n": n_full, "volume": (cfg["n_rep"] * cfg["a"]) ** 3,
+           "cutoff": cutoff, "mesh": tables[3].shape[1]}
+    window_d3 = ["window_sweep_cn", "window_sweep_d3_direct",
+                 "window_sweep_chain"]
+    (w_d3, _, _) = drive_and_replay(
+        f"{label} grid_dftd3 window engine",
+        lambda: dict(zip(("energy", "d3", "cn"), grid_dftd3(
+            g, numbers, *tables, cutoff, a1, a2, s8))), window_d3,
+        profile=True)
+    (w_c, _, _) = drive_and_replay(
+        f"{label} grid_coulomb_energy_forces window engine",
+        lambda: dict(zip(("energy", "coulomb"), grid_coulomb_energy_forces(
+            g, q, cutoff, alpha))), ["window_sweep_coulomb"], profile=True)
+    table = {}
+    s_c, counts, rows = drive_and_replay(
+        f"{label} stencil_coulomb_energy_forces", stencil_coulomb,
+        ["stencil_sweep_coulomb"], ctx, profile=True)
+    keep_rows(table, rows, counts)
+    check_errors(f"{label} stencil Coulomb forces vs window engine",
+                 s_c["coulomb"], w_c["coulomb"],
+                 ENGINE_BARS["stencil_coulomb"])
+    phase(f"{label} stencil Coulomb energies vs window engine: max |diff| "
+          f"{(s_c['energy'] - w_c['energy']).abs().max().item():.3e}")
+    expects = {"stencil": ["stencil_sweep_cn", "window_sweep_d3_direct",
+                           "stencil_sweep_chain"],
+               "row": ["window_sweep_cn", "window_sweep_d3_direct",
+                       "stencil_sweep_chain"]}
+    for cn_mode, expect in expects.items():
+        h, counts, rows = drive_and_replay(
+            f"{label} grid_dftd3(stencil=sg, hybrid_cn={cn_mode!r})",
+            hybrid(cn_mode), expect, ctx, profile=True)
+        keep_rows(table, rows, counts)
+        check_errors(f"{label} hybrid ({cn_mode} CN) D3 forces vs window "
+                     "engine", h["d3"], w_d3["d3"], ENGINE_BARS["hybrid_d3"])
+        phase(f"{label} hybrid ({cn_mode} CN): energy {h['energy'].item():.6e}"
+              f" (window {w_d3['energy'].item():.6e}), CN max |diff| "
+              f"{(h['cn'] - w_d3['cn']).abs().max().item():.3e}")
+    del g, sg, w_d3, w_c, s_c, h
+
+    # the f64 witness: the same recipe at witness_n_rep, f32 kernels
+    # against the port's plain path in f64 on the card
+    n_rep = cfg["witness_n_rep"]
+    label = f"crystal {n_rep ** 3} atoms"
+    k32 = runs(*setup(n_rep, torch.float32))
+    with plain_kernels(grid_d3, window_sweep=window_sweep_plain), \
+            plain_kernels(stencil, stencil_sweep=stencil_sweep_plain):
+        p64 = runs(*setup(n_rep, torch.float64))
+        f64_d3 = p64[0]("stencil")()["d3"]
+        f64_c = p64[1]()["coulomb"]
+    d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
+    c_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["coulomb"])
+    for cn_mode in ("stencil", "row"):
+        check_errors(f"{label} hybrid ({cn_mode} CN) f32 kernels vs f64 plain",
+                     k32[0](cn_mode)()["d3"], f64_d3, d3_bar)
+    check_errors(f"{label} stencil Coulomb f32 kernel vs f64 plain",
+                 k32[1]()["coulomb"], f64_c, c_bar)
+    return table
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -909,7 +1233,7 @@ def main():
                 "order": 4}
     full_rows = compare_kernels(full_calls, f"full width {n} atoms",
                                 ctx_full)
-    del g, full_calls, small_calls
+    del full_calls, small_calls
 
     # -- phases 6 and 7: batched D3, dense and grid branch -----------------
     d3_calls, d3_counts, d3_ctx = run_batched_d3(dev)
@@ -928,6 +1252,36 @@ def main():
         pme_ctx)
     compare_kernels(fb_calls, f"PME fallback {n} atoms at 128^3", fb_ctx)
 
+    # -- phase 10: the composite on the other grid engines ------------------
+    (pos_s, cell_s, num_s, q_s, rcov_s, r4r2_s, cna_s,
+     c6_s) = composite.build_system()
+    d3_small = (*compact_d3_elements(num_s, rcov_s, r4r2_s, c6_s, cna_s),
+                composite.CUTOFF, composite.D3_A1, composite.D3_A2,
+                composite.D3_S8)
+    pos_s = torch.as_tensor(pos_s, dtype=torch.float32, device=dev)
+    cell_s = torch.as_tensor(cell_s, dtype=torch.float32, device=dev)
+    d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
+    run_engines(
+        "composite 1,024 atoms", composite.build_grid(pos_s, cell_s),
+        d3_small, torch.as_tensor(q_s, dtype=torch.float32, device=dev),
+        composite.ALPHA,
+        {k: torch.as_tensor(ref[k], device=dev) for k in ("d3", "coulomb")},
+        "the f64 reference",
+        {"d3": d3_bar, "combined": d3_bar,
+         "coulomb": tuple(BAR_FACTOR * v for v in JAX_F32_BARS["coulomb"])})
+
+    # -- phase 11: the other grid engines at full width ---------------------
+    rows11 = run_engines(
+        f"full width {n} atoms", g,
+        (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
+         composite.D3_A2, composite.D3_S8), q, alpha,
+        {"d3": f_d3, "coulomb": f_c}, "phase 4 window engine", ENGINE_BARS,
+        ctx_full)
+    del g
+
+    # -- phase 12: the voxel stencil and the hybrid D3 engine ---------------
+    rows12 = run_stencil(dev)
+
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),
                          (pme_rows, pme_counts)):
@@ -936,6 +1290,19 @@ def main():
             kernels.append({"name": key, "route": "cuda", "source": source,
                             "replaces": replaces,
                             "launches": counts[count_key_of(key)], **row})
+    listed = {k["name"] for k in kernels}
+    for table in (rows11, rows12):
+        for key, (row, launches) in sorted(table.items()):
+            if key in listed:
+                continue
+            listed.add(key)
+            source, replaces = KERNEL_SOURCES[key.split("[")[0]]
+            kernels.append({"name": key, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches,
+                            **row})
+    missing = set(KERNEL_SOURCES) - {k.split("[")[0] for k in listed}
+    if missing:
+        raise AssertionError(f"kernel table lacks {sorted(missing)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,7 @@ from nvalchemiops_torch.interactions.electrostatics.pme import (
 from nvalchemiops_torch.spline_windowed import observed_tile_capacity
 
 __all__ = ["N_REP", "A_LAT", "CUTOFF", "ALPHA", "MESH", "D3_A1", "D3_A2",
-           "D3_S8", "REF_PATH", "REF_VERSION", "build_system",
+           "D3_S8", "REF_PATH", "REF_VERSION", "build_system", "build_grid",
            "compute_forces", "load_reference", "relative_errors",
            "rms_errors"]
 
@@ -92,6 +92,20 @@ def build_system(n_rep=N_REP, seed=0):
     return pos, cell, numbers, charges, rcov, r4r2, cna, c6
 
 
+def build_grid(pos, cell, cutoff=CUTOFF):
+    """The periodic halo grid as the composite builds it: geometry at
+    target occupancy 0.75, the best half-bin origin, and a capacity of the
+    observed occupancy plus headroom, rounded up to a multiple of 8."""
+    pbc = np.array([True] * 3)
+    dims, radius, cap = estimate_grid_geometry(
+        cell, pbc, cutoff, pos.shape[0], target_occupancy=0.75)
+    origin_np, observed = choose_grid_origin(pos, cell, pbc, dims)
+    origin = origin_np if origin_np.any() else None
+    cap = max(int(np.ceil((observed + 1) / 8)) * 8,
+              int(np.ceil(observed * 1.02 / 8)) * 8)
+    return build_atom_grid(pos, cell, pbc, dims, radius, cap, origin=origin)
+
+
 def compute_forces(dtype=torch.float32, device="cuda", n_rep=N_REP,
                    cutoff=CUTOFF, alpha=ALPHA, mesh=MESH):
     """Per-stage force arrays ``{d3, coulomb, pme}`` (numpy f64) for the
@@ -101,17 +115,10 @@ def compute_forces(dtype=torch.float32, device="cuda", n_rep=N_REP,
         n_rep)
     numbers, rcov, r4r2, c6, cna = compact_d3_elements(numbers, rcov, r4r2,
                                                        c6, cna)
-    pbc = np.array([True] * 3)
     pos = torch.as_tensor(pos_np, dtype=dtype, device=device)
     cell = torch.as_tensor(cell_np, dtype=dtype, device=device)
     q = torch.as_tensor(charges, dtype=dtype, device=device)
-    dims, radius, cap = estimate_grid_geometry(
-        cell, pbc, cutoff, pos.shape[0], target_occupancy=0.75)
-    origin_np, observed = choose_grid_origin(pos, cell, pbc, dims)
-    origin = origin_np if origin_np.any() else None
-    cap = max(int(np.ceil((observed + 1) / 8)) * 8,
-              int(np.ceil(observed * 1.02 / 8)) * 8)
-    g = build_atom_grid(pos, cell, pbc, dims, radius, cap, origin=origin)
+    g = build_grid(pos, cell, cutoff)
 
     _, f_d3, _ = grid_dftd3(g, numbers, rcov, r4r2, c6, cna, cutoff,
                             D3_A1, D3_A2, D3_S8)

@@ -5,7 +5,9 @@
 // Replaces: nvalchemiops_tpu/pallas/window_sweep.py:window_sweep (the
 // Mosaic kernel at :267, pallas_call at :417), which carries D3 passes 1-3
 // (grid_d3.py:1380-1387, :1465-1534, :1612-1625) and the erfc Coulomb pass
-// (grid.py:900-928).
+// (grid.py:900-928), and the fused D3 + Coulomb pass 2 of grid_dftd3_coulomb
+// (grid_d3.py:1535-1571, :1581-1605).  The pair bodies live in
+// pair_bodies.cuh, shared with kernels 7-9.
 //
 // What it computes.  Every interior cell (z, y, x) of the grid meets the
 // candidate windows of the pair-once enumeration: the home row (dz, dy) =
@@ -44,202 +46,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_bodies.cuh"
+
 namespace {
+
+using namespace pair_bodies;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-struct Params {
-  float cutoff_sq, a1, a2, s6, s8, k1, k3, alpha;
-  int zm, mesh;
-  const float* lf;  // D3 direct: own left features [slots, 2 * zm]
-};
-
-__device__ __forceinline__ float erfc_approx(float x) {
-  // Abramowitz-Stegun 7.1.26, as mathops.math.erfc_approx
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float y = poly * expf(-ax * ax);
-  return x >= 0.0f ? y : 2.0f - y;
-}
-
-// r^2 rounded as the plain version rounds it, (dx^2 + dy^2) + dz^2 with no
-// fused multiply-add, so both take the same pairs at the cutoff: D3 has no
-// smooth cutoff, and a pair on the other side of it moves a force by the
-// whole pair term.
-__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// Candidate feature f of candidate j lives at cs[f * ncand + j].
-#define CAND(f) cs[(f) * ncand + j]
-
-// Pass 1: coordination-number logistic (grid_d3.py:1380-1387).
-// own/cand features: px, py, pz, rcov.
-struct CnBody {
-  static constexpr int kOwn = 4, kOut = 1, kJ = 1;
-  __device__ static bool pair(const Params& p, const float* o, int64_t,
-                              const float* cs, int ncand, int j, float* out,
-                              float* jo) {
-    const float dx = CAND(0) - o[0];
-    const float dy = CAND(1) - o[1];
-    const float dz = CAND(2) - o[2];
-    const float d2 = dist2(dx, dy, dz);
-    if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
-    const float inv_r = rsqrtf(d2);
-    const float rc = o[3] + CAND(3);
-    const float f = 1.0f / (1.0f + expf(-p.k1 * (rc * inv_r - 1.0f)));
-    out[0] = f;
-    jo[0] = f;
-    return true;
-  }
-};
-
-// Pass 2: BJ-damped C6/C8 energy, (dE/dr)/r forces and dE/dCN
-// (grid_d3.py:1465-1534).  own features: px, py, pz, si, w (+ the left
-// feature row lf = [l0 | l1c] of width 2 * zm).  cand features: px, py, pz,
-// si, w, z, e[mesh], edc[mesh].  The C6 interpolation needs no matmul: with
-// z_j known, each bilinear is a mesh-term dot against the own row.
-struct D3DirectBody {
-  static constexpr int kOwn = 5, kOut = 5, kJ = 4;
-  __device__ static bool pair(const Params& p, const float* o,
-                              int64_t own_slot, const float* cs, int ncand,
-                              int j, float* out, float* jo) {
-    const float dx = CAND(0) - o[0];
-    const float dy = CAND(1) - o[1];
-    const float dz = CAND(2) - o[2];
-    const float d2 = dist2(dx, dy, dz);
-    if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
-    const float w = o[4] * CAND(4);
-    if (!(w > 1e-12f)) return false;  // every output is zero there
-    const int mesh = p.mesh;
-    const int zj = static_cast<int>(CAND(5));
-    const float* l0 = p.lf + own_slot * (2 * p.zm) + zj * mesh;
-    const float* l1c = l0 + p.zm;
-    const float* ej = cs + 6 * ncand + j;
-    const float* edcj = cs + (6 + mesh) * ncand + j;
-    float zacc = 0.0f, z_di = 0.0f, z_dj = 0.0f;
-    for (int q = 0; q < mesh; ++q) {
-      const float a = __ldg(l0 + q);
-      const float b = __ldg(l1c + q);
-      const float e = ej[q * ncand];
-      zacc += a * e;
-      z_di += b * e;
-      z_dj += a * edcj[q * ncand];
-    }
-    const float w_inv = 1.0f / w;
-    const float c6 = zacc * w_inv;
-    const float t = o[3] * CAND(3);
-    const float rr = t * t;
-    const float r0 = p.a1 * t + p.a2;
-    const float r4 = d2 * d2;
-    const float r6 = r4 * d2;
-    const float r8 = r4 * r4;
-    const float r0_2 = r0 * r0;
-    const float r0_6 = r0_2 * r0_2 * r0_2;
-    const float r0_8 = r0_6 * r0_2;
-    const float den6 = r6 + r0_6;
-    const float den8 = r8 + r0_8;
-    const float rec = 1.0f / (den6 * den8);
-    const float den6_inv = rec * den8;
-    const float den8_inv = rec * den6;
-    const float damp = p.s6 * den6_inv + p.s8 * rr * den8_inv;
-    const float dd6 = -6.0f * p.s6 * r4 * den6_inv * den6_inv;
-    const float dd8 = -8.0f * p.s8 * rr * r6 * den8_inv * den8_inv;
-    const float coef = -c6 * (dd6 + dd8);
-    const float m = (-2.0f * p.k3) * damp * w_inv;
-    out[0] = -c6 * damp;
-    out[1] = coef * dx;
-    out[2] = coef * dy;
-    out[3] = coef * dz;
-    out[4] = m * z_di;
-    jo[0] = -out[1];
-    jo[1] = -out[2];
-    jo[2] = -out[3];
-    jo[3] = m * z_dj;
-    return true;
-  }
-};
-
-// Pass 3: CN chain-rule forces (grid_d3.py:1612-1625).
-// own/cand features: px, py, pz, rcov, decn.
-struct ChainBody {
-  static constexpr int kOwn = 5, kOut = 3, kJ = 3;
-  __device__ static bool pair(const Params& p, const float* o, int64_t,
-                              const float* cs, int ncand, int j, float* out,
-                              float* jo) {
-    const float dx = CAND(0) - o[0];
-    const float dy = CAND(1) - o[1];
-    const float dz = CAND(2) - o[2];
-    const float d2 = dist2(dx, dy, dz);
-    if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
-    const float inv_r = rsqrtf(d2);
-    const float rrq = (o[3] + CAND(3)) * inv_r;
-    const float f = 1.0f / (1.0f + expf(-p.k1 * (rrq - 1.0f)));
-    const float dcn = -f * (1.0f - f) * p.k1 * rrq * inv_r * inv_r;
-    const float coef = (o[4] + CAND(4)) * dcn;
-    out[0] = coef * dx;
-    out[1] = coef * dy;
-    out[2] = coef * dz;
-    jo[0] = -out[0];
-    jo[1] = -out[1];
-    jo[2] = -out[2];
-    return true;
-  }
-};
-
-// erfc-damped (alpha > 0) or bare (alpha == 0) Coulomb (grid.py:900-928).
-// own/cand features: px, py, pz, q.
-struct CoulombBody {
-  static constexpr int kOwn = 4, kOut = 4, kJ = 4;
-  __device__ static bool pair(const Params& p, const float* o, int64_t,
-                              const float* cs, int ncand, int j, float* out,
-                              float* jo) {
-    const float dx = CAND(0) - o[0];
-    const float dy = CAND(1) - o[1];
-    const float dz = CAND(2) - o[2];
-    const float d2 = dist2(dx, dy, dz);
-    if (!(d2 > 1e-20f && d2 < p.cutoff_sq)) return false;
-    const float inv_r = rsqrtf(d2);
-    const float qq = o[3] * CAND(3);
-    float phi, mag;
-    if (p.alpha > 0.0f) {
-      const float ar = p.alpha * (d2 * inv_r);
-      const float erfc_ar = erfc_approx(ar);
-      phi = erfc_ar * inv_r;
-      mag = (erfc_ar * inv_r + 1.1283791670955126f * p.alpha * expf(-ar * ar)) *
-            inv_r * inv_r;
-    } else {
-      phi = inv_r;
-      mag = inv_r * inv_r * inv_r;
-    }
-    const float e = 0.5f * qq * phi;
-    const float ncoef = -(qq * mag);
-    out[0] = e;
-    out[1] = ncoef * dx;
-    out[2] = ncoef * dy;
-    out[3] = ncoef * dz;
-    jo[0] = e;
-    jo[1] = -out[1];
-    jo[2] = -out[2];
-    jo[3] = -out[3];
-    return true;
-  }
-};
-
-#undef CAND
+using D3CoulombSeparate = D3CoulombBody<false, false>;
+using D3CoulombCombined = D3CoulombBody<false, true>;
 
 template <class Body>
 __global__ void __launch_bounds__(kThreads)
     sweep_kernel(const float* __restrict__ own, const float* __restrict__ cand,
                  float* __restrict__ own_out, float* __restrict__ j_out,
                  int cz, int cy, int cx, int rz, int ry, int rx, int cap,
-                 int n_cand, Params p) {
+                 int n_cand, const float* __restrict__ lf, Params p) {
   extern __shared__ float smem[];
   const int ncand = (2 * rx + 1) * cap;
   float* cs = smem;                             // [n_cand][ncand]
@@ -285,13 +108,15 @@ __global__ void __launch_bounds__(kThreads)
       float o[Body::kOwn];
 #pragma unroll
       for (int f = 0; f < Body::kOwn; ++f) o[f] = own[f * own_plane + own_slot];
+      const float* lrow = lf ? lf + own_slot * (2 * p.zm) : nullptr;
       float acc[Body::kOut];
 #pragma unroll
       for (int k = 0; k < Body::kOut; ++k) acc[k] = 0.0f;
       for (int j = j0 + lane; j < ncand; j += 32) {
         if (home && j < (rx + 1) * cap && j - rx * cap <= i) continue;
         float out[Body::kOut], jo[Body::kJ];
-        if (!Body::pair(p, o, own_slot, cs, ncand, j, out, jo)) continue;
+        if (!Body::pair(p, o, lrow, cs, ncand, nullptr, 0, j, out, jo))
+          continue;
 #pragma unroll
         for (int k = 0; k < Body::kOut; ++k) acc[k] += out[k];
 #pragma unroll
@@ -321,7 +146,8 @@ __global__ void __launch_bounds__(kThreads)
 template <class Body>
 cudaError_t launch(const float* own, const float* cand, float* own_out,
                    float* j_out, int cz, int cy, int cx, int rz, int ry, int rx,
-                   int cap, int n_cand, const Params& p, cudaStream_t stream) {
+                   int cap, int n_cand, const float* lf, const Params& p,
+                   cudaStream_t stream) {
   const int ncells = cz * cy * cx;
   if (ncells == 0 || cap == 0) return cudaSuccess;
   const int ncand = (2 * rx + 1) * cap;
@@ -335,35 +161,33 @@ cudaError_t launch(const float* own, const float* cand, float* own_out,
     if (e != cudaSuccess) return e;
   }
   sweep_kernel<Body><<<ncells, kThreads, smem, stream>>>(
-      own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, p);
+      own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// body: 0 = CN, 1 = D3 direct, 2 = CN chain, 3 = Coulomb.
+// body: 0 = CN, 1 = D3 direct, 2 = CN chain, 3 = Coulomb, 4 = D3 direct +
+// Coulomb (separate force channels), 5 = D3 direct + Coulomb (combined).
 extern "C" int nv_window_sweep(int body, const float* own, const float* cand,
                                const float* lf, float* own_out, float* j_out,
                                int cz, int cy, int cx, int rz, int ry, int rx,
                                int cap, int n_cand, float cutoff_sq, float a1,
                                float a2, float s6, float s8, float k1, float k3,
-                               float alpha, int zm, int mesh, void* stream) {
-  const Params p{cutoff_sq, a1, a2, s6, s8, k1, k3, alpha, zm, mesh, lf};
+                               float alpha, float ccutoff_sq, int zm, int mesh,
+                               void* stream) {
+  const Params p{cutoff_sq, a1, a2, s6, s8, k1, k3, alpha, ccutoff_sq, zm, mesh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LAUNCH(B) \
+  launch<B>(own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p, st)
   switch (body) {
-    case 0:
-      return launch<CnBody>(own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx,
-                            cap, n_cand, p, st);
-    case 1:
-      return launch<D3DirectBody>(own, cand, own_out, j_out, cz, cy, cx, rz,
-                                  ry, rx, cap, n_cand, p, st);
-    case 2:
-      return launch<ChainBody>(own, cand, own_out, j_out, cz, cy, cx, rz, ry,
-                               rx, cap, n_cand, p, st);
-    case 3:
-      return launch<CoulombBody>(own, cand, own_out, j_out, cz, cy, cx, rz, ry,
-                                 rx, cap, n_cand, p, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 0: return LAUNCH(CnBody);
+    case 1: return LAUNCH(D3DirectBody<false>);
+    case 2: return LAUNCH(ChainBody);
+    case 3: return LAUNCH(CoulombBody);
+    case 4: return LAUNCH(D3CoulombSeparate);
+    case 5: return LAUNCH(D3CoulombCombined);
+    default: return cudaErrorInvalidValue;
   }
+#undef LAUNCH
 }

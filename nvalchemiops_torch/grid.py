@@ -5,8 +5,9 @@ Atoms are binned into a fixed-capacity spatial grid stored as dense
 per-property planes ``[Cz, Cy, Cx, cap]``, padded by the search radius with
 periodic ghost cells whose positions carry their image shift.  Pairing
 "every atom of cell c with every atom of cell c + d" is then a read of a
-contiguous candidate window, which the pair-sweep kernel
-(kernels/window_sweep.py) walks in the half-space, pair-once order.
+contiguous candidate window, which the pair-sweep kernels
+(kernels/window_sweep.py, kernels/row_sweep.py, kernels/chunk_sweep.py) walk
+in the half-space, pair-once order.
 
 Port contracts kept from the JAX package:
 
@@ -28,6 +29,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nvalchemiops_torch.kernels.chunk_sweep import (
+    chunk_sweep, super_chunk_cells,
+)
 from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
 from nvalchemiops_torch.mathops.math import (
     apply_mat3_batched, divmod_floor,
@@ -389,23 +393,41 @@ def _coulomb_window_impl(grid: AtomGrid, q_plane, q_ext, cutoff: float,
     return tuple(acc[k] + fold_halo(grid, jacc[k]) for k in range(4))
 
 
+def _coulomb_block_impl(grid: AtomGrid, q_plane, q_ext, cutoff: float,
+                        alpha: float):
+    """Coulomb sweep on the super-chunk kernel (kernels/chunk_sweep.py) ->
+    interior planes ``(e, fx, fy, fz)``."""
+    own = torch.stack([_interior(grid, grid.ext_px),
+                       _interior(grid, grid.ext_py),
+                       _interior(grid, grid.ext_pz), q_plane])
+    cand = torch.stack([grid.ext_px, grid.ext_py, grid.ext_pz, q_ext])
+    g_cells = super_chunk_cells("coulomb", grid.dims[2], grid.cap,
+                                grid.radius[2])
+    acc, jacc = chunk_sweep("coulomb", grid.radius, own, cand,
+                            SweepParams(cutoff=float(cutoff),
+                                        alpha=float(alpha)), g_cells)
+    return tuple(acc[k] + fold_halo(grid, jacc[k]) for k in range(4))
+
+
 def grid_coulomb_energy_forces(grid: AtomGrid, charges, cutoff, alpha=0.0,
                                engine: str | None = None):
     """(erfc-damped) Coulomb per-atom energies and forces via the pair sweep.
 
     ``alpha = 0`` is the bare Coulomb sum within ``cutoff``; self-image
     pairs (r -> 0) are excluded by the r^2 > 0 guard.  Returns
-    ``(energies [N], forces [N, 3])``.  ``engine`` accepts only ``None`` or
-    ``"window"`` (the CUDA pair sweep / its plain version); the JAX
-    package's other engines are listed in ROADMAP.md.
+    ``(energies [N], forces [N, 3])``.  ``engine``: ``None`` or
+    ``"window"`` (the per-cell pair sweep, kernels/window_sweep.py) or
+    ``"block"`` (the super-chunk sweep, kernels/chunk_sweep.py); the JAX
+    package's ``"xla"`` engine is listed in ROADMAP.md.
     """
-    if engine not in (None, "window"):
+    if engine not in (None, "window", "block"):
         raise NotImplementedError(
             f"grid_coulomb_energy_forces engine={engine!r} is not ported "
             "(ROADMAP.md, 'Engines off the default path')")
     q_plane = scatter_to_grid(grid, charges)
     q_ext = _extend_like(grid, q_plane, 0.0)
-    planes = _coulomb_window_impl(grid, q_plane, q_ext, cutoff, alpha)
+    impl = _coulomb_block_impl if engine == "block" else _coulomb_window_impl
+    planes = impl(grid, q_plane, q_ext, cutoff, alpha)
     energies, f1, f2, f3 = gather_rows_from_grid(grid, planes)
     return energies, torch.stack([f1, f2, f3], dim=-1)
 

@@ -14,8 +14,10 @@ from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
     element_c6_mask,
     element_cn_ref,
     grid_dftd3,
+    grid_dftd3_coulomb,
 )
 
 __all__ = ["BATCH_DENSE_MAX_ATOMS", "batch_dense_dftd3", "batch_dftd3",
            "batch_grid_dftd3", "compact_d3_elements", "dense_dftd3",
-           "element_c6_mask", "element_cn_ref", "grid_dftd3"]
+           "element_c6_mask", "element_cn_ref", "grid_dftd3",
+           "grid_dftd3_coulomb"]

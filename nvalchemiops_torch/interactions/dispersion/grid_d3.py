@@ -1,8 +1,11 @@
 # SPDX-License-Identifier: Apache-2.0
 """DFT-D3(BJ) on the halo atom grid (counterpart of
-``nvalchemiops_tpu.interactions.dispersion.grid_d3``, window engine).
+``nvalchemiops_tpu.interactions.dispersion.grid_d3``: the window, block,
+pallas and hybrid engines, and the fused D3 + Coulomb sweep).
 
-Three pair sweeps (kernels/window_sweep.py) over the grid:
+Three pair sweeps over the grid, on the engine's kernel (window: kernel 1,
+kernels/window_sweep.py; block: kernel 8, kernels/chunk_sweep.py; pallas:
+kernel 7, kernels/row_sweep.py):
 
 1. coordination numbers (logistic counting function);
 2. the C6 interpolation, BJ-damped energy, direct forces and dE/dCN;
@@ -16,7 +19,13 @@ candidate's ``e_j``, ``edc_j`` and element ``z_j``: three mesh-term dots.
 The derivative weights are compensated in factored form, ``edc = e (d -
 a_cn)`` with ``a_cn = wd / w``, which keeps the dE/dCN signal free of the
 ulp noise of a post-contraction difference (the JAX package measured the
-f32 force error drop from 4.7e-3 to 1.6e-5 with it).
+f32 force error drop from 4.7e-3 to 1.6e-5 with it).  The block and pallas
+engines take the JAX engines' zm-wide inputs, ``rf[(z, q)] = [z_j == z]
+e_j[q]`` and ``rfdc`` likewise, expanded from the same factored e / edc
+(the JAX engines form ``rfdc = rfd - a_cn rf`` as a difference instead; in
+exact arithmetic the two are one function), so each pair contracts dots of
+length ``zm = zmax1 * mesh``.  The hybrid engine runs passes 1 and 3 on
+the voxel stencil (stencil.py, kernel 9).
 
 The tables must be element-structured (:func:`element_cn_ref`) with a
 separable C6 availability mask (:func:`element_c6_mask`).  D3 parameters
@@ -37,15 +46,25 @@ from nvalchemiops_torch.grid import (
     batch_build_atom_grid,
     estimate_grid_geometry,
     fold_halo,
+    gather_from_grid,
     gather_rows_from_grid,
     scatter_rows_to_grid,
+    scatter_to_grid,
     system_grid,
 )
+from nvalchemiops_torch.kernels.chunk_sweep import (
+    chunk_sweep, super_chunk_cells,
+)
+from nvalchemiops_torch.kernels.row_sweep import row_sweep
 from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
+from nvalchemiops_torch.stencil import (
+    extend_stencil, scatter_to_stencil, stencil_cn_chain_forces,
+    stencil_coordination_numbers,
+)
 from nvalchemiops_torch.types import INDEX_DTYPE
 
 __all__ = ["compact_d3_elements", "element_cn_ref", "element_c6_mask",
-           "grid_dftd3", "batch_grid_dftd3"]
+           "grid_dftd3", "grid_dftd3_coulomb", "batch_grid_dftd3"]
 
 _SQRT3 = 1.7320508075688772
 
@@ -121,12 +140,29 @@ def compact_d3_elements(numbers, rcov, r4r2, c6ab, cn_ref):
             c6_np[np.ix_(sel, sel)], cn_c)
 
 
-def _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params):
+def _sweep(grid, engine, block_g, body, own, cand, params, lf=None,
+           cf=None):
+    """One pass on the engine's kernel: ``"window"`` (kernel 1, factored
+    mesh features), ``"pallas"`` (kernel 7) or ``"block"`` (kernel 8; G =
+    ``block_g`` or the card's pick), the last two with zm-wide features."""
+    if engine == "window":
+        return window_sweep(body, grid.radius, own, cand, params, lf=lf)
+    if engine == "pallas":
+        return row_sweep(body, grid.radius, own, cand, params, lf=lf, cf=cf)
+    g_cells = block_g or super_chunk_cells(
+        body, grid.dims[2], grid.cap, grid.radius[2],
+        0 if lf is None else lf.shape[-1])
+    return chunk_sweep(body, grid.radius, own, cand, params, g_cells, lf=lf,
+                       cf=cf)
+
+
+def _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params, engine="window",
+                 block_g=None):
     """Pass 1: coordination-number plane [cz, cy, cx, cap]."""
     own = torch.stack([_interior(grid, px_d), _interior(grid, grid.ext_py),
                        _interior(grid, grid.ext_pz), rcov_plane])
     cand = torch.stack([px_d, grid.ext_py, grid.ext_pz, rcov_ext])
-    acc, jacc = window_sweep("cn", grid.radius, own, cand, params)
+    acc, jacc = _sweep(grid, engine, block_g, "cn", own, cand, params)
     return acc[0] + fold_halo(grid, jacc[0])
 
 
@@ -173,36 +209,65 @@ def _d3_plane_features(z_plane, cn_plane, cna_elem, mask_elem, c6p_elem, k3):
     return torch.cat([l0, l1c], dim=-1).contiguous(), e_pl, edc_pl, w_plane
 
 
+def _wide_rows(e_ext, edc_ext, z_ext, zm):
+    """The JAX block/pallas engines' candidate rows ``[rf | rfdc]`` (zm
+    wide) from the factored e / edc planes: ``rf[(z, q)] = [z_j == z]
+    e_j[q]``, ``rfdc`` likewise from edc."""
+    mesh = e_ext.shape[-1]
+    zrow = torch.arange(zm, device=z_ext.device) // mesh
+    zmask = z_ext[..., None].long() == zrow
+    reps = (1,) * (e_ext.dim() - 1) + (zm // mesh,)
+    zero = torch.zeros((), dtype=e_ext.dtype, device=e_ext.device)
+    return torch.cat([torch.where(zmask, e_ext.repeat(reps), zero),
+                      torch.where(zmask, edc_ext.repeat(reps), zero)],
+                     dim=-1).contiguous()
+
+
 def _d3_pass2_direct(grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl,
-                     edc_pl, lf, params):
-    """Pass 2: per-slot energy, direct forces and dE/dCN planes."""
+                     edc_pl, lf, params, q=None, engine="window",
+                     block_g=None):
+    """Pass 2: per-slot energy, direct forces and dE/dCN planes ``(e, fx,
+    fy, fz, decn)``.  With ``q = (q_plane, q_ext)`` the Coulomb pair rides
+    the same sweep (body ``d3_direct_coulomb``) and the Coulomb planes
+    follow: ``(ec, fcx, fcy, fcz)``, or only ``ec`` with
+    ``params.combine_forces`` (the force planes then carry both)."""
     w_ext = _extend_like(grid, w_plane, 0.0)
     e_ext = _extend_like(grid, e_pl, 0.0)
     edc_ext = _extend_like(grid, edc_pl, 0.0)
-    own = torch.stack([_interior(grid, px_d), _interior(grid, grid.ext_py),
-                       _interior(grid, grid.ext_pz), si_plane, w_plane])
-    cand = torch.cat([
-        torch.stack([px_d, grid.ext_py, grid.ext_pz, si_ext, w_ext,
-                     z_ext.to(px_d.dtype)]),
-        torch.movedim(e_ext, -1, 0), torch.movedim(edc_ext, -1, 0),
-    ]).contiguous()
-    acc, jacc = window_sweep("d3_direct", grid.radius, own, cand, params,
-                             lf=lf)
-    e_pl = acc[0]                     # pairs counted once, own side only
-    fx = acc[1] + fold_halo(grid, jacc[0])
-    fy = acc[2] + fold_halo(grid, jacc[1])
-    fz = acc[3] + fold_halo(grid, jacc[2])
-    decn = acc[4] + fold_halo(grid, jacc[3])
-    return e_pl, fx, fy, fz, decn
+    own_cols = [_interior(grid, px_d), _interior(grid, grid.ext_py),
+                _interior(grid, grid.ext_pz), si_plane, w_plane]
+    cand_cols = [px_d, grid.ext_py, grid.ext_pz, si_ext, w_ext]
+    body = "d3_direct"
+    if q is not None:
+        body = "d3_direct_coulomb"
+        own_cols.append(q[0])
+    cf = None
+    if engine == "window":
+        cand_cols.append(z_ext.to(px_d.dtype))
+        if q is not None:
+            cand_cols.append(q[1])
+        cand = torch.cat([torch.stack(cand_cols), torch.movedim(e_ext, -1, 0),
+                          torch.movedim(edc_ext, -1, 0)]).contiguous()
+    else:
+        if q is not None:
+            cand_cols.append(q[1])
+        cand = torch.stack(cand_cols)
+        cf = _wide_rows(e_ext, edc_ext, z_ext, lf.shape[-1] // 2)
+    acc, jacc = _sweep(grid, engine, block_g, body, torch.stack(own_cols),
+                       cand, params, lf=lf, cf=cf)
+    # e: pairs counted once, own side only
+    return (acc[0],) + tuple(acc[k] + fold_halo(grid, jacc[k - 1])
+                             for k in range(1, acc.shape[0]))
 
 
-def _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn_pl, params):
+def _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn_pl, params,
+                    engine="window", block_g=None):
     """Pass 3: CN chain-rule force planes (fx, fy, fz)."""
     decn_ext = _extend_like(grid, decn_pl, 0.0)
     own = torch.stack([_interior(grid, px_d), _interior(grid, grid.ext_py),
                        _interior(grid, grid.ext_pz), rcov_plane, decn_pl])
     cand = torch.stack([px_d, grid.ext_py, grid.ext_pz, rcov_ext, decn_ext])
-    acc, jacc = window_sweep("chain", grid.radius, own, cand, params)
+    acc, jacc = _sweep(grid, engine, block_g, "chain", own, cand, params)
     return tuple(acc[k] + fold_halo(grid, jacc[k]) for k in range(3))
 
 
@@ -218,51 +283,52 @@ def _parked_px(grid, z_ext):
         torch.zeros((), dtype=dtype, device=grid.ext_px.device))
 
 
-def _grid_d3_window_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane,
-                         rcov_ext, r4r2_plane, r4r2_ext, cna_elem, mask_elem,
-                         c6p_elem, params: SweepParams):
-    """D3 passes 1-3 on the pair sweep; returns the planes
-    ``(e, fx, fy, fz, cn)``."""
+def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
+                  r4r2_plane, r4r2_ext, cna_elem, mask_elem, c6p_elem,
+                  params: SweepParams, engine: str = "window", block_g=None,
+                  q=None, cn_plane=None, skip_chain: bool = False):
+    """D3 passes 1-3 on one engine's pair sweep (``"window"``, ``"pallas"``
+    or ``"block"``: the JAX ``_grid_d3_window_impl``,
+    ``_grid_d3_pallas_impl`` and ``_grid_d3_block_impl``); returns the
+    planes ``(e, fx, fy, fz, cn)``.
+
+    ``q = (q_plane, q_ext)`` adds the Coulomb pair to pass 2 (see
+    :func:`_d3_pass2_direct`); its planes follow the five.  ``cn_plane``
+    replaces pass 1; ``skip_chain`` stops after pass 2 and appends the
+    dE/dCN plane instead of adding the chain forces (the hybrid engine's
+    hooks, as ``cn_a_override`` / ``skip_chain`` of the JAX row sweep).
+    """
     px_d = _parked_px(grid, z_ext)
-    cn_plane = _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params)
+    if cn_plane is None:
+        cn_plane = _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params,
+                                engine, block_g)
     lf, e_pl, edc_pl, w_plane = _d3_plane_features(
         z_plane, cn_plane, cna_elem, mask_elem, c6p_elem, params.k3)
     si_plane = torch.sqrt(r4r2_plane * _SQRT3)
     si_ext = torch.sqrt(r4r2_ext * _SQRT3)
-    e_pl, fx, fy, fz, decn = _d3_pass2_direct(
+    e_pl, fx, fy, fz, decn, *coul = _d3_pass2_direct(
         grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl, edc_pl, lf,
-        params)
+        params, q=q, engine=engine, block_g=block_g)
+    if skip_chain:
+        return (e_pl, fx, fy, fz, cn_plane, decn, *coul)
     fx3, fy3, fz3 = _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn,
-                                    params)
-    return e_pl, fx + fx3, fy + fy3, fz + fz3, cn_plane
+                                    params, engine, block_g)
+    return (e_pl, fx + fx3, fy + fy3, fz + fz3, cn_plane, *coul)
 
 
-def grid_dftd3(
-    grid: AtomGrid,
-    numbers,
-    rcov,
-    r4r2,
-    c6ab,
-    cn_ref_elem,
-    cutoff: float,
-    a1, a2, s8,
-    s6=1.0, k1=16.0, k3=-4.0,
-    engine: str | None = None,
-):
-    """DFT-D3(BJ) energy, forces and CNs on the atom grid.
+def _snap_block_g(block_g, cx):
+    """The JAX rule: a ``block_G`` hint snaps to the nearest divisor of cx."""
+    if block_g is None:
+        return None
+    return min((g for g in range(1, cx + 1) if cx % g == 0),
+               key=lambda g: abs(g - block_g))
 
-    ``cn_ref_elem`` is the ``[Zmax+1, mesh]`` element-structured CN table
-    (:func:`element_cn_ref`); the C6 availability mask must be separable
-    (:func:`element_c6_mask`).  Tables may be numpy arrays or tensors.
-    Returns ``(energy_total, forces [N, 3], coord_num [N])`` in the grid's
-    dtype on the grid's device.  ``engine`` accepts only ``None`` or
-    ``"window"``; the JAX package's other engines are listed in
-    ROADMAP.md.
-    """
-    if engine not in (None, "window"):
-        raise NotImplementedError(
-            f"grid_dftd3 engine={engine!r} is not ported (ROADMAP.md, "
-            "'Engines off the default path')")
+
+def _d3_inputs(grid, numbers, rcov, r4r2, c6ab, cn_ref_elem, extra=()):
+    """Tables on the grid's device and dtype, and the per-slot planes:
+    ``(numbers, tables, planes)`` with ``planes = (z_plane, z_ext,
+    rcov_plane, rcov_ext, r4r2_plane, r4r2_ext, cna, mask, c6p)`` and the
+    interior planes of ``extra`` per-atom arrays after them."""
     dtype = grid.ext_px.dtype
     device = grid.ext_px.device
 
@@ -278,24 +344,163 @@ def grid_dftd3(
     mesh = cna_t.shape[1]
     # p-major C6 rows: c6p[z_i, p, (z, q)] = c6ab[z_i, z, p, q]
     c6p = c6_t.permute(0, 2, 1, 3).reshape(zmax1, mesh, zmax1 * mesh)
-
     nl = numbers.long()
-    zf_plane, rcov_plane, r4r2_plane = scatter_rows_to_grid(
-        grid, (numbers.to(dtype), rcov_t[nl], r4r2_t[nl]))
+    zf_plane, rcov_plane, r4r2_plane, *more = scatter_rows_to_grid(
+        grid, (numbers.to(dtype), rcov_t[nl], r4r2_t[nl],
+               *(table(a) for a in extra)))
     z_plane = zf_plane.to(INDEX_DTYPE)
-    z_ext = _extend_like(grid, z_plane, 0)
-    rcov_ext = _extend_like(grid, rcov_plane, 0.0)
-    r4r2_ext = _extend_like(grid, r4r2_plane, 0.0)
+    planes = (z_plane, _extend_like(grid, z_plane, 0), rcov_plane,
+              _extend_like(grid, rcov_plane, 0.0), r4r2_plane,
+              _extend_like(grid, r4r2_plane, 0.0), cna_t, mask_t, c6p)
+    return numbers, rcov_t, planes, more
+
+
+def grid_dftd3(
+    grid: AtomGrid,
+    numbers,
+    rcov,
+    r4r2,
+    c6ab,
+    cn_ref_elem,
+    cutoff: float,
+    a1, a2, s8,
+    s6=1.0, k1=16.0, k3=-4.0,
+    engine: str | None = None,
+    block_G: int | None = None,
+    stencil=None,
+    hybrid_cn: str = "stencil",
+):
+    """DFT-D3(BJ) energy, forces and CNs on the atom grid.
+
+    ``cn_ref_elem`` is the ``[Zmax+1, mesh]`` element-structured CN table
+    (:func:`element_cn_ref`); the C6 availability mask must be separable
+    (:func:`element_c6_mask`).  Tables may be numpy arrays or tensors.
+    Returns ``(energy_total, forces [N, 3], coord_num [N])`` in the grid's
+    dtype on the grid's device.
+
+    ``engine``:
+
+    - ``None`` / ``"window"``: the per-cell sweep (kernel 1) with the
+      factored mesh-term features;
+    - ``"block"``: the super-chunk sweep (kernel 8) with zm-wide features;
+      ``block_G`` hints G and snaps to a divisor of cx, as in the JAX
+      package; by default G is picked for the card's shared memory;
+    - ``"pallas"``: the per-row sweep (kernel 7) with zm-wide features;
+    - ``"hybrid"``, implied by ``stencil=`` (a :class:`stencil.StencilGrid`
+      with occupancy 1, built for at least this cutoff): the chain pass,
+      and with ``hybrid_cn="stencil"`` the CN pass, run on the voxel
+      stencil (kernel 9); ``hybrid_cn="row"`` keeps pass 1 on the grid.
+      Pass 2 runs on kernel 1's D3 direct body with the CNs as given: the
+      same pass as the JAX hybrid's, which runs it on its XLA row sweep
+      (an engine the port does not have).  The stencil's chain forces are
+      added per atom.
+
+    The JAX package's ``"xla"`` engine is listed in ROADMAP.md.
+    """
+    if engine is None and stencil is not None:
+        engine = "hybrid"
+    if engine == "hybrid" and stencil is None:
+        raise ValueError("engine='hybrid' requires a StencilGrid (stencil=...)")
+    if engine not in (None, "window", "block", "pallas", "hybrid"):
+        raise NotImplementedError(
+            f"grid_dftd3 engine={engine!r} is not ported (ROADMAP.md, "
+            "'Engines off the default path')")
+    if hybrid_cn not in ("stencil", "row"):
+        raise ValueError(f"hybrid_cn must be 'stencil' or 'row', got "
+                         f"{hybrid_cn!r}")
+    numbers, rcov_t, planes, _ = _d3_inputs(grid, numbers, rcov, r4r2, c6ab,
+                                            cn_ref_elem)
     params = SweepParams(cutoff=float(cutoff), a1=float(a1), a2=float(a2),
                          s6=float(s6), s8=float(s8), k1=float(k1),
                          k3=float(k3))
-    e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_window_impl(
-        grid, z_plane, z_ext, rcov_plane, rcov_ext, r4r2_plane, r4r2_ext,
-        cna_t, mask_t, c6p, params)
+    block_g = _snap_block_g(block_G, grid.dims[2])
+    if engine == "hybrid":
+        rcov_a = rcov_t[numbers.long()]
+        rcov_int = scatter_to_stencil(stencil, rcov_a)
+        rcov_planes = (rcov_int, extend_stencil(stencil, rcov_int, 0.0))
+        cn_a = cn_plane = None
+        if hybrid_cn == "stencil":
+            cn_a = stencil_coordination_numbers(
+                stencil, rcov_a, float(cutoff), float(k1),
+                rcov_planes=rcov_planes)
+            cn_plane = scatter_to_grid(grid, cn_a)
+        e_pl, fx_pl, fy_pl, fz_pl, cn_pl, decn_pl = _grid_d3_impl(
+            grid, *planes, params, "window", cn_plane=cn_plane,
+            skip_chain=True)
+        chain_a = stencil_cn_chain_forces(
+            stencil, rcov_a, gather_from_grid(grid, decn_pl), float(cutoff),
+            float(k1), rcov_planes=rcov_planes)
+        f1, f2, f3, cn_g = gather_rows_from_grid(grid, (fx_pl, fy_pl, fz_pl,
+                                                        cn_pl))
+        forces = torch.stack([f1, f2, f3], dim=-1) + chain_a
+        return e_pl.sum(), forces, cn_g if cn_a is None else cn_a
+    e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(
+        grid, *planes, params, engine or "window", block_g=block_g)
     energy = e_pl.sum()
     f1, f2, f3, coord_num = gather_rows_from_grid(
         grid, (fx_pl, fy_pl, fz_pl, cn_pl))
     return energy, torch.stack([f1, f2, f3], dim=-1), coord_num
+
+
+def grid_dftd3_coulomb(
+    grid: AtomGrid,
+    numbers,
+    charges,
+    rcov,
+    r4r2,
+    c6ab,
+    cn_ref_elem,
+    cutoff: float,
+    a1, a2, s8,
+    coulomb_cutoff: float | None = None,
+    alpha: float = 0.0,
+    s6=1.0, k1=16.0, k3=-4.0,
+    engine: str = "block",
+    combine_forces: bool = False,
+):
+    """Fused DFT-D3(BJ) + real-space (erfc-damped) Coulomb on one sweep.
+
+    The Coulomb pair terms ride the D3 direct pass's geometry: on the
+    super-chunk sweep (``engine="block"``, kernel 8) or the per-cell sweep
+    (``engine="window"``, kernel 1), with the Coulomb pair's own cutoff
+    (default: ``cutoff``) and ``alpha``.  Both cutoffs must be <= the
+    cutoff the grid was built for.  ``combine_forces=True`` is the MD-step
+    configuration: the window engine folds the Coulomb forces into the D3
+    force channels inside the kernel (6 own + 5 j outputs instead of 9 +
+    8); the block engine, like the JAX one, sums them afterwards.
+
+    Returns ``(e_d3_total, f_d3 [N, 3], coord_num [N], e_coulomb [N],
+    f_coulomb [N, 3])``; with ``combine_forces`` the force entry carries
+    D3 + Coulomb and the trailing entry is ``None``.  The JAX package's
+    ``"xla"`` engine is listed in ROADMAP.md.
+    """
+    if engine not in ("block", "window"):
+        raise NotImplementedError(
+            f"grid_dftd3_coulomb engine={engine!r} is not ported (ROADMAP.md,"
+            " 'Engines off the default path')")
+    if coulomb_cutoff is None:
+        coulomb_cutoff = cutoff
+    _, _, planes, (q_plane,) = _d3_inputs(grid, numbers, rcov, r4r2, c6ab,
+                                          cn_ref_elem, extra=(charges,))
+    q = (q_plane, _extend_like(grid, q_plane, 0.0))
+    in_kernel = combine_forces and engine == "window"
+    params = SweepParams(cutoff=float(cutoff), a1=float(a1), a2=float(a2),
+                         s6=float(s6), s8=float(s8), k1=float(k1),
+                         k3=float(k3), alpha=float(alpha),
+                         ccutoff=float(coulomb_cutoff),
+                         combine_forces=in_kernel)
+    e_pl, *f_planes = _grid_d3_impl(grid, *planes, params, engine, q=q)
+    energy = e_pl.sum()
+    if in_kernel:
+        f1, f2, f3, coord_num, e_c = gather_rows_from_grid(grid, f_planes)
+        return energy, torch.stack([f1, f2, f3], dim=-1), coord_num, e_c, None
+    f1, f2, f3, coord_num, e_c, fc1, fc2, fc3 = gather_rows_from_grid(
+        grid, f_planes)
+    forces = torch.stack([f1, f2, f3], dim=-1)
+    f_c = torch.stack([fc1, fc2, fc3], dim=-1)
+    if combine_forces:
+        return energy, forces + f_c, coord_num, e_c, None
+    return energy, forces, coord_num, e_c, f_c
 
 
 def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
@@ -306,19 +511,15 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
 
     The systems share the grid geometry estimated from ``cells[0]``; the
     grid is built once for the batch (:func:`grid.batch_build_atom_grid`)
-    and each system runs :func:`grid_dftd3` on its part, in a loop over
-    systems.  ``positions [B, n, 3]``, ``numbers [B, n]`` (0 = padding
-    atom), ``cells`` ``[3, 3]`` or ``[B, 3, 3]``; ``cap`` overrides the
-    estimated slot capacity (target occupancy 0.66, as in the JAX
-    package).  Returns ``(energy [B], forces [B, n, 3], cn [B, n])``.
-    ``engine`` accepts only ``None`` or ``"window"`` (the JAX package
-    defaults to its xla engine here, which agrees with the window engine
-    to f64 rounding).
+    and each system runs :func:`grid_dftd3` on its part with ``engine``,
+    in a loop over systems.  ``positions [B, n, 3]``, ``numbers [B, n]``
+    (0 = padding atom), ``cells`` ``[3, 3]`` or ``[B, 3, 3]``; ``cap``
+    overrides the estimated slot capacity (target occupancy 0.66, as in the
+    JAX package).  Returns ``(energy [B], forces [B, n, 3], cn [B, n])``.
+    The default engine is the window engine (the JAX package defaults to
+    its xla engine here, which agrees with the window engine to f64
+    rounding).
     """
-    if engine not in (None, "window"):
-        raise NotImplementedError(
-            f"batch_grid_dftd3 engine={engine!r} is not ported (ROADMAP.md, "
-            "'Engines off the default path')")
     b, n = positions.shape[0], positions.shape[1]
     cells_np = np.asarray(_np(cells), dtype=np.float64)
     dims, radius, cap_est = estimate_grid_geometry(
@@ -328,6 +529,7 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
                               cap or cap_est)
     numbers_np = _np(numbers)
     outs = [grid_dftd3(system_grid(g, i), numbers_np[i], rcov, r4r2, c6ab,
-                       cn_ref_elem, cutoff, a1, a2, s8, s6=s6, k1=k1, k3=k3)
+                       cn_ref_elem, cutoff, a1, a2, s8, s6=s6, k1=k1, k3=k3,
+                       engine=engine)
             for i in range(b)]
     return tuple(torch.stack(o) for o in zip(*outs))

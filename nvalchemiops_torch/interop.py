@@ -17,15 +17,20 @@ import torch
 
 from nvalchemiops_torch.grid import AtomGrid
 from nvalchemiops_torch.spline_windowed import MeshTiles
+from nvalchemiops_torch.stencil import StencilGrid
 from nvalchemiops_torch.types import INDEX_DTYPE
 
-__all__ = ["ATOM_GRID_FIELDS", "MESH_TILES_FIELDS", "atom_grid_from_numpy",
-           "batch_atom_grid_from_numpy", "mesh_tiles_from_numpy",
+__all__ = ["ATOM_GRID_FIELDS", "MESH_TILES_FIELDS", "STENCIL_GRID_FIELDS",
+           "atom_grid_from_numpy", "batch_atom_grid_from_numpy",
+           "stencil_grid_from_numpy", "mesh_tiles_from_numpy",
            "d3_tables_from_numpy"]
 
 #: array fields of an AtomGrid (both packages use these names)
 ATOM_GRID_FIELDS = ("ext_px", "ext_py", "ext_pz", "ext_valid", "ext_aid",
                     "ext_shift_code", "flat_slot", "counts_max")
+#: array fields of a StencilGrid (both packages use these names)
+STENCIL_GRID_FIELDS = ("ext_px", "ext_py", "ext_pz", "flat_idx",
+                       "counts_max")
 #: array fields of a MeshTiles (both packages use these names)
 MESH_TILES_FIELDS = ("smat", "flat_slot", "aid", "counts_max", "inv")
 
@@ -72,6 +77,26 @@ def batch_atom_grid_from_numpy(fields: Mapping[str, np.ndarray], dims,
                          "(counts_max [B])")
     return atom_grid_from_numpy(fields, dims, radius, cap, dtype=dtype,
                                 device=device)
+
+
+def stencil_grid_from_numpy(fields: Mapping[str, np.ndarray], dims, radius,
+                            pbc, dtype=None, device="cuda") -> StencilGrid:
+    """StencilGrid from the JAX stencil build's fields (numpy) plus its
+    geometry: positions take ``dtype`` (default: their own), the voxel
+    index and occupancy become int32."""
+    def fl(a):
+        t = torch.from_numpy(np.array(a))
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    def ix(a):
+        return torch.from_numpy(np.array(a)).to(device=device,
+                                                 dtype=INDEX_DTYPE)
+
+    return StencilGrid(
+        ext_px=fl(fields["ext_px"]), ext_py=fl(fields["ext_py"]),
+        ext_pz=fl(fields["ext_pz"]), flat_idx=ix(fields["flat_idx"]),
+        counts_max=ix(fields["counts_max"]).reshape(()),
+        dims=dims, radius=radius, pbc=pbc)
 
 
 def mesh_tiles_from_numpy(fields: Mapping[str, np.ndarray], mesh_dims,

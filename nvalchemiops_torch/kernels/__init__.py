@@ -12,6 +12,7 @@ launch_counts = {
     "window_sweep_d3_direct": 0,
     "window_sweep_chain": 0,
     "window_sweep_coulomb": 0,
+    "window_sweep_d3_direct_coulomb": 0,
     "windowed_spread": 0,
     "windowed_gather_grad": 0,
     "dense_pairs_cn": 0,
@@ -19,6 +20,17 @@ launch_counts = {
     "dense_pairs_chain": 0,
     "separable_spread": 0,
     "separable_gather": 0,
+    "row_sweep_cn": 0,
+    "row_sweep_d3_direct": 0,
+    "row_sweep_chain": 0,
+    "chunk_sweep_cn": 0,
+    "chunk_sweep_d3_direct": 0,
+    "chunk_sweep_d3_direct_coulomb": 0,
+    "chunk_sweep_chain": 0,
+    "chunk_sweep_coulomb": 0,
+    "stencil_sweep_cn": 0,
+    "stencil_sweep_chain": 0,
+    "stencil_sweep_coulomb": 0,
 }
 
 

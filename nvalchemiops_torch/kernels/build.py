@@ -2,7 +2,8 @@
 """Build the CUDA sources into one shared library at first use; load it.
 
 ``nvcc`` compiles every ``nvalchemiops_torch/csrc/*.cu`` (one process per
-source, all started together) and links the objects into one shared
+source, all started together; the headers ``csrc/*.cuh`` they include count
+toward the cache key) and links the objects into one shared
 library with a plain C interface for ``sm_90a`` (Hopper), which ``ctypes``
 loads.  Nothing links against PyTorch, so a build takes seconds.  The
 library lands in ``build/nvalchemiops_torch/`` beside the package, named by
@@ -39,8 +40,11 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int)
 _SIGNATURES = {
-    "nv_window_sweep": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] * 8
+    "nv_window_sweep": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] * 9
                        + [_I, _I, _P],
+    "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
+    "nv_chunk_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 9 + [_P],
+    "nv_stencil_sweep": [_I] + [_P] * 3 + [_I] * 9 + [_F] * 3 + [_P],
     "nv_windowed_gather_grad": [_P] * 6 + [_I] * 4 + [_P],
     "nv_windowed_spread": [_P] * 3 + [_I] * 4 + [_P],
     "nv_dense_pairs": [_I] + [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I] * 3
@@ -71,12 +75,16 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def library_path(extra_flags=()) -> str:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
     for flag in NVCC_FLAGS + tuple(extra_flags):
         h.update(flag.encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

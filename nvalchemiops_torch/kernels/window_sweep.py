@@ -18,7 +18,14 @@ body           own / candidate features          own outs   j outs
 ``chain``      px py pz rcov decn                fx fy fz   -fx -fy -fz
 ``coulomb``    px py pz q                        e fx fy    e -fx -fy
                                                  fz         -fz
+``d3_direct_   own: px py pz si w q (+ lf);      d3_direct  d3_direct
+coulomb``      cand: px py pz si w z q e[mesh]   + ec fcx   + ec -fcx
+               edc[mesh]                         fcy fcz    -fcy -fcz
 =============  ================================  =========  ============
+
+With ``SweepParams.combine_forces`` the fused body adds the Coulomb forces
+into the D3 force outputs (own e, fx, fy, fz, dei, ec; j -fx, -fy, -fz,
+dej, ec), as grid_d3.py:1557-1567 does.
 
 Inputs are stacked feature-major: ``own [n_own, cz, cy, cx, cap]`` holds
 interior planes, ``cand [n_cand, ez, ey, ex, cap]`` extended planes.  The
@@ -27,7 +34,7 @@ cap])``; the caller folds ``j_out`` with ``grid.fold_halo``.  Parameters are
 runtime floats (:class:`SweepParams`): no rebuild per parameter set.
 
 The bodies match the JAX window bodies term for term (grid_d3.py:1380-1387,
-:1465-1534, :1612-1625; grid.py:900-928), including the displacement
+:1465-1571, :1612-1625; grid.py:900-928), including the displacement
 validity: parked empty slots fail the distance test, so no body compares
 validity flags.
 """
@@ -44,15 +51,19 @@ from nvalchemiops_torch.kernels.build import (
 )
 from nvalchemiops_torch.mathops.math import erfc_approx
 
-__all__ = ["SweepParams", "BODIES", "window_sweep", "window_sweep_plain"]
+__all__ = ["SweepParams", "BODIES", "window_sweep", "window_sweep_plain",
+           "body_outputs", "BODY_FNS", "halfspace_zy"]
 
-#: body name -> (C body id, n_own, n_out, n_j); D3 direct has
-#: 6 + 2*mesh candidate features, the others as many as own features
+#: body name -> (C body id, n_own, n_out, n_j); the D3 bodies have 6 (7 with
+#: the charge) + 2*mesh candidate features, the others as many as own
+#: features.  ``d3_direct_coulomb`` has 6 own and 5 j outputs (C id 5) with
+#: ``SweepParams.combine_forces``.
 BODIES = {
     "cn": (0, 4, 1, 1),
     "d3_direct": (1, 5, 5, 4),
     "chain": (2, 5, 3, 3),
     "coulomb": (3, 4, 4, 4),
+    "d3_direct_coulomb": (4, 6, 9, 8),
 }
 
 _TWO_OVER_SQRT_PI = 1.1283791670955126
@@ -60,7 +71,13 @@ _TWO_OVER_SQRT_PI = 1.1283791670955126
 
 @dataclass(frozen=True)
 class SweepParams:
-    """Runtime scalars of the pass bodies (unused ones are ignored)."""
+    """Runtime scalars of the pass bodies (unused ones are ignored).
+
+    ``cutoff`` is the D3 (or Coulomb-only) cutoff; the fused
+    ``d3_direct_coulomb`` body takes the Coulomb pair's own cutoff
+    ``ccutoff`` and its ``alpha``, and with ``combine_forces`` folds the
+    Coulomb forces into the D3 force channels.
+    """
 
     cutoff: float
     a1: float = 0.0
@@ -70,6 +87,16 @@ class SweepParams:
     k1: float = 16.0
     k3: float = -4.0
     alpha: float = 0.0
+    ccutoff: float = 0.0
+    combine_forces: bool = False
+
+
+def body_outputs(body: str, params: SweepParams):
+    """(n_out, n_j) of a pass body under ``params``."""
+    _, _, n_out, n_j = BODIES[body]
+    if body == "d3_direct_coulomb" and params.combine_forces:
+        return 6, 5
+    return n_out, n_j
 
 
 def _check(body, radius, own, cand, lf):
@@ -86,17 +113,45 @@ def _check(body, radius, own, cand, lf):
     if tuple(cand.shape[1:]) != (cz + 2 * rz, cy + 2 * ry, cx + 2 * rx, cap):
         raise ValueError(f"cand planes {tuple(cand.shape)} do not extend own "
                          f"planes {tuple(own.shape)} by radius {radius}")
-    if body == "d3_direct":
+    if body.startswith("d3_direct"):
+        base = 7 if body == "d3_direct_coulomb" else 6
         if lf is None or tuple(lf.shape[:4]) != (cz, cy, cx, cap):
-            raise ValueError("d3_direct needs own left features lf "
+            raise ValueError(f"{body} needs own left features lf "
                              "[cz, cy, cx, cap, 2*zm]")
-        mesh2 = cand.shape[0] - 6
+        mesh2 = cand.shape[0] - base
         if mesh2 <= 0 or mesh2 % 2 or lf.shape[-1] % (mesh2 // 2):
-            raise ValueError("d3_direct candidate features must be px py pz "
-                             "si w z e[mesh] edc[mesh]")
+            raise ValueError(f"{body} candidate features must be px py pz si "
+                             "w z (q) e[mesh] edc[mesh]")
     elif cand.shape[0] != n_own:
         raise ValueError(f"{body}: expected {n_own} candidate features, got "
                          f"{cand.shape[0]}")
+
+
+def check_wide(name, bodies, body, radius, own, cand, lf, cf):
+    """Shape checks shared by the zm-wide sweeps (kernels 7 and 8)."""
+    if body not in bodies:
+        raise ValueError(f"unknown {name} body {body!r}; one of "
+                         f"{list(bodies)}")
+    _, n_own, _, _ = bodies[body]
+    if own.dim() != 5 or cand.dim() != 5:
+        raise ValueError("own and cand must be stacked 5-D planes")
+    if own.shape[0] != n_own or cand.shape[0] != n_own:
+        raise ValueError(f"{body}: expected {n_own} own and candidate "
+                         f"features, got {own.shape[0]} and {cand.shape[0]}")
+    _, cz, cy, cx, cap = own.shape
+    rz, ry, rx = radius
+    ext = (cz + 2 * rz, cy + 2 * ry, cx + 2 * rx, cap)
+    if tuple(cand.shape[1:]) != ext:
+        raise ValueError(f"cand planes {tuple(cand.shape)} do not extend own "
+                         f"planes {tuple(own.shape)} by radius {radius}")
+    if body.startswith("d3_direct"):
+        if lf is None or cf is None or tuple(lf.shape[:4]) != (cz, cy, cx,
+                                                                cap) \
+                or tuple(cf.shape[:4]) != ext or lf.shape[-1] != cf.shape[-1] \
+                or lf.shape[-1] % 2:
+            raise ValueError(f"{body} needs own rows lf [cz, cy, cx, cap, "
+                             "2*zm] and candidate rows cf [ez, ey, ex, cap, "
+                             "2*zm]")
 
 
 def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
@@ -107,7 +162,10 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
         return window_sweep_plain(body, radius, own, cand, params, lf)
     check_cuda_tensors("window_sweep", own, cand,
                        *([lf] if lf is not None else []))
-    body_id, _, n_out, n_j = BODIES[body]
+    body_id = BODIES[body][0]
+    if body == "d3_direct_coulomb" and params.combine_forces:
+        body_id = 5
+    n_out, n_j = body_outputs(body, params)
     _, cz, cy, cx, cap = own.shape
     rz, ry, rx = radius
     ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
@@ -116,7 +174,8 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
     j_out = torch.zeros((n_j, ez, ey, ex, cap), dtype=own.dtype,
                         device=own.device)
     n_cand = cand.shape[0]
-    mesh = (n_cand - 6) // 2 if body == "d3_direct" else 0
+    base = 7 if body == "d3_direct_coulomb" else 6
+    mesh = (n_cand - base) // 2 if body.startswith("d3_direct") else 0
     zm = lf.shape[-1] // 2 if lf is not None else 0
     p = params
     err = load_library().nv_window_sweep(
@@ -125,7 +184,7 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
         own_out.data_ptr(), j_out.data_ptr(),
         cz, cy, cx, rz, ry, rx, cap, n_cand,
         p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8, p.k1,
-        p.k3, p.alpha, zm, mesh,
+        p.k3, p.alpha, p.ccutoff * p.ccutoff, zm, mesh,
         current_stream(own),
     )
     check_launch(f"window_sweep[{body}]", err)
@@ -134,50 +193,61 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch pass bodies, shared by the plain versions of kernels 1, 7, 8
+# and 9.  ``o [n_own, .., R, 1]`` and ``c [n_cand, .., 1, W]`` are feature
+# stacks, ``mask [R, W]`` (or None) the pair-once mask; ``lf [.., R, 2 zm]``
+# are the own left rows and ``cf [.., W, 2 zm]`` the candidates' zm-wide
+# rows (rf | rfdc), or None for kernel 1's factored mesh form, rebuilt from
+# the candidate features z, e[mesh], edc[mesh].  Each returns own-side and
+# j-side ``[.., R, W]`` blocks.
 # ---------------------------------------------------------------------------
 
 
-def _geom(o, c, cut_sq, home):
+def _geom(o, c, cut_sq, mask):
     dx = c[0] - o[0]
     dy = c[1] - o[1]
     dz = c[2] - o[2]
     d2 = dx * dx + dy * dy + dz * dz
     ok = (d2 > 1e-20) & (d2 < cut_sq)
-    if home is not None:
-        ok = ok & home
+    if mask is not None:
+        ok = ok & mask
     r2m = torch.where(ok, d2, torch.ones_like(d2))
     return ok, torch.rsqrt(r2m), r2m, dx, dy, dz
 
 
-def _cn_body(o, c, p, home, lf):
-    ok, inv_r, *_ = _geom(o, c, p.cutoff * p.cutoff, home)
+def _cn_body(o, c, p, mask, lf, cf):
+    ok, inv_r, *_ = _geom(o, c, p.cutoff * p.cutoff, mask)
     rc = o[3] + c[3]
     f = torch.where(ok, 1.0 / (1.0 + torch.exp(-p.k1 * (rc * inv_r - 1.0))),
                     torch.zeros_like(inv_r))
     return (f,), (f,)
 
 
-def _d3_direct_body(o, c, p, home, lf):
-    ok, inv_r, r2, dx, dy, dz = _geom(o, c, p.cutoff * p.cutoff, home)
+def _c6_dots(c, lf, cf, e_at):
+    """The three C6 contractions ``(l0 . rf, l1c . rf, l0 . rfdc)``."""
     zm = lf.shape[-1] // 2
-    mesh = (c.shape[0] - 6) // 2
-    zmax1 = zm // mesh
-    l0 = lf[..., :zm]
-    l1c = lf[..., zm:]
-    # candidate features rebuilt per window: rf[(z', q)] = [z_j == z'] e_j[q]
-    zj = c[5][..., 0, :]                                    # [.., L]
-    zrow = (torch.arange(zm, device=zj.device) // mesh).to(zj.dtype)
-    zmask = zj[..., None] == zrow                           # [.., L, zm]
-    e = torch.movedim(c[6:6 + mesh, ..., 0, :], 0, -1)      # [.., L, mesh]
-    edc = torch.movedim(c[6 + mesh:, ..., 0, :], 0, -1)
-    rf = torch.where(zmask, e.repeat((1,) * (e.dim() - 1) + (zmax1,)),
-                     torch.zeros((), dtype=e.dtype, device=e.device))
-    rfdc = torch.where(zmask, edc.repeat((1,) * (e.dim() - 1) + (zmax1,)),
-                       torch.zeros((), dtype=e.dtype, device=e.device))
-    zacc = torch.matmul(l0, rf.transpose(-1, -2))           # [.., cap, L]
-    z_di = torch.matmul(l1c, rf.transpose(-1, -2))
-    z_dj = torch.matmul(l0, rfdc.transpose(-1, -2))
+    if cf is None:
+        # kernel 1: rf[(z', q)] = [z_j == z'] e_j[q], rebuilt per window
+        mesh = (c.shape[0] - e_at) // 2
+        zj = c[5][..., 0, :]                                    # [.., W]
+        zrow = (torch.arange(zm, device=zj.device) // mesh).to(zj.dtype)
+        zmask = zj[..., None] == zrow                           # [.., W, zm]
+        e = torch.movedim(c[e_at:e_at + mesh, ..., 0, :], 0, -1)
+        edc = torch.movedim(c[e_at + mesh:, ..., 0, :], 0, -1)
+        zero = torch.zeros((), dtype=e.dtype, device=e.device)
+        reps = (1,) * (e.dim() - 1) + (zm // mesh,)
+        rf = torch.where(zmask, e.repeat(reps), zero)
+        rfdc = torch.where(zmask, edc.repeat(reps), zero)
+    else:
+        rf, rfdc = cf[..., :zm], cf[..., zm:]
+    zacc = torch.matmul(lf[..., :zm], rf.transpose(-1, -2))
+    z_di = torch.matmul(lf[..., zm:], rf.transpose(-1, -2))
+    z_dj = torch.matmul(lf[..., :zm], rfdc.transpose(-1, -2))
+    return zacc, z_di, z_dj
+
+
+def _d3_terms(o, c, p, ok, r2, zacc, z_di, z_dj):
+    """BJ-damped pair energy, force coefficient and dE/dCN blocks."""
     w = o[4] * c[4]
     good = w > 1e-12
     w_inv = 1.0 / torch.where(good, w, torch.ones_like(w))
@@ -203,14 +273,36 @@ def _d3_direct_body(o, c, p, home, lf):
     dd6 = -6.0 * p.s6 * r4 * den6_inv * den6_inv
     dd8 = -8.0 * p.s8 * rr * r6 * den8_inv * den8_inv
     coef = -c6m * (dd6 + dd8)
-    cfx, cfy, cfz = coef * dx, coef * dy, coef * dz
     m = torch.where(keep, (-2.0 * p.k3) * damp * w_inv, zero)
-    return ((e_ij, cfx, cfy, cfz, m * z_di),
-            (-cfx, -cfy, -cfz, m * z_dj))
+    return e_ij, coef, m * z_di, m * z_dj
 
 
-def _chain_body(o, c, p, home, lf):
-    ok, inv_r, _, dx, dy, dz = _geom(o, c, p.cutoff * p.cutoff, home)
+def _d3_direct_body(o, c, p, mask, lf, cf):
+    ok, _, r2, dx, dy, dz = _geom(o, c, p.cutoff * p.cutoff, mask)
+    e_ij, coef, dei, dej = _d3_terms(o, c, p, ok, r2, *_c6_dots(c, lf, cf, 6))
+    cfx, cfy, cfz = coef * dx, coef * dy, coef * dz
+    return (e_ij, cfx, cfy, cfz, dei), (-cfx, -cfy, -cfz, dej)
+
+
+def _coulomb_terms(qq, alpha, ok, inv_r, r2m):
+    """Half the pair energy and the own-side force coefficient."""
+    if alpha > 0:
+        ar = alpha * (r2m * inv_r)
+        erfc_ar = erfc_approx(ar)
+        phi = erfc_ar * inv_r
+        mag = (erfc_ar * inv_r
+               + _TWO_OVER_SQRT_PI * alpha * torch.exp(-ar * ar)
+               ) * inv_r * inv_r
+    else:
+        phi = inv_r
+        mag = inv_r * inv_r * inv_r
+    zero = torch.zeros((), dtype=qq.dtype, device=qq.device)
+    return torch.where(ok, 0.5 * qq * phi, zero), torch.where(ok, -(qq * mag),
+                                                              zero)
+
+
+def _chain_body(o, c, p, mask, lf, cf):
+    ok, inv_r, _, dx, dy, dz = _geom(o, c, p.cutoff * p.cutoff, mask)
     rrq = (o[3] + c[3]) * inv_r
     f = 1.0 / (1.0 + torch.exp(-p.k1 * (rrq - 1.0)))
     dcn = -f * (1.0 - f) * p.k1 * rrq * inv_r * inv_r
@@ -219,31 +311,50 @@ def _chain_body(o, c, p, home, lf):
     return (cfx, cfy, cfz), (-cfx, -cfy, -cfz)
 
 
-def _coulomb_body(o, c, p, home, lf):
-    ok, inv_r, r2m, dx, dy, dz = _geom(o, c, p.cutoff * p.cutoff, home)
-    qq = o[3] * c[3]
-    if p.alpha > 0:
-        ar = p.alpha * (r2m * inv_r)
-        erfc_ar = erfc_approx(ar)
-        phi = erfc_ar * inv_r
-        mag = (erfc_ar * inv_r
-               + _TWO_OVER_SQRT_PI * p.alpha * torch.exp(-ar * ar)
-               ) * inv_r * inv_r
-    else:
-        phi = inv_r
-        mag = inv_r * inv_r * inv_r
-    zero = torch.zeros((), dtype=qq.dtype, device=qq.device)
-    e = torch.where(ok, 0.5 * qq * phi, zero)
-    ncoef = torch.where(ok, -(qq * mag), zero)
+def _coulomb_body(o, c, p, mask, lf, cf):
+    ok, inv_r, r2m, dx, dy, dz = _geom(o, c, p.cutoff * p.cutoff, mask)
+    e, ncoef = _coulomb_terms(o[3] * c[3], p.alpha, ok, inv_r, r2m)
     mfx, mfy, mfz = ncoef * dx, ncoef * dy, ncoef * dz
     return (e, mfx, mfy, mfz), (e, -mfx, -mfy, -mfz)
 
 
-_BODY_FNS = {
+def _d3_direct_coulomb_body(o, c, p, mask, lf, cf):
+    """D3 direct and the Coulomb pair on one geometry (grid_d3.py:1535-1571):
+    the Coulomb test has its own cutoff; kernel 1's candidates carry q at
+    feature 6 (after z), kernels 7 and 8's at feature 5."""
+    dx = c[0] - o[0]
+    dy = c[1] - o[1]
+    dz = c[2] - o[2]
+    d2 = dx * dx + dy * dy + dz * dz
+    base = d2 > 1e-20
+    if mask is not None:
+        base = base & mask
+    one = torch.ones_like(d2)
+    ok = base & (d2 < p.cutoff * p.cutoff)
+    r2 = torch.where(ok, d2, one)
+    e_ij, coef, dei, dej = _d3_terms(
+        o, c, p, ok, r2, *_c6_dots(c, lf, cf, 7))
+    ok_c = base & (d2 < p.ccutoff * p.ccutoff)
+    r2c = torch.where(ok_c, d2, one)
+    q_c = c[6] if cf is None else c[5]
+    e_c, ncoef = _coulomb_terms(o[5] * q_c, p.alpha, ok_c, torch.rsqrt(r2c),
+                                r2c)
+    cfx, cfy, cfz = coef * dx, coef * dy, coef * dz
+    mgx, mgy, mgz = ncoef * dx, ncoef * dy, ncoef * dz
+    if p.combine_forces:
+        fx, fy, fz = cfx + mgx, cfy + mgy, cfz + mgz
+        return (e_ij, fx, fy, fz, dei, e_c), (-fx, -fy, -fz, dej, e_c)
+    return ((e_ij, cfx, cfy, cfz, dei, e_c, mgx, mgy, mgz),
+            (-cfx, -cfy, -cfz, dej, e_c, -mgx, -mgy, -mgz))
+
+
+#: body name -> plain pass body ``fn(o, c, params, mask, lf, cf)``
+BODY_FNS = {
     "cn": _cn_body,
     "d3_direct": _d3_direct_body,
     "chain": _chain_body,
     "coulomb": _coulomb_body,
+    "d3_direct_coulomb": _d3_direct_coulomb_body,
 }
 
 
@@ -255,19 +366,26 @@ def halfspace_zy(rz: int, ry: int):
 
 def window_sweep_plain(body: str, radius, own, cand, params: SweepParams,
                        lf=None):
-    """Plain PyTorch version of :func:`window_sweep` (any device/dtype).
+    """Plain PyTorch version of :func:`window_sweep` (any device/dtype)."""
+    _check(body, radius, own, cand, lf)
+    return cell_windows_plain(BODY_FNS[body], radius, own, cand, params,
+                              *body_outputs(body, params), lf=lf)
+
+
+def cell_windows_plain(fn, radius, own, cand, params, n_out, n_j, lf=None,
+                       cf=None):
+    """The pair-once enumeration by own cell: the home row and every
+    half-space row offset, each own cell against its 2*rx+1 x-cells (home:
+    cells left of centre skipped, the centre keeping slot pairs i < j).
 
     Materializes each offset's ``[cz, cy, cx, cap, (2*rx+1)*cap]`` pair
-    blocks, so its memory grows with the grid; the CUDA kernel keeps them
-    on chip.
+    blocks, so its memory grows with the grid; the CUDA kernels keep them
+    on chip.  ``cf [ez, ey, ex, cap, F]`` are zm-wide candidate rows.
     """
-    _check(body, radius, own, cand, lf)
-    _, n_own, n_out, n_j = BODIES[body]
     _, cz, cy, cx, cap = own.shape
     rz, ry, rx = radius
     nw = 2 * rx + 1
     ncand = nw * cap
-    fn = _BODY_FNS[body]
     own_out = torch.zeros((n_out, cz, cy, cx, cap), dtype=own.dtype,
                           device=own.device)
     j_out = torch.zeros((n_j,) + tuple(cand.shape[1:]), dtype=own.dtype,
@@ -283,8 +401,13 @@ def window_sweep_plain(body: str, radius, own, cand, params: SweepParams,
         z0, y0 = rz + dz, ry + dy
         rows = cand[:, z0:z0 + cz, y0:y0 + cy]
         win = torch.cat([rows[:, :, :, c:c + cx] for c in range(nw)], dim=-1)
+        cf_win = None
+        if cf is not None:
+            frows = cf[z0:z0 + cz, y0:y0 + cy]
+            cf_win = torch.cat([frows[:, :, c:c + cx] for c in range(nw)],
+                               dim=-2)
         own_blocks, j_blocks = fn(o, win[..., None, :], params,
-                                  home_mask if is_home else None, lf)
+                                  home_mask if is_home else None, lf, cf_win)
         for k, blk in enumerate(own_blocks):
             own_out[k] += blk.sum(dim=-1)
         for k, blk in enumerate(j_blocks):

@@ -315,3 +315,150 @@ def test_windowed_kernels_match_plain_at_tile_16(cuda):
             out_k, out_p = (out_k,), (out_p,)
         for a, p in zip(out_k, out_p):
             _close(a, p)
+
+
+def _record(modules_names, fn):
+    """Run ``fn`` with the named kernel wrappers recording their first call
+    per body; returns ``{(name, body): (args, kwargs)}``."""
+    seen = {}
+    undo = []
+    for module, name in modules_names:
+        orig = getattr(module, name)
+
+        def record(body, *args, _name=name, _orig=orig, **kwargs):
+            seen.setdefault((_name, body), (args, kwargs))
+            return _orig(body, *args, **kwargs)
+
+        setattr(module, name, record)
+        undo.append((module, name, orig))
+    try:
+        fn()
+    finally:
+        for module, name, orig in reversed(undo):
+            setattr(module, name, orig)
+    return seen
+
+
+def _replay(seen):
+    """Each recorded call through the kernel and its plain version."""
+    from nvalchemiops_torch.kernels import chunk_sweep as cs
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import row_sweep as rs
+    from nvalchemiops_torch.kernels import stencil_sweep as st
+    from nvalchemiops_torch.kernels import window_sweep as ws
+
+    pairs = {"window_sweep": (ws.window_sweep, ws.window_sweep_plain),
+             "row_sweep": (rs.row_sweep, rs.row_sweep_plain),
+             "chunk_sweep": (cs.chunk_sweep, cs.chunk_sweep_plain),
+             "stencil_sweep": (st.stencil_sweep, st.stencil_sweep_plain)}
+    for (name, body), (args, kwargs) in seen.items():
+        kern, plain = pairs[name]
+        before = launch_counts[f"{name}_{body}"]
+        out_k = kern(body, *args, **kwargs)
+        assert launch_counts[f"{name}_{body}"] == before + 1
+        out_p = plain(body, *args, **kwargs)
+        torch.cuda.synchronize()
+        if isinstance(out_k, torch.Tensor):
+            out_k, out_p = (out_k,), (out_p,)
+        for a, b in zip(out_k, out_p):
+            for fa, fb in zip(a, b):            # per output plane
+                _close(fa, fb)
+
+
+def _grid_case(cuda, seed, zmax, n=3000, box=26.0, cutoff=5.0):
+    from nvalchemiops_torch import grid
+
+    rng = np.random.default_rng(seed)
+    tab = _d3_tables(rng, zmax)
+    pos = torch.as_tensor(rng.uniform(0, box, (n, 3)), dtype=torch.float32,
+                          device=cuda)
+    cell = torch.eye(3, device=cuda) * box
+    numbers = rng.integers(1, zmax + 1, n).astype(np.int32)
+    numbers[:7] = 0                             # padding atoms are parked
+    q = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    dims, radius, cap = grid.estimate_grid_geometry(cell, [True] * 3, cutoff,
+                                                    n, 0.6)
+    g = grid.build_atom_grid(pos, cell, [True] * 3, dims, radius, cap)
+    return g, numbers, q, tab, cutoff
+
+
+@pytest.mark.parametrize("zmax", [4, 16])
+def test_zm_wide_kernels_match_plain(cuda, zmax):
+    """Kernels 7 and 8 on every body (the super-chunk sweep at the card's
+    G and at G = 1), at zm = 25 and zm = 85."""
+    from nvalchemiops_torch import grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    g, numbers, q, tab, cutoff = _grid_case(cuda, 11, zmax)
+
+    def run():
+        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7,
+                           engine="pallas")
+        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7,
+                           engine="block")
+        grid_d3.grid_dftd3_coulomb(g, numbers, q, *tab, cutoff, 0.42, 4.1,
+                                   1.7, coulomb_cutoff=0.8 * cutoff,
+                                   alpha=0.35)
+        grid.grid_coulomb_energy_forces(g, q, cutoff, 0.35, engine="block")
+
+    seen = _record([(grid_d3, "row_sweep"), (grid_d3, "chunk_sweep"),
+                    (grid, "chunk_sweep")], run)
+    assert sorted(seen) == sorted(
+        [("row_sweep", b) for b in ("cn", "d3_direct", "chain")]
+        + [("chunk_sweep", b) for b in ("cn", "d3_direct", "chain",
+                                        "coulomb", "d3_direct_coulomb")])
+    _replay(seen)
+    args, kwargs = seen[("chunk_sweep", "d3_direct_coulomb")]
+    _replay({("chunk_sweep", "d3_direct_coulomb"):
+             (args[:4] + (1,) + args[5:], kwargs)})
+
+
+def test_fused_window_body_matches_plain(cuda):
+    """Kernel 1's fused D3 + Coulomb body, separate and combined."""
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    g, numbers, q, tab, cutoff = _grid_case(cuda, 12, 4)
+    for combine in (False, True):
+        seen = _record([(grid_d3, "window_sweep")], lambda: (
+            grid_d3.grid_dftd3_coulomb(
+                g, numbers, q, *tab, cutoff, 0.42, 4.1, 1.7,
+                coulomb_cutoff=0.8 * cutoff, alpha=0.35, engine="window",
+                combine_forces=combine)))
+        assert ("window_sweep", "d3_direct_coulomb") in seen
+        _replay({k: v for k, v in seen.items()
+                 if k[1] == "d3_direct_coulomb"})
+
+
+def test_stencil_kernel_matches_plain(cuda):
+    """Kernel 9 on its three bodies, on a jittered simple-cubic crystal,
+    through the stencil functions and the hybrid D3 engine."""
+    from nvalchemiops_torch import grid, stencil
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    rng = np.random.default_rng(0)
+    n_rep, a = 14, 3.0
+    lat = np.stack(np.meshgrid(*([np.arange(n_rep)] * 3), indexing="ij"),
+                   -1).reshape(-1, 3) * a
+    pos = torch.as_tensor(lat + rng.uniform(-0.2, 0.2, lat.shape),
+                          dtype=torch.float32, device=cuda)
+    cell = torch.eye(3, device=cuda) * (n_rep * a)
+    n = pos.shape[0]
+    tab = _d3_tables(rng, 4)
+    numbers = rng.integers(1, 5, n).astype(np.int32)
+    q = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    cutoff = 7.0
+    sg = stencil.build_stencil_auto(pos, cell, [True] * 3, cutoff)
+    assert sg is not None and int(sg.counts_max) == 1
+    dims, radius, cap, origin = grid.choose_grid_geometry(pos, cell,
+                                                          [True] * 3, cutoff)
+    g = grid.build_atom_grid(pos, cell, [True] * 3, dims, radius, cap,
+                             origin=origin)
+
+    def run():
+        stencil.stencil_coulomb_energy_forces(sg, q, cutoff, 0.35)
+        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7,
+                           stencil=sg)
+
+    seen = _record([(stencil, "stencil_sweep")], run)
+    assert sorted(b for _, b in seen) == ["chain", "cn", "coulomb"]
+    _replay(seen)

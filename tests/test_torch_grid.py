@@ -161,12 +161,17 @@ def test_coulomb_engine_other_than_window_raises():
                         cap=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgrid.grid_coulomb_energy_forces(gt, torch.zeros(3), 3.0,
-                                         engine="block")
+                                         engine="xla")
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, nvalchemiops_torch, nvalchemiops_torch.composite, "
-            "nvalchemiops_torch.interop, nvalchemiops_torch.kernels.build; "
+            "nvalchemiops_torch.interop, nvalchemiops_torch.kernels.build, "
+            "nvalchemiops_torch.stencil, "
+            "nvalchemiops_torch.interactions.dispersion.grid_d3, "
+            "nvalchemiops_torch.kernels.row_sweep, "
+            "nvalchemiops_torch.kernels.chunk_sweep, "
+            "nvalchemiops_torch.kernels.stencil_sweep; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -160,8 +160,11 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert path != build.library_path(("-Xptxas", "-v"))
     assert path.startswith(build.BUILD_DIR)
     assert sorted(os.path.basename(f) for f in build._sources()) == [
-        "dense_pairs.cu", "separable_spline.cu", "window_sweep.cu",
+        "chunk_sweep.cu", "dense_pairs.cu", "row_sweep.cu",
+        "separable_spline.cu", "stencil_sweep.cu", "window_sweep.cu",
         "windowed_gather.cu"]
+    assert [os.path.basename(f) for f in build._headers()] == [
+        "pair_bodies.cuh"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
