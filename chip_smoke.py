@@ -16,7 +16,9 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    stage times (CUDA events) and peak memory;
 5. kernel vs plain: every kernel call of phases 3 and 4 is replayed on its
    captured inputs through the kernel and through its plain PyTorch
-   version, compared within a stated f32 tolerance and timed;
+   version, compared within a stated f32 tolerance and timed; two launches
+   of the windowed spread on the main path's inputs must agree bit for bit
+   (and in phase 9 two of the dense spread, on the batch and the fallback);
 6. batched D3, dense: ``batch_dftd3`` on 128 x 2,000 atoms in 41.2 A boxes
    at 21.2 A (4 image combos) and in 27 A boxes at 9 A (minimum image),
    the systems of the JAX package's batched D3 benchmark; the router must
@@ -34,7 +36,9 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    windowed engine (tiles of 16);
 9. kernel vs plain for the kernels of phases 6-8, as in phase 5: the 9 A
    batch, the grid branch (cap 104) and the windowed batch (W = 20) right
-   after their runs, the 21.2 A batch and the dense PME with bounds;
+   after their runs, the 21.2 A batch, the dense PME, the composite's
+   dense spread (B = 1, 32^3) and the 128^3 fallback with bounds; the dense
+   spread of the batch and of the fallback also under other slab plans;
 10. the 1,024-atom composite on the other grid engines: ``grid_dftd3``
     on the super-chunk (``"block"``, kernel 8) and per-row (``"pallas"``,
     kernel 7) sweeps, ``grid_coulomb_energy_forces(engine="block")`` and
@@ -86,8 +90,9 @@ JAX_F32_BARS = {"d3": (7.54e-4, 7.21e-4), "coulomb": (1.82e-5, 1.69e-5),
 BAR_FACTOR = 1.25
 # kernel vs plain, f32: max |kernel - plain| <= KERNEL_RTOL * max |plain|
 # per output.  Both sum in f32 in different orders (and the pair sweeps'
-# j-side sums and the dense spread with atomics in a run-dependent order);
-# 1e-5 is ~100 f32 ulps of the output's scale.
+# j-side sums with global atomics, in a run-dependent order; the windowed
+# spread adds its slots in a fixed order, the dense spread in fixed
+# point); 1e-5 is ~100 f32 ulps of the output's scale.
 KERNEL_RTOL = 1e-5
 NET_FORCE_RTOL = 1e-3      # |sum_i F_i| / sum_i |F_i| per stage
 FULL_N_REP = 38            # 2 * 38^3 = 109,744 atoms
@@ -190,6 +195,27 @@ def cuda_time_ms(fn, reps=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_time_ms(fn, reps=5):
+    """Device time of one call of ``fn``: the CUDA kernels (memsets
+    included) that one torch.profiler run of ``reps`` calls records, summed,
+    over ``reps``.  Unlike :func:`cuda_time_ms` it leaves out the time the
+    card waits for the host between launches.  None when the profiler saw
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / reps if busy else None
 
 
 class Capture:
@@ -441,12 +467,66 @@ def compare_kernels(calls, label, ctx=None):
             row["bound_ms"] = max(t_bytes, t_ops)
             row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             row["library_ms"] = cuda_time_ms(lib) if lib else None
-            msg += (f" library {row['library_ms']} ms bound "
+            row["device_ms"] = device_time_ms(lambda: kern(*args, **kwargs))
+            row["library_device_ms"] = device_time_ms(lib) if lib else None
+            msg += (f" (device {row['device_ms']} ms) library "
+                    f"{row['library_ms']} ms (device "
+                    f"{row['library_device_ms']} ms) bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                     f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         phase(msg)
         rows[key] = row
     return rows
+
+
+def check_deterministic(calls, label, key="windowed_spread"):
+    """Two launches of a spread kernel on the captured inputs give the same
+    bits: the windowed spread has one writer per output adding its slots in
+    a fixed order, the dense spread sums in fixed point."""
+    from nvalchemiops_torch.kernels.separable_spline import separable_spread
+    from nvalchemiops_torch.kernels.windowed_gather import spread_windows
+
+    kern = {"windowed_spread": spread_windows,
+            "separable_spread": separable_spread}[key]
+    args, kwargs = calls[key]
+    first = kern(*args, **kwargs)
+    second = kern(*args, **kwargs)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        diff = (first - second).abs().max().item()
+        raise AssertionError(f"{label}: two launches differ (max {diff:.3e})")
+    phase(f"{label}: two launches bitwise equal")
+
+
+def spread_plan_variants(calls, label):
+    """The dense spread on its captured inputs under the slab plan and
+    under the thickest slabs that fit (fewest blocks), each against the
+    plain version and timed (CUDA events and device time): the measurement
+    behind ``spread_plan``'s thin slabs."""
+    from nvalchemiops_torch.kernels import separable_spline as ss
+
+    args, kwargs = calls["separable_spread"]
+    gidx, w, q, dims = args
+    b, n, _, order = w.shape
+    want = ss.separable_spread_plain(*args, **kwargs)
+    scale = want.double().abs().max().item()
+    plans = {"plan": ss.spread_plan(dims, order, b),
+             "thickest slabs": ss.spread_plan(dims, order, b, n_sm=1)}
+    for name, plan in plans.items():
+        with plain_kernels(ss, spread_plan=lambda *a, _p=plan, **k: _p):
+            got = ss.separable_spread(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            if not err <= KERNEL_RTOL * scale:
+                raise AssertionError(f"{label} spread plan {name}: max abs "
+                                     f"err {err:.3e} vs scale {scale:.3e}")
+            ms = cuda_time_ms(lambda: ss.separable_spread(*args, **kwargs))
+            dev_ms = device_time_ms(
+                lambda: ss.separable_spread(*args, **kwargs))
+        phase(f"{label} dense spread under plan '{name}' (planes "
+              f"{plan.planes}, rows {plan.rows}, {plan.blocks} blocks, "
+              f"{plan.smem_bytes} B shared): kernel {ms:.4f} ms (device "
+              f"{dev_ms} ms), max_abs_err {err:.3e}")
 
 
 def profile_step(label, fn, top=6):
@@ -718,7 +798,8 @@ def run_batched_d3(dev):
 
 
 def run_pme(dev, f_p_full, pme_err, full_inputs):
-    """Phase 8; returns the dense and fallback captures, counts, contexts."""
+    """Phase 8; returns the dense and fallback captures, counts, contexts,
+    and the composite's dense spread call with its context."""
     from nvalchemiops_torch import composite
     from nvalchemiops_torch.interactions.electrostatics import pme
     from nvalchemiops_torch.interactions.electrostatics.pme import (
@@ -764,6 +845,7 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
     # -- the 1,024-atom composite through the dense engine ----------------
     pos_c, cell_c, _, charges, *_ = composite.build_system()
     ref = composite.load_reference()
+    capture = install_capture()
     (_, f_c), _ = drive(
         "composite PME on the dense engine (B = 1)",
         lambda: batch_pme_reciprocal(
@@ -772,6 +854,9 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
             torch.as_tensor(cell_c, dtype=torch.float32, device=dev),
             composite.ALPHA, composite.MESH, compute_forces=True,
             engine="dense"), dense_keys, forbid=win_keys)
+    capture.restore()
+    composite_calls = {k: v for k, v in capture.calls.items()
+                       if k == "separable_spread"}
     forces = {"pme": f_c[0].double().cpu().numpy()}
     rel_c = composite.relative_errors(forces, ref)["pme"]
     rms_c = composite.rms_errors(forces, ref)["pme"]
@@ -820,13 +905,16 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
                                      engine="windowed"),
         win_keys, forbid=dense_keys)
     capture.restore()
-    compare_kernels(capture.calls, f"{label_w} (tile 16, W = 20)")
+    compare_kernels(capture.calls, f"{label_w} (tile 16, W = 20)",
+                    {"atoms": n, "order": 4})
     if counts_w["windowed_spread"] != bw:
         raise AssertionError(f"windowed batch: {counts_w}")
     check_forces("windowed batch", f_w8)
     ctx = {"atoms": b * n, "order": 4}
     ctx_fb = {"atoms": pos_f.shape[0], "order": 4}
-    return dense_calls, counts, ctx, fallback_calls, ctx_fb
+    ctx_c = {"atoms": pos_c.shape[0], "order": 4}
+    return (dense_calls, counts, ctx, fallback_calls, ctx_fb,
+            (composite_calls, ctx_c))
 
 
 def off_path(expect):
@@ -1233,15 +1321,16 @@ def main():
                 "order": 4}
     full_rows = compare_kernels(full_calls, f"full width {n} atoms",
                                 ctx_full)
+    check_deterministic(full_calls, "full width windowed spread")
     del full_calls, small_calls
 
     # -- phases 6 and 7: batched D3, dense and grid branch -----------------
     d3_calls, d3_counts, d3_ctx = run_batched_d3(dev)
 
     # -- phase 8: PME, dense and batched -------------------------------------
-    (pme_calls, pme_counts, pme_ctx, fb_calls,
-     fb_ctx) = run_pme(dev, f_p, (rel["pme"], rms["pme"]),
-                       (pos, q, cell, alpha))
+    (pme_calls, pme_counts, pme_ctx, fb_calls, fb_ctx,
+     (comp_calls, comp_ctx)) = run_pme(dev, f_p, (rel["pme"], rms["pme"]),
+                                       (pos, q, cell, alpha))
 
     # -- phase 9: kernel vs plain for the new kernels ----------------------
     d3_rows = compare_kernels(
@@ -1251,6 +1340,15 @@ def main():
         pme_calls, f"batched PME {PME_BATCH['b']} x {PME_BATCH['n']}",
         pme_ctx)
     compare_kernels(fb_calls, f"PME fallback {n} atoms at 128^3", fb_ctx)
+    compare_kernels(comp_calls, "composite PME dense engine (B = 1, 32^3)",
+                    comp_ctx)
+    check_deterministic(pme_calls, "batched PME dense spread",
+                        "separable_spread")
+    check_deterministic(fb_calls, "PME 128^3 fallback dense spread",
+                        "separable_spread")
+    spread_plan_variants(pme_calls, f"batched PME {PME_BATCH['b']} x "
+                         f"{PME_BATCH['n']}")
+    spread_plan_variants(fb_calls, f"PME fallback {n} atoms at 128^3")
 
     # -- phase 10: the composite on the other grid engines ------------------
     (pos_s, cell_s, num_s, q_s, rcov_s, r4r2_s, cna_s,

@@ -21,55 +21,257 @@
 // derivatives, so this is the function of four pallas_separable_gather
 // calls.
 //
-// What bounds them on the H100.  Both touch order^3 = 64 mesh points per
-// atom (order 4): the spread ~4 flops and one atomic per point, the gather
-// ~2-8 flops per point.  At 2,000 atoms per 32^3 mesh, or 109,744 atoms on
-// a 128^3 mesh, that is far below the FP32 roof; the limits are the
-// scattered 4-byte accesses and, for the spread, the atomics into L2.  Mesh
-// reads and writes are each counted once for the bound: 128 KB per 32^3
-// mesh, 8 MB at 128^3.
+// What bounds them on the H100.  Bytes: the stencil and charges read once
+// (52 bytes an atom at order 4) and the mesh written (spread) or read
+// (gather) once: 128 KB per 32^3 mesh, 8 MB at 128^3; the flops (order^3
+// points an atom) are far below the FP32 roof.  A spread that adds each
+// (atom, point) into device memory with a float atomic is bound instead by
+// the atomics' round trips to L2 (~65 G/s measured, 10-20x the byte
+// bound); one that adds into shared memory by its atomics there and by
+// the scan of the atoms each slab's block makes.
 //
-// Design.  Spread: one thread per (atom, stencil point) adds q wx wy wz
-// into its mesh point with a float atomicAdd; neighbouring threads hit
-// neighbouring z points.  The order of the atomics varies from run to run,
-// which sets the on-card tolerance against the plain version.  Gather: one
-// thread per atom walks its order^3 points, summing z-rows first (value and
-// z-derivative), then y, then x, as separable partial sums; each output
-// has one writer, so the gather is deterministic.
+// Design.  Spread: owner computes, with no global atomics.  The mesh is cut
+// into slabs of whole x-planes (of y-rows where one plane does not fit),
+// each owned by one block that accumulates it in shared memory and writes
+// it once with coalesced stores, so the output needs no memset.  The slab
+// plan (planes, rows, slabs) is kernels/separable_spline.py's spread_plan,
+// which thins the slabs while the batch stays within one block per SM.  A
+// block scans its system's atoms in rounds: each thread tests kScan atoms'
+// x-points against its planes, from a compact copy of their x-bases (4
+// bytes an atom, coalesced: the stencil is consecutive mod n along each
+// axis, as spline._stencil builds it; loads in flight together, the next
+// round's during this round's spread), and the warps append every (atom,
+// x-point) inside to a list in shared memory (a ballot and one count
+// atomic per warp and x-point).  Then one thread per pair adds that
+// plane's order^2 (y, z) points q wx wy wz into the slab, a thin slab
+// spreading no more than its share.  The slab holds 64-bit fixed-point
+// sums (scale 2^e from the system's sum |q|, which bounds every mesh
+// value): each term is exact in it to 2^-e, and is added with 32-bit
+// integer atomics (native, where float atomics in shared memory are a
+// compare-and-swap loop), so the result does not depend on the order of
+// the adds: two launches give the same bits.  Each sum is rounded once to
+// f32 when the slab is written.  (Thread-block clusters that shared the
+// scan through distributed shared memory, float atomics, and warps that
+// spread one atom's points across lanes measured slower; PERF.md.)
+// Gather: one thread per atom walks its order^3 points, summing z-rows
+// first (value and z-derivative), then y, then x, as separable partial
+// sums; each output has one writer, so the gather is deterministic.
 //
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
-// tensors allocated by the Python wrapper (gidx int32, the rest float32);
-// mesh must be zero on entry to the spread.  Returns the cudaError_t of the
-// launch.
+// tensors allocated by the Python wrapper (gidx int32, the rest float32).
+// The spread also takes xbase [B, N] = gidx[:, :, 0, 0] contiguous and
+// writes every mesh point.  Returns the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxOrder = 4;
+constexpr int kThreads = 1024;        // spread block (spread_plan's threads)
+constexpr int kScan = 8;              // atoms a thread tests per round
+constexpr int kList = 8192;           // (atom, x-point) pairs a round holds
+constexpr int kSmemLimit = 232448;    // shared memory a block may use
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(256)
-    spread_kernel(const int* __restrict__ gidx, const float* __restrict__ w,
-                  const float* __restrict__ q, float* __restrict__ mesh, int N,
-                  int order, int nx, int ny, int nz, int64_t total) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
-  const int o3 = order * order * order;
-  const int64_t atom = tid / o3;  // b * N + n
-  const int pt = static_cast<int>(tid - atom * o3);
-  const int a = pt / (order * order);
-  const int b = (pt / order) % order;
-  const int c = pt % order;
-  const int* g = gidx + atom * 3 * order;
-  const float* ww = w + atom * 3 * order;
-  const float val = q[atom] * ww[a] * (ww[order + b] * ww[2 * order + c]);
-  if (val == 0.0f) return;
-  const int64_t sys = atom / N;
-  const int64_t at =
-      ((sys * nx + g[a]) * ny + g[order + b]) * static_cast<int64_t>(nz) +
-      g[2 * order + c];
-  atomicAdd(&mesh[at], val);
+// dynamic shared memory of a spread block: the slab's low and high words
+// (each padded to whole int4s), then the pair list and its count
+__host__ __device__ inline int slab_words(int px, int py, int nz) {
+  return (px * py * nz + 3) & ~3;
+}
+
+__host__ __device__ inline size_t spread_smem(int px, int py, int nz) {
+  return sizeof(int) * (2 * slab_words(px, py, nz) + kList + 4);
+}
+
+// v as a fixed-point integer of scale 2^e (exact: v 2^e is exact in f32
+// and below 2^62 in magnitude), added into the 64-bit word (hi, lo) with a
+// low-word atomic and, on a carry or a negative v, a high-word one.
+// Integer addition is associative, so the sum does not depend on order.
+__device__ inline void add_fixed(unsigned* lo, int* hi, float v, int e) {
+  const long long f = __float2ll_rn(ldexpf(v, e));
+  const unsigned flo = static_cast<unsigned>(f);
+  const unsigned old = atomicAdd(lo, flo);
+  const int h = static_cast<int>(f >> 32) + (old + flo < old ? 1 : 0);
+  if (h != 0) atomicAdd(hi, h);
+}
+
+// One axis of an atom's stencil: O consecutive entries, 16-byte loads at
+// order 4 (rows of 12 entries stay 16-byte aligned).
+template <int O, typename T>
+__device__ inline void load_axis(const T* p, T (&v)[O]) {
+  if constexpr (O == 4) {
+    using V = typename std::conditional<std::is_same<T, int>::value, int4,
+                                        float4>::type;
+    const V t = __ldg(reinterpret_cast<const V*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < O; ++k) v[k] = __ldg(p + k);
+  }
+}
+
+template <int O>
+__global__ void __launch_bounds__(kThreads)
+    spread_kernel(const int* __restrict__ gidx, const int* __restrict__ xbase,
+                  const float* __restrict__ w, const float* __restrict__ q,
+                  float* __restrict__ mesh, int N, int nx, int ny, int nz,
+                  int px, int py, int x_slabs, int y_slabs, int round_atoms) {
+  extern __shared__ int4 smem4[];
+  const int nw = slab_words(px, py, nz);
+  unsigned* lo = reinterpret_cast<unsigned*>(smem4);  // [px][py][nz] words
+  int* hi = reinterpret_cast<int*>(lo + nw);
+  int* list = hi + nw;
+  int* count = list + kList;
+  const int xs = blockIdx.x % x_slabs;
+  const int ys = (blockIdx.x / x_slabs) % y_slabs;
+  const int b = blockIdx.x / (x_slabs * y_slabs);
+  const int x0 = xs * px;
+  const int xw = max(0, min(px, nx - x0));
+  const int y0 = ys * py;
+  const int yw = min(py, ny - y0);
+  const int lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < nw / 2; i += blockDim.x)
+    smem4[i] = make_int4(0, 0, 0, 0);
+
+  // the fixed-point scale: every mesh value is at most sum |q| (weights are
+  // at most 1 and sum to 1 per axis), so with sum |q| < 2^k the scale 2^e,
+  // e = 61 - k, keeps every partial sum below 2^62
+  const int64_t sys = static_cast<int64_t>(b) * N;  // the system's atoms
+  float qabs = 0.0f;
+  for (int n = threadIdx.x; n < N; n += kThreads)
+    qabs += fabsf(__ldg(q + sys + n));
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) qabs += __shfl_xor_sync(kFull, qabs, m);
+  float* warp_sums = reinterpret_cast<float*>(list);
+  if (lane == 0) warp_sums[threadIdx.x / 32] = qabs;
+  __syncthreads();
+  float qsum = 0.0f;
+  for (int k = 0; k < kThreads / 32; ++k) qsum += warp_sums[k];
+  int k2;
+  frexpf(qsum * 1.0625f, &k2);  // margin for the rounding of the sum
+  const int e = 61 - k2;
+  __syncthreads();
+  if (threadIdx.x == 0) *count = 0;
+  __syncthreads();
+
+  // x-bases of kScan atoms a thread, loaded a round ahead
+  int gx[kScan];
+  auto load_round = [&](int r0) {
+    const int r1 = min(N, r0 + round_atoms);
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int n = r0 + u * kThreads + threadIdx.x;
+      gx[u] = n < r1 ? __ldg(xbase + sys + n) : -2 * O;
+    }
+  };
+  load_round(0);
+  for (int r0 = 0; r0 < N; r0 += round_atoms) {
+    // scan: the warps append every (atom, x-point) inside the slab to the
+    // list (x-point a of an atom is (base + a) mod nx), then the next
+    // round's loads fly while this round spreads
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+#pragma unroll
+      for (int a = 0; a < O; ++a) {
+        int xa = gx[u] + a;
+        // wrap once; a mesh narrower than the stencil needs the modulo
+        xa = nx >= O ? (xa >= nx ? xa - nx : xa) : (xa < 0 ? xa : xa % nx);
+        const bool hit =
+            static_cast<unsigned>(xa - x0) < static_cast<unsigned>(xw);
+        const unsigned mask = __ballot_sync(kFull, hit);
+        if (mask == 0u) continue;
+        const int leader = __ffs(mask) - 1;
+        int at = 0;
+        if (lane == leader) at = atomicAdd(count, __popc(mask));
+        at = __shfl_sync(kFull, at, leader);
+        if (hit)
+          list[at + __popc(mask & ((1u << lane) - 1u))] =
+              (r0 + u * kThreads + threadIdx.x) * O + a;
+      }
+    }
+    __syncthreads();
+    if (r0 + round_atoms < N) load_round(r0 + round_atoms);
+
+    // spread: one thread per pair adds its x-plane's order^2 (y, z) points
+    const int pairs = *count;
+    for (int j = threadIdx.x; j < pairs; j += kThreads) {
+      const int64_t atom = sys + list[j] / O;
+      const int a = list[j] % O;
+      const int* g = gidx + atom * 3 * O;
+      const float* ww = w + atom * 3 * O;
+      int sy[O], sz[O];
+      float wy[O], wz[O];
+      load_axis<O>(g + O, sy);
+      load_axis<O>(g + 2 * O, sz);
+      load_axis<O>(ww + O, wy);
+      load_axis<O>(ww + 2 * O, wz);
+      const int dx = __ldg(g + a) - x0;
+      if (static_cast<unsigned>(dx) >= static_cast<unsigned>(xw)) continue;
+      const float qx = __ldg(q + atom) * __ldg(ww + a);
+      const int plane = dx * py * nz;
+#pragma unroll
+      for (int bb = 0; bb < O; ++bb) {
+        const int y = sy[bb] - y0;
+        if (static_cast<unsigned>(y) >= static_cast<unsigned>(yw)) continue;
+        const float qxy = qx * wy[bb];
+#pragma unroll
+        for (int cc = 0; cc < O; ++cc) {
+          const float v = qxy * wz[cc];
+          if (v != 0.0f &&
+              static_cast<unsigned>(sz[cc]) < static_cast<unsigned>(nz)) {
+            const int at = plane + y * nz + sz[cc];
+            add_fixed(lo + at, hi + at, v, e);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the list is spread
+    if (threadIdx.x == 0) *count = 0;
+    __syncthreads();
+  }
+
+  // write the slab: each 64-bit sum rounded once to f32 (NaN throughout
+  // when the charges are not finite)
+  float* dst = mesh + ((static_cast<int64_t>(b) * nx + x0) * ny + y0) * nz;
+  const bool finite = isfinite(qsum);
+  for (int i = threadIdx.x; i < xw * yw * nz; i += blockDim.x) {
+    const int xi = i / (yw * nz);
+    const int r = i - xi * yw * nz;  // y * nz + z within the slab's rows
+    const int at = xi * py * nz + r;
+    const long long f = (static_cast<long long>(hi[at]) << 32) |
+                        static_cast<long long>(lo[at]);
+    dst[static_cast<int64_t>(xi) * ny * nz + r] =
+        finite ? ldexpf(__ll2float_rn(f), -e) : __int_as_float(0x7fc00000);
+  }
+}
+
+template <int O>
+cudaError_t spread_launch(const int* gidx, const int* xbase, const float* w,
+                          const float* q, float* mesh, int B, int N, int nx,
+                          int ny, int nz,
+                          int px, int py, int x_slabs, int y_slabs,
+                          cudaStream_t stream) {
+  const size_t smem = spread_smem(px, py, nz);
+  if (smem > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
+  // an atom has at most min(O, px) x-points in a slab (O when the stencil
+  // wraps a mesh narrower than itself): the round fits the list
+  const int per_atom = nx >= O ? min(O, px) : O;
+  const int round_atoms = min(kScan * kThreads, kList / per_atom);
+  const cudaError_t e = cudaFuncSetAttribute(
+      spread_kernel<O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  spread_kernel<O><<<static_cast<unsigned>(B) * x_slabs * y_slabs, kThreads,
+                     smem, stream>>>(gidx, xbase, w, q, mesh, N, nx, ny, nz,
+                                     px, py, x_slabs, y_slabs, round_atoms);
+  return cudaGetLastError();
 }
 
 template <bool kGrad>
@@ -119,19 +321,33 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-extern "C" int nv_separable_spread(const int* gidx, const float* w,
-                                   const float* q, float* mesh, int B, int N,
-                                   int order, int nx, int ny, int nz,
+extern "C" int nv_separable_spread(const int* gidx, const int* xbase,
+                                   const float* w, const float* q, float* mesh,
+                                   int B, int N,
+                                   int order, int nx, int ny, int nz, int px,
+                                   int py, int x_slabs, int y_slabs,
                                    void* stream) {
-  if (order < 1 || order > kMaxOrder) return cudaErrorInvalidValue;
-  const int64_t total = static_cast<int64_t>(B) * N * order * order * order;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  spread_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(gidx, w, q, mesh, N,
-                                                       order, nx, ny, nz, total);
-  return cudaGetLastError();
+  if (order < 1 || order > kMaxOrder || px < 1 || py < 1 ||
+      static_cast<int64_t>(x_slabs) * px < nx ||
+      static_cast<int64_t>(y_slabs) * py < ny ||
+      static_cast<int64_t>(N) * order >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(B) * nx * ny * nz == 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (order) {
+    case 1:
+      return spread_launch<1>(gidx, xbase, w, q, mesh, B, N, nx, ny, nz,
+                              px, py, x_slabs, y_slabs, st);
+    case 2:
+      return spread_launch<2>(gidx, xbase, w, q, mesh, B, N, nx, ny, nz,
+                              px, py, x_slabs, y_slabs, st);
+    case 3:
+      return spread_launch<3>(gidx, xbase, w, q, mesh, B, N, nx, ny, nz,
+                              px, py, x_slabs, y_slabs, st);
+    default:
+      return spread_launch<4>(gidx, xbase, w, q, mesh, B, N, nx, ny, nz,
+                              px, py, x_slabs, y_slabs, st);
+  }
 }
 
 extern "C" int nv_separable_gather(const float* mesh, const int* gidx,

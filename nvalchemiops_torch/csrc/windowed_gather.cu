@@ -15,23 +15,35 @@
 // parity fold of overlapping windows onto the mesh stay in torch, as they
 // stayed in XLA.
 //
-// What bounds them on the H100.  Both are small per tile: a W^3 = 1,728
-// float window (W = tile + 4 = 12) and cap slot rows of 6W floats.  At the
-// main path's 128^3 mesh (4,096 tiles, cap ~40) the spread is ~0.3 GFMA
-// and the gather reads ~28 MB of windows; both are far below the card's
-// FP32 and HBM roofs, so launch shape and on-chip reuse matter more than
-// tensor cores.  The TPU kernels built the (y (x) x) products with one-hot
-// matmuls because Mosaic could not reshape [cap, W, W]; here each thread
-// simply indexes.
+// What bounds them on the H100.  Bytes: the spread reads q and the Sx | Sy
+// | Sz columns of smat and writes the windows (at the main path's 128^3
+// mesh, 4,096 tiles of cap 40 and W = 12: 24 MB + 28 MB, 0.016 ms at
+// 3.35 TB/s); the gather reads smat and the windows.  The TPU kernels
+// built the dense [W, cap] x [cap, W^2] product on the matrix unit (with
+// one-hot matmuls, as Mosaic could not reshape [cap, W, W]).  Done densely
+// here, the spread is bound by shared-memory loads: three per multiply-add,
+// W^3 cap multiply-adds per tile, of which all but order^3 are exact zeros
+// (an order-4 row has 4 of its W columns non-zero per axis).
 //
 // Design.  Gather: one block per tile stages the window in shared memory;
 // one thread per slot keeps its six W-wide rows in registers and skips the
-// (z, y) rows where its banded B-spline weights are zero (order 4 leaves 4
-// of 12 non-zero per axis), so the dense contraction costs ~W*16 instead
-// of W^3 multiply-adds per slot.  Spread: one block per tile stages q*Sz,
-// Sy and Sx of all slots in shared memory; threads cover the W^3 outputs
-// and loop over the slots.  Neither uses atomics: each tile's window and
-// each slot's outputs have exactly one writer, so both are deterministic.
+// (z, y) rows where its banded B-spline weights are zero, so the dense
+// contraction costs ~W*16 instead of W^3 multiply-adds per slot.
+// Spread: output-stationary and band-skipping.  A block holds whole tiles
+// (4 of W = 8, 2 of W = 12, 1 of W = 20) and stages q*Sz, Sy and Sx of up
+// to kStage slots per tile in shared memory (16-byte loads), with one
+// packed pair of words per slot, found by scanning its rows (any row
+// works, up to a dense one): the non-zero columns of Sy and of Sx as bit
+// masks, and the first and last non-zero column of q*Sz.  Each thread owns
+// one (y, x) column of one window and keeps its W z-sums in registers.
+// Per slot it reads the pair (a broadcast) and, only if its Sy[y] and
+// Sx[x] are non-zero, adds q Sz[z] * (Sy[y] Sx[x]) over the z band: as
+// four fixed z when the band is at most four wide (order <= 4), else over
+// the band.  A skipped term has a factor that is exactly +-0, so for
+// finite inputs the sum equals the dense one.  Stores are z-major, so
+// consecutive threads write consecutive (y, x).  Neither kernel uses
+// atomics: every output has one writer that adds the slots in ascending
+// order, so both are deterministic (two launches give equal bits).
 //
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
 // float32 tensors the Python wrapper allocated.  W is a template argument
@@ -96,38 +108,121 @@ __global__ void __launch_bounds__(64)
   }
 }
 
+constexpr int kStage = 64;           // slots per tile staged at a time
+
+// tiles per block: whole tiles, and about 256-416 threads
 template <int W>
-__global__ void __launch_bounds__(256)
-    spread_kernel(const float* __restrict__ smat, const float* __restrict__ q,
-                  float* __restrict__ out, int cap, int kw) {
-  constexpr int WW = W * W;
-  extern __shared__ float rows[];  // [cap][3W]: q*Sz | Sy | Sx
-  const int64_t t = blockIdx.x;
-  for (int k = threadIdx.x; k < cap * 3 * W; k += blockDim.x) {
-    const int c = k / (3 * W);
-    const int r = k - c * 3 * W;
-    const float* s = smat + (t * cap + c) * kw;
-    float v;
-    if (r < W) {
-      v = q[t * cap + c] * s[2 * W + r];  // q * Sz
-    } else if (r < 2 * W) {
-      v = s[r];  // Sy
-    } else {
-      v = s[r - 2 * W];  // Sx
+__host__ __device__ constexpr int tiles_per_block() {
+  return W == 8 ? 4 : (W == 12 ? 2 : 1);
+}
+
+template <int W>
+__host__ __device__ constexpr int spread_threads() {
+  return (tiles_per_block<W>() * W * W + 31) / 32 * 32;
+}
+
+// Bit j set where r[j] != 0, for a W-wide row (W <= 20).
+template <int W>
+__device__ unsigned nonzero_mask(const float* r) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int j = 0; j < W; ++j) m |= (r[j] != 0.0f ? 1u : 0u) << j;
+  return m;
+}
+
+// acc[z] += r[z] p for z in [z4, z4 + 4): the slot's z band (at most four
+// wide) lies there, and the other terms have an exact-zero factor.
+template <int W>
+__device__ inline void add_four(float (&acc)[W], const float* r, int z4,
+                                float p) {
+#pragma unroll
+  for (int s = 0; s <= W - 4; ++s) {
+    if (s == z4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[s + k] = fmaf(r[s + k], p, acc[s + k]);
     }
-    rows[k] = v;
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < W * WW; k += blockDim.x) {
-    const int z = k / WW;
-    const int y = (k - z * WW) / W;
-    const int x = k - z * WW - y * W;
-    float acc = 0.0f;
-    for (int c = 0; c < cap; ++c) {
-      const float* r = rows + c * 3 * W;
-      acc += r[z] * (r[W + y] * r[2 * W + x]);
+}
+
+template <int W>
+__global__ void __launch_bounds__(spread_threads<W>())
+    spread_kernel(const float* __restrict__ smat, const float* __restrict__ q,
+                  float* __restrict__ out, int64_t ntiles, int cap, int kw) {
+  constexpr int WW = W * W;
+  constexpr int TPB = tiles_per_block<W>();
+  constexpr int kRow = 3 * W;                // q*Sz | Sy | Sx
+  __shared__ __align__(16) float rows[TPB][kStage][kRow];
+  // per slot: the non-zero columns of Sy (.x, bits 0-19) and Sx (.y); the
+  // first and last non-zero column of q*Sz in .x bits 20-24 and 25-29
+  __shared__ uint2 band[TPB][kStage];
+  const int lt = threadIdx.x / WW;           // tile of this block
+  const int col = threadIdx.x - lt * WW;     // y * W + x
+  const int y = col / W;
+  const int x = col - y * W;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * TPB;
+  const bool owner = lt < TPB && t0 + lt < ntiles;
+  float acc[W];
+#pragma unroll
+  for (int z = 0; z < W; ++z) acc[z] = 0.0f;
+
+  for (int c0 = 0; c0 < cap; c0 += kStage) {
+    const int nc = min(kStage, cap - c0);
+    __syncthreads();  // the previous stage is consumed
+    // stage Sx | Sy | Sz of each slot (16-byte loads: W and kw are
+    // multiples of 4) as q*Sz | Sy | Sx
+    constexpr int kV = kRow / 4;             // float4s of a staged row
+#pragma unroll 4
+    for (int k = threadIdx.x; k < TPB * nc * kV; k += blockDim.x) {
+      const int tl = k / (nc * kV);
+      const int c = (k - tl * nc * kV) / kV;
+      const int j = 4 * (k - (tl * nc + c) * kV);  // column in Sx | Sy | Sz
+      const int64_t t = t0 + tl;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      int dst = j < W ? 2 * W + j : (j < 2 * W ? j : j - 2 * W);
+      if (t < ntiles) {
+        const int64_t slot = t * cap + c0 + c;
+        v = __ldg(reinterpret_cast<const float4*>(smat + slot * kw + j));
+        if (j >= 2 * W) {
+          const float qs = __ldg(q + slot);
+          v = make_float4(qs * v.x, qs * v.y, qs * v.z, qs * v.w);
+        }
+      }
+      *reinterpret_cast<float4*>(&rows[tl][c][dst]) = v;
     }
-    out[t * W * WW + k] = acc;
+    __syncthreads();
+    for (int k = threadIdx.x; k < TPB * nc; k += blockDim.x) {
+      const int tl = k / nc;
+      const int c = k - tl * nc;
+      const unsigned mz = nonzero_mask<W>(rows[tl][c]);
+      const unsigned my = nonzero_mask<W>(rows[tl][c] + W);
+      const unsigned mx = nonzero_mask<W>(rows[tl][c] + 2 * W);
+      const unsigned zlo = mz ? __ffs(mz) - 1 : 0u;
+      const unsigned zhi = mz ? 31 - __clz(mz) : 0u;
+      band[tl][c] = mz ? make_uint2(my | zlo << 20 | zhi << 25, mx)
+                       : make_uint2(0u, 0u);
+    }
+    __syncthreads();
+    if (!owner) continue;
+    for (int c = 0; c < nc; ++c) {
+      const uint2 b = band[lt][c];
+      if (((b.x >> y) & (b.y >> x) & 1u) == 0u) continue;
+      const int zlo = (b.x >> 20) & 31, zhi = (b.x >> 25) & 31;
+      const float* r = rows[lt][c];
+      const float p = r[W + y] * r[2 * W + x];
+      if (zhi - zlo < 4) {
+        add_four<W>(acc, r, min(zlo, W - 4), p);
+      } else {
+#pragma unroll
+        for (int z = 0; z < W; ++z) {
+          if (z >= zlo && z <= zhi) acc[z] = fmaf(r[z], p, acc[z]);
+        }
+      }
+    }
+  }
+  if (owner) {
+    float* o = out + (t0 + lt) * W * WW + col;
+#pragma unroll
+    for (int z = 0; z < W; ++z) o[z * WW] = acc[z];
   }
 }
 
@@ -143,14 +238,10 @@ cudaError_t gather_launch(const float* smat, const float* win, float* val,
 template <int W>
 cudaError_t spread_launch(const float* smat, const float* q, float* out,
                           int ntiles, int cap, int kw, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(cap) * 3 * W;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        spread_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  spread_kernel<W><<<ntiles, 256, smem, stream>>>(smat, q, out, cap, kw);
+  constexpr int TPB = tiles_per_block<W>();
+  const unsigned blocks = static_cast<unsigned>((ntiles + TPB - 1) / TPB);
+  spread_kernel<W><<<blocks, spread_threads<W>(), 0, stream>>>(
+      smat, q, out, ntiles, cap, kw);
   return cudaGetLastError();
 }
 

@@ -17,9 +17,16 @@ compact stencil (``spline.py:284-289``), so these take the stencil itself:
 ``[B, N, 3, order]``.  The plain versions build the dense matrices
 (:func:`axis_weight_matrix`) and contract them in atom chunks, as the JAX
 package's ``_separable_spread`` / ``_separable_gather`` do.
+
+The spread kernel owns the mesh in slabs, each accumulated in one block's
+shared memory in 64-bit fixed point (so its result does not depend on the
+order of the adds) and written once; :func:`spread_plan` picks the slabs.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -29,10 +36,85 @@ from nvalchemiops_torch.kernels.build import (
 )
 from nvalchemiops_torch.types import INDEX_DTYPE
 
-__all__ = ["axis_weight_matrix", "separable_spread", "separable_spread_plain",
-           "separable_gather", "separable_gather_plain"]
+__all__ = ["axis_weight_matrix", "SpreadPlan", "spread_plan",
+           "separable_spread", "separable_spread_plain", "separable_gather",
+           "separable_gather_plain"]
 
 _CHUNK = 2048   # atoms per contraction of the plain versions, as in JAX
+
+# the spread kernel's launch (csrc/separable_spline.cu: kThreads, kList,
+# kSmemLimit) and the card it fills
+SPREAD_THREADS = 1024
+SPREAD_LIST_BYTES = 4 * (8192 + 4)    # the round's pair list and its count
+POINT_BYTES = 8             # a mesh point's 64-bit fixed-point sum
+SMEM_LIMIT = 232_448        # shared memory one block may use (H100: 227 KB)
+N_SM = 132                  # streaming multiprocessors of an H100 SXM
+
+
+@dataclass(frozen=True)
+class SpreadPlan:
+    """How the spread kernel cuts a ``[B, nx, ny, nz]`` batch of meshes.
+
+    Block ``(b, j, i)`` owns x-planes ``[i * planes, (i + 1) * planes)``
+    and y-rows ``[j * rows, (j + 1) * rows)`` of system ``b`` (cut at the
+    mesh's edge), all of z, in shared memory (8 bytes a point).
+    """
+
+    planes: int
+    rows: int
+    x_slabs: int
+    y_slabs: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+    def slab(self, i: int, j: int, mesh_dims):
+        """``((x0, x1), (y0, y1))`` owned by x-slab ``i`` of y-slab ``j``."""
+        nx, ny = int(mesh_dims[0]), int(mesh_dims[1])
+        x0, y0 = min(i * self.planes, nx), min(j * self.rows, ny)
+        return ((x0, min(x0 + self.planes, nx)),
+                (y0, min(y0 + self.rows, ny)))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(mesh_dims, order: int, batch: int, n_sm: int) -> SpreadPlan:
+    nx, ny, nz = mesh_dims
+    if not 1 <= order <= 4:
+        raise ValueError(f"spline order must be 1-4, got {order}")
+    if min(nx, ny, nz) < 1:
+        raise ValueError(f"mesh dims must be positive, got {mesh_dims}")
+    budget = SMEM_LIMIT - SPREAD_LIST_BYTES
+    if POINT_BYTES * nz > budget:
+        raise ValueError(f"separable_spread: a z-row of {nz} points does not "
+                         f"fit in {budget} bytes of shared memory")
+    if POINT_BYTES * ny * nz <= budget:
+        rows, fit = ny, min(nx, budget // (POINT_BYTES * ny * nz))
+    else:
+        rows, fit = budget // (POINT_BYTES * nz), 1
+    y_slabs = -(-ny // rows)
+    wanted = max(1, n_sm // max(batch * y_slabs, 1))
+    planes = max(1, min(fit, -(-nx // wanted)))
+    x_slabs = -(-nx // planes)
+    words = -(-planes * rows * nz // 4) * 4
+    return SpreadPlan(planes=planes, rows=rows, x_slabs=x_slabs,
+                      y_slabs=y_slabs, threads=SPREAD_THREADS,
+                      smem_bytes=2 * 4 * words + SPREAD_LIST_BYTES,
+                      blocks=batch * y_slabs * x_slabs)
+
+
+def spread_plan(mesh_dims, order: int, batch: int,
+                n_sm: int = N_SM) -> SpreadPlan:
+    """Slab plan of :func:`separable_spread` for ``batch`` meshes of
+    ``mesh_dims`` at spline ``order``.
+
+    Slabs are whole x-planes (y-rows when one plane does not fit in shared
+    memory), as many as fit, thinned while the batch's slabs stay within
+    one block per SM (a block takes the SM's threads).  A thin slab costs
+    little more: every block scans its system's stencils, but spreads only
+    the (atom, x-point) pairs that fall in its planes.
+    """
+    return _plan(tuple(int(d) for d in mesh_dims), int(order), int(batch),
+                 int(n_sm))
 
 
 def axis_weight_matrix(gidx_d, w_d, n_mesh: int):
@@ -82,7 +164,12 @@ def separable_spread_plain(gidx, w, q, mesh_dims):
 
 def separable_spread(gidx, w, q, mesh_dims):
     """Spread ``q [B, N]`` onto ``[B, nx, ny, nz]`` meshes through the
-    stencil: CUDA kernel on a CUDA device, plain version on the CPU."""
+    stencil: CUDA kernel on a CUDA device (slabs of :func:`spread_plan`,
+    every mesh point written by its owner), plain version on the CPU.  The
+    stencil's indices are consecutive mod n along each axis, as
+    ``spline._stencil`` builds them; the kernel finds an atom's x-points
+    from the first.  The kernel sums in fixed point, so two launches on
+    the same inputs give the same bits."""
     _check("separable_spread", gidx, w)
     if tuple(q.shape) != tuple(w.shape[:2]):
         raise ValueError(f"separable_spread: q {tuple(q.shape)} must be "
@@ -93,10 +180,14 @@ def separable_spread(gidx, w, q, mesh_dims):
     _check_index("separable_spread", gidx, w)
     nx, ny, nz = (int(d) for d in mesh_dims)
     b, n, _, order = w.shape
-    mesh = torch.zeros((b, nx, ny, nz), dtype=w.dtype, device=w.device)
+    plan = spread_plan((nx, ny, nz), order, b)
+    xbase = gidx[:, :, 0, 0].contiguous()      # what the kernel's scan reads
+    mesh = torch.empty((b, nx, ny, nz), dtype=w.dtype, device=w.device)
     err = load_library().nv_separable_spread(
-        gidx.data_ptr(), w.data_ptr(), q.data_ptr(), mesh.data_ptr(),
-        b, n, order, nx, ny, nz, current_stream(w))
+        gidx.data_ptr(), xbase.data_ptr(), w.data_ptr(), q.data_ptr(),
+        mesh.data_ptr(),
+        b, n, order, nx, ny, nz, plan.planes, plan.rows, plan.x_slabs,
+        plan.y_slabs, current_stream(w))
     check_launch("separable_spread", err)
     launch_counts["separable_spread"] += 1
     return mesh

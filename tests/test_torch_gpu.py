@@ -251,6 +251,93 @@ def test_separable_kernels_match_plain(cuda):
     _close(ss.separable_gather(pot, gidx, w), val_p)
 
 
+def _seam_stencil(cuda, seed, b, n, mesh, order, box=27.0):
+    """Stencils of random atoms in a cubic box, the first four on the
+    periodic seam of every axis and on mesh points (theta = 0)."""
+    from nvalchemiops_torch import spline
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, box, (b, n, 3))
+    pos[:, :4] = [[0.0, 0.0, 0.0], [box - 1e-3] * 3,
+                  [1e-3, box - 1e-3, 0.0], [box * 0.5, box - 1e-3, 1e-3]]
+    cells = torch.eye(3, device=cuda).expand(b, 3, 3) * box
+    gidx, w, _, _ = spline._stencil(
+        torch.as_tensor(pos, dtype=torch.float32, device=cuda), cells, mesh,
+        order)
+    q = torch.as_tensor(rng.normal(size=(b, n)), dtype=torch.float32,
+                        device=cuda)
+    return gidx, w, q
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("mesh,b,n", [
+    ((32, 32, 32), 64, 2000),          # the batched PME
+    ((32, 32, 32), 1, 1024),           # the composite on the dense engine
+    ((24, 32, 40), 1, 3000),
+    ((64, 64, 64), 1, 40_000),
+    ((128, 128, 128), 1, 109_744),     # the 128^3 fallback
+])
+def test_dense_spread_kernel_matches_plain(cuda, order, mesh, b, n):
+    """Kernel 5 writes every mesh point (the output memory is poisoned
+    with NaN first), agrees with its plain version, seams included, and
+    gives the same bits twice (it sums in fixed point)."""
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import separable_spline as ss
+
+    gidx, w, q = _seam_stencil(cuda, 30 + order, b, n, mesh, order)
+    poison = torch.full((b,) + mesh, float("nan"), device=cuda)
+    del poison
+    before = launch_counts["separable_spread"]
+    got = ss.separable_spread(gidx, w, q, mesh)
+    assert launch_counts["separable_spread"] == before + 1
+    again = ss.separable_spread(gidx, w, q, mesh)
+    want = ss.separable_spread_plain(gidx, w, q, mesh)
+    torch.cuda.synchronize()
+    _close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile", [4, 8, 16])
+def test_windowed_spread_kernel_cases(cuda, tile):
+    """Kernel 3 at W = 8, 12 and 20: caps that are no multiple of 32 (one
+    above the kernel's 64-slot stage), empty slots and empty tiles, rows
+    whose band ends in an exact zero weight (atoms on mesh points), a
+    zero charge and one dense row; two launches give equal bits."""
+    from nvalchemiops_torch import spline_windowed
+    from nvalchemiops_torch.kernels import windowed_gather as wg
+
+    rng = np.random.default_rng(20 + tile)
+    mesh = (2 * tile, 2 * tile, 4 * tile)
+    box, n = 9.0, 600
+    pos = rng.uniform(0.0, box, (n, 3))
+    pos[:n // 2] = rng.integers(0, mesh[0], (n // 2, 3)) * (
+        box / np.array(mesh))
+    pos[:, 2] *= 0.6                     # the upper z tiles stay empty
+    cell = torch.eye(3, device=cuda) * box
+    q = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    q[1] = 0.0
+    for cap in (45, 77):
+        tiles = spline_windowed.build_mesh_tiles(
+            torch.as_tensor(pos, dtype=torch.float32, device=cuda), cell,
+            mesh, 4, cap=cap, tile=tile)
+        w_win = tiles.w_win
+        assert w_win == tile + 4
+        smat = tiles.smat.clone()
+        smat[0, 0, :3 * w_win] = torch.as_tensor(
+            rng.uniform(0.1, 1.0, 3 * w_win), dtype=torch.float32,
+            device=cuda)
+        padded = torch.cat([q, q.new_zeros(1)])
+        q_t = padded[tiles.aid.long()].reshape(smat.shape[0], cap)
+        q_t[0, 0] = 1.5
+        assert bool((q_t == 0).all(-1).any())          # empty tiles
+        got = wg.spread_windows(smat, q_t, w_win)
+        again = wg.spread_windows(smat, q_t, w_win)
+        want = wg.spread_windows_plain(smat, q_t, w_win)
+        torch.cuda.synchronize()
+        _close(got, want)
+        assert torch.equal(got, again)
+
+
 def test_batched_d3_dense_agrees_with_grid_on_card(cuda):
     """f32 on the card: the dense engine (kernel 4) and the grid engine
     (kernel 1) agree within the composite's D3 bar."""
