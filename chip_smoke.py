@@ -35,10 +35,11 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    dense path on the plain kernels in f64; 8 x 2,000 atoms at 64^3 on the
    windowed engine (tiles of 16);
 9. kernel vs plain for the kernels of phases 6-8, as in phase 5: the 9 A
-   batch, the grid branch (cap 104) and the windowed batch (W = 20) right
-   after their runs, the 21.2 A batch, the dense PME, the composite's
-   dense spread (B = 1, 32^3) and the 128^3 fallback with bounds; the dense
-   spread of the batch and of the fallback also under other slab plans;
+   batch (with bounds), the grid branch (cap 104) and the windowed batch
+   (W = 20) right after their runs, the 21.2 A batch, the dense PME, the
+   composite's dense spread (B = 1, 32^3) and the 128^3 fallback with
+   bounds; the dense spread of the batch and of the fallback also under
+   other slab plans;
 10. the 1,024-atom composite on the other grid engines: ``grid_dftd3``
     on the super-chunk (``"block"``, kernel 8) and per-row (``"pallas"``,
     kernel 7) sweeps, ``grid_coulomb_energy_forces(engine="block")`` and
@@ -58,7 +59,8 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
-path.
+path.  Each replay of kernels 1 and 4 at 109,744 atoms and at 128 x 2,000
+prints its device time beside the parent tree's (``PARENT_DEVICE_MS``).
 
 Each phase sets the launch counts to 0 just before it drives its path and
 reads them just after; a kernel of the path that did not launch fails the
@@ -141,6 +143,20 @@ ENGINE_BARS = {"d3": (8.67e-6, 3.67e-6), "coulomb": (3.00e-6, 1.23e-6),
 # runs the same recipe at witness_n_rep
 HYBRID = dict(n_rep=48, a=3.0, jitter=0.2, cutoff=9.0, alpha=0.35, zmax=16,
               witness_n_rep=24)
+
+# device ms per call of every body of kernels 1 and 4 before their
+# distance-first redesign (the parent tree's kernels), measured with
+# pair_sweep_times.py on an NVIDIA H100 80GB HBM3 at 700.00 W: kernel 1 at
+# 109,744 atoms, kernel 4 at 128 x 2,000 atoms (PERF.md)
+PARENT_DEVICE_MS = {
+    "window_sweep[cn]": 0.307, "window_sweep[d3_direct]": 1.789,
+    "window_sweep[chain]": 0.515, "window_sweep[coulomb]": 0.501,
+    "window_sweep[d3_direct_coulomb]": 3.597,
+    "window_sweep[d3_direct_coulomb+combine]": 2.666,
+    "dense_pairs[cn] 21.2 A": 2.467, "dense_pairs[direct] 21.2 A": 7.072,
+    "dense_pairs[chain] 21.2 A": 2.699, "dense_pairs[cn] 9.0 A": 1.429,
+    "dense_pairs[direct] 9.0 A": 8.198, "dense_pairs[chain] 9.0 A": 1.695,
+}
 
 KERNEL_SOURCES = {
     "window_sweep": ("nvalchemiops_torch/csrc/window_sweep.cu",
@@ -400,9 +416,21 @@ def library_call(key, args):
     return None
 
 
+def parent_key(key, args, ctx):
+    """Key of ``PARENT_DEVICE_MS`` for a kernel 1 or 4 replay: the fused body
+    names its force mode, the dense sweep its cutoff."""
+    if key == "window_sweep[d3_direct_coulomb]" and args[4].combine_forces:
+        return "window_sweep[d3_direct_coulomb+combine]"
+    if key.startswith("dense_pairs"):
+        return f"{key} {ctx['cutoff']} A"
+    return key
+
+
 def compare_kernels(calls, label, ctx=None):
     """Replay each captured call through kernel and plain version; with
-    ``ctx`` also time the library call and compute the bound."""
+    ``ctx`` also time the library call and compute the bound, and with
+    ``ctx["parent"]`` print the parent tree's device time of kernels 1
+    and 4 beside their own."""
     from nvalchemiops_torch.kernels import chunk_sweep as cs
     from nvalchemiops_torch.kernels import dense_pairs as ds
     from nvalchemiops_torch.kernels import launch_counts
@@ -469,7 +497,11 @@ def compare_kernels(calls, label, ctx=None):
             row["library_ms"] = cuda_time_ms(lib) if lib else None
             row["device_ms"] = device_time_ms(lambda: kern(*args, **kwargs))
             row["library_device_ms"] = device_time_ms(lib) if lib else None
-            msg += (f" (device {row['device_ms']} ms) library "
+            parent = PARENT_DEVICE_MS.get(parent_key(key, args, ctx))
+            msg += f" (device {row['device_ms']} ms"
+            if parent is not None and ctx.get("parent"):
+                msg += f"; parent tree {parent} ms"
+            msg += (f") library "
                     f"{row['library_ms']} ms (device "
                     f"{row['library_device_ms']} ms) bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
@@ -746,7 +778,10 @@ def run_batched_d3(dev):
     capture9 = install_capture()
     (e_9, f_9, _), _ = drive(label9, run_9, dense_keys, forbid=grid_keys)
     capture9.restore()
-    compare_kernels(capture9.calls, label9)
+    ctx9 = {"systems": cfg["b"], "n": cfg["n"], "volume": box9 ** 3,
+            "cutoff": cut9, "combos": 1, "mesh": tables[3].shape[1],
+            "parent": True}
+    compare_kernels(capture9.calls, label9, ctx9)
     del capture9
     frac9 = check_forces("9 A batch", f_9)
     steady9 = cuda_time_ms(run_9, reps=3)
@@ -793,7 +828,8 @@ def run_batched_d3(dev):
     phase(f"batched D3 grid branch: steady {cuda_time_ms(run_g, reps=3):.3f}"
           f" ms, net force / sum|F| {fracg:.2e}")
     ctx = {"systems": cfg["b"], "n": cfg["n"], "volume": box ** 3,
-           "cutoff": cut, "combos": len(combos), "mesh": tables[3].shape[1]}
+           "cutoff": cut, "combos": len(combos), "mesh": tables[3].shape[1],
+           "parent": True}
     return capture.calls, counts_m, ctx
 
 
@@ -1318,7 +1354,7 @@ def main():
     compare_kernels(small_calls, "composite 1,024 atoms")
     ctx_full = {"n": n, "volume": float(abs(np.linalg.det(cell_np))),
                 "cutoff": cutoff, "mesh": cna.shape[1], "atoms": n,
-                "order": 4}
+                "order": 4, "parent": True}
     full_rows = compare_kernels(full_calls, f"full width {n} atoms",
                                 ctx_full)
     check_deterministic(full_calls, "full width windowed spread")

@@ -2,9 +2,11 @@
 //
 // Pair bodies shared by the pair-sweep kernels: window_sweep.cu (kernel 1),
 // row_sweep.cu (kernel 7), chunk_sweep.cu (kernel 8) and stencil_sweep.cu
-// (kernel 9), and the steps kernels 7 and 8 share.  Each body turns one (own, candidate) pair into own-side terms
-// and j-side terms; the kernels differ only in how they enumerate pairs and
-// where they sum the terms.  The math follows the JAX pass bodies term for
+// (kernel 9), the steps kernels 7 and 8 share, and the warp queue of the
+// distance-first sweeps (kernel 1 and dense_pairs.cu, kernel 4).  Each body
+// turns one (own, candidate) pair into own-side terms and j-side terms; the
+// kernels differ only in how they enumerate pairs and where they sum the
+// terms.  The math follows the JAX pass bodies term for
 // term (grid_d3.py:1380-1387, :1465-1571, :1612-1625; grid.py:829-855;
 // pallas/stencil_sweep.py:123-198) and the plain PyTorch versions in
 // kernels/window_sweep.py.
@@ -167,7 +169,10 @@ __device__ __forceinline__ void mesh_dots(const Params& p, const float* lrow,
 // ---------------------------------------------------------------------------
 // Body structs: pair(p, o, lrow, cs, ncand, cf, fstride, j, out, jo) returns
 // false when the pair contributes nothing; otherwise it writes kOut own-side
-// and kJ j-side terms.  o holds the own slot's kOwn scalars.
+// and kJ j-side terms.  o holds the own slot's kOwn scalars.  reach_sq(p) is
+// the squared distance beyond which the body adds nothing (the larger of the
+// two cutoffs for the fused body): a sweep that tests it first runs pair()
+// only on the pairs inside it.
 // ---------------------------------------------------------------------------
 
 #define CAND(f) cs[(f) * ncand + j]
@@ -179,6 +184,7 @@ __device__ __forceinline__ void mesh_dots(const Params& p, const float* lrow,
 struct CnBody {
   static constexpr int kOwn = 4, kCand = 4, kOut = 1, kJ = 1;
   static constexpr bool kWide = false;
+  __device__ static float reach_sq(const Params& p) { return p.cutoff_sq; }
   __device__ static bool pair(BODY_ARGS) {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
@@ -195,6 +201,7 @@ struct CnBody {
 struct ChainBody {
   static constexpr int kOwn = 5, kCand = 5, kOut = 3, kJ = 3;
   static constexpr bool kWide = false;
+  __device__ static float reach_sq(const Params& p) { return p.cutoff_sq; }
   __device__ static bool pair(BODY_ARGS) {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
@@ -216,6 +223,7 @@ struct ChainBody {
 struct CoulombBody {
   static constexpr int kOwn = 4, kCand = 4, kOut = 4, kJ = 4;
   static constexpr bool kWide = false;
+  __device__ static float reach_sq(const Params& p) { return p.cutoff_sq; }
   __device__ static bool pair(BODY_ARGS) {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
@@ -244,6 +252,7 @@ template <bool Wide>
 struct D3DirectBody {
   static constexpr int kOwn = 5, kCand = 5, kOut = 5, kJ = 4;
   static constexpr bool kWide = Wide;
+  __device__ static float reach_sq(const Params& p) { return p.cutoff_sq; }
   __device__ static bool pair(BODY_ARGS) {
     const float dx = CAND(0) - o[0];
     const float dy = CAND(1) - o[1];
@@ -285,6 +294,9 @@ struct D3CoulombBody {
   static constexpr int kOwn = 6, kCand = 6;
   static constexpr int kOut = Combine ? 6 : 9, kJ = Combine ? 5 : 8;
   static constexpr bool kWide = Wide;
+  __device__ static float reach_sq(const Params& p) {
+    return fmaxf(p.cutoff_sq, p.ccutoff_sq);
+  }
   __device__ static bool pair(BODY_ARGS) {
     constexpr int kQ = Wide ? 5 : 6;  // candidate charge feature
     const float dx = CAND(0) - o[0];
@@ -342,6 +354,42 @@ struct D3CoulombBody {
 
 #undef BODY_ARGS
 #undef CAND
+
+// ---------------------------------------------------------------------------
+// A warp's queue of pair entries in shared memory, for sweeps that test the
+// distance first and run a body only on the pairs inside it, at full warps
+// (kernels 1 and 4; kernels 7 and 8 may take it up).  push() appends the
+// lanes' hits in lane order (ballot and popcount prefix); once 32 or more
+// wait, pop() hands each lane one entry, in queue order, and keeps the rest.
+// Entries are non-negative ints; pop() gives -1 to lanes past the end.
+// ---------------------------------------------------------------------------
+
+constexpr int kQueue = 64;  // < 32 waiting + one round of 32
+
+struct WarpQueue {
+  int* q;  // this warp's kQueue ints
+  int n;   // entries waiting (uniform across the warp)
+
+  __device__ void push(bool hit, int entry) {
+    const unsigned lane = threadIdx.x & 31;
+    const unsigned ball = __ballot_sync(0xffffffffu, hit);
+    if (hit) q[n + __popc(ball & ((1u << lane) - 1u))] = entry;
+    n += __popc(ball);
+  }
+
+  __device__ bool full() const { return n >= 32; }
+
+  __device__ int pop() {
+    const int lane = threadIdx.x & 31;
+    __syncwarp();
+    const int e = lane < n ? q[lane] : -1;
+    __syncwarp();
+    if (lane + 32 < n) q[lane] = q[lane + 32];
+    __syncwarp();
+    n = n > 32 ? n - 32 : 0;
+    return e;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Shared by the zm-wide sweeps (row_sweep.cu, chunk_sweep.cu): block shape,

@@ -27,17 +27,34 @@
 // j-side flush writes one contiguous run.  None of the TPU's lane layout
 // (128-lane windows, WINDOW_PARK pads, pre-windowed copies) is needed.
 //
-// What bounds it on the H100.  The pair bodies are FP32-ALU and SFU bound
-// (rsqrt, exp, a divide per pair inside the cutoff); device-memory traffic
-// is small (each candidate window is read once per own cell, ~1-2 KB).
-// Design: one block per own cell, one warp per own slot (lanes stride the
-// candidates, so the own-side sum is a register accumulator plus one warp
-// shuffle reduction), j-side sums go to shared memory with atomics that
-// never collide inside a warp, and are flushed once per offset with one
-// global atomic per candidate slot.  Pairs outside the cutoff (most of the
-// cube-vs-sphere overcount, and every parked empty slot) leave after the
-// distance test.  The global j atomics make the j-side sum order vary from
-// run to run; that sets the on-card tolerance against the plain version.
+// What bounds it on the H100.  Instruction throughput.  Only about one
+// candidate in ten is a pair inside the cutoff: on the 109,744-atom CsCl
+// main path (16^3 cells, cap 40, mean occupancy 26.8, 9.6 A) an own slot
+// meets 560 candidates (the home row's 80 and four half-space windows of
+// 120), of which ~53 are in range.  A warp whose lanes stride the
+// candidates and run the body in place runs the pair body (the D3 body's
+// three C6 dots, a divide, ~100 instructions) in nearly every warp step for
+// about one useful lane in ten: 100-240x its bound (PERF.md).
+//
+// Design: distance test first, the body only on compacted pairs inside the
+// body's reach (reach_sq: the larger of the two cutoffs for the fused body).
+// One block per own cell stages all its windows at once (the home row from
+// the centre cell on, then every half-space row; ~45 KB for the D3 body at
+// mesh 5), so a cell costs two barriers.  One warp per own slot tests all
+// the staged candidates, 32 at a time, and queues the hits (WarpQueue:
+// ballot and popcount prefix into shared memory); whenever 32 wait, each
+// lane runs the body on one of them.  No body arithmetic, exp, C6 dot or
+// atomic is spent on a pair outside the reach.  An empty own slot (parked
+// far away) costs its distance tests and nothing else.  The own-side sum
+// stays in registers, reduced with one warp shuffle per output and own slot;
+// j-side sums go to shared memory (atomics) and are flushed once per cell
+// with one global atomic per candidate slot and output.  Where the windows
+// do not fit in 227 KB, the block stages them in groups that do.  The
+// global j atomics make the j-side sum order vary from run to run; that sets
+// the on-card tolerance against the plain version.  What bounds it now
+// (PERF.md): the bodies run on full warps and are no longer most of
+// the time; the per-cell work around them (staging, the distance tests,
+// each own slot's drain and reduction) is.
 //
 // Interface: C, for ctypes.  Every pointer is a device pointer into a
 // contiguous float32 tensor allocated by the Python wrapper; j_out must be
@@ -52,22 +69,64 @@ namespace {
 
 using namespace pair_bodies;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 using D3CoulombSeparate = D3CoulombBody<false, false>;
 using D3CoulombCombined = D3CoulombBody<false, true>;
+
+// Window w of own cell (z, y, x): w = 0 is the home row from the centre cell
+// on ((rx+1)*cap slots), w >= 1 the half-space row offset w - 1 over its
+// 2*rx+1 x-cells.  Gives the window's first extended slot and its length.
+__device__ __forceinline__ int64_t window(int w, int z, int y, int x, int rz,
+                                          int ry, int rx, int ey, int ex,
+                                          int cap, int& len) {
+  int dz = 0, dy = 0, x0 = x + rx;
+  len = (rx + 1) * cap;
+  if (w > 0) {
+    half_offset(w - 1, ry, dz, dy);
+    x0 = x;
+    len = (2 * rx + 1) * cap;
+  }
+  return ((static_cast<int64_t>(z + rz + dz) * ey + (y + ry + dy)) * ex + x0) *
+         cap;
+}
+
+// Where window w sits among the candidates of a group staged from window w0
+// on.
+__device__ __forceinline__ int staged_offset(int w, int w0, int rx, int cap) {
+  return w0 == 0 && w > 0 ? (rx + 1) * cap + (w - 1) * (2 * rx + 1) * cap
+                          : (w - w0) * (2 * rx + 1) * cap;
+}
+
+// One pop of the warp's queue: each lane runs the body on its entry (a
+// staged candidate), adds the own-side terms to its registers and the j-side
+// terms to the shared sums.
+template <class Body>
+__device__ __forceinline__ void run_queued(const Params& p, const float* o,
+                                           const float* lrow, const float* cs,
+                                           int ncs, WarpQueue& queue,
+                                           float* acc, float* jacc) {
+  const int c = queue.pop();
+  if (c < 0) return;
+  float out[Body::kOut], jo[Body::kJ];
+  if (!Body::pair(p, o, lrow, cs, ncs, nullptr, 0, c, out, jo)) return;
+#pragma unroll
+  for (int k = 0; k < Body::kOut; ++k) acc[k] += out[k];
+#pragma unroll
+  for (int k = 0; k < Body::kJ; ++k) atomicAdd(&jacc[k * ncs + c], jo[k]);
+}
 
 template <class Body>
 __global__ void __launch_bounds__(kThreads)
     sweep_kernel(const float* __restrict__ own, const float* __restrict__ cand,
                  float* __restrict__ own_out, float* __restrict__ j_out,
                  int cz, int cy, int cx, int rz, int ry, int rx, int cap,
-                 int n_cand, const float* __restrict__ lf, Params p) {
+                 int n_cand, const float* __restrict__ lf, Params p, int ncs) {
   extern __shared__ float smem[];
-  const int ncand = (2 * rx + 1) * cap;
-  float* cs = smem;                             // [n_cand][ncand]
-  float* jacc = cs + n_cand * ncand;            // [kJ][ncand]
-  float* oacc = jacc + Body::kJ * ncand;        // [kOut][cap]
+  float* cs = smem;                                // [n_cand][ncs]
+  float* jacc = cs + n_cand * ncs;                 // [kJ][ncs]
+  float* oacc = jacc + Body::kJ * ncs;             // [kOut][cap]
+  int* queues = reinterpret_cast<int*>(oacc + Body::kOut * cap);
 
   const int cell = blockIdx.x;
   const int x = cell % cx;
@@ -79,30 +138,35 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t own_plane = static_cast<int64_t>(cz) * cy * cx * cap;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int n_win = 1 + ry + rz * (2 * ry + 1);
+  const float reach = Body::reach_sq(p);
+  WarpQueue queue{queues + warp * kQueue, 0};
 
-  for (int t = threadIdx.x; t < Body::kOut * cap; t += blockDim.x) oacc[t] = 0.0f;
+  for (int t = threadIdx.x; t < Body::kOut * cap; t += kThreads) oacc[t] = 0.0f;
 
-  // oi = -1 is the home row; then the half-space (dz, dy) offsets.  The
-  // skip test is uniform across the block, so the barriers stay matched.
-  const int nyo = 2 * ry + 1;
-  for (int oi = -1; oi < (2 * rz + 1) * nyo; ++oi) {
-    const bool home = oi < 0;
-    const int dz = home ? 0 : oi / nyo - rz;
-    const int dy = home ? 0 : oi % nyo - ry;
-    if (!home && !(dz > 0 || (dz == 0 && dy > 0))) continue;
-    // extended cell (z + rz + dz, y + ry + dy, x): the window's first slot
-    const int64_t row_base =
-        ((static_cast<int64_t>(z + rz + dz) * ey + (y + ry + dy)) * ex + x) * cap;
-
-    __syncthreads();  // the previous offset is done with cs and jacc
-    for (int t = threadIdx.x; t < n_cand * ncand; t += blockDim.x) {
-      const int f = t / ncand;
-      cs[t] = cand[f * ext_plane + row_base + (t - f * ncand)];
+  // windows [w0, w1), staged back to back: all of them where they fit
+  for (int w0 = 0, w1; w0 < n_win; w0 = w1) {
+    int staged = 0, len;
+    for (w1 = w0; w1 < n_win; ++w1) {
+      window(w1, z, y, x, rz, ry, rx, ey, ex, cap, len);
+      if (staged + len > ncs) break;
+      staged += len;
     }
-    for (int t = threadIdx.x; t < Body::kJ * ncand; t += blockDim.x) jacc[t] = 0.0f;
+    const int nw = w1 - w0;
+    __syncthreads();  // the previous group is done with cs and jacc
+    for (int fw = warp; fw < n_cand * nw; fw += kWarps) {
+      const int f = fw / nw;
+      const int w = w0 + fw - f * nw;
+      const int off = staged_offset(w, w0, rx, cap);
+      const int64_t base = window(w, z, y, x, rz, ry, rx, ey, ex, cap, len);
+      const float* src = cand + f * ext_plane + base;
+      for (int l = lane; l < len; l += 32) cs[f * ncs + off + l] = src[l];
+    }
+    for (int t = threadIdx.x; t < Body::kJ * ncs; t += kThreads) jacc[t] = 0.0f;
     __syncthreads();
 
-    const int j0 = home ? rx * cap : 0;  // home: cells left of centre skipped
+    // the home row's centre cell keeps only slot pairs i < j
+    const int home_end = w0 == 0 ? cap : 0;
     for (int i = warp; i < cap; i += kWarps) {
       const int64_t own_slot = static_cast<int64_t>(cell) * cap + i;
       float o[Body::kOwn];
@@ -112,15 +176,21 @@ __global__ void __launch_bounds__(kThreads)
       float acc[Body::kOut];
 #pragma unroll
       for (int k = 0; k < Body::kOut; ++k) acc[k] = 0.0f;
-      for (int j = j0 + lane; j < ncand; j += 32) {
-        if (home && j < (rx + 1) * cap && j - rx * cap <= i) continue;
-        float out[Body::kOut], jo[Body::kJ];
-        if (!Body::pair(p, o, lrow, cs, ncand, nullptr, 0, j, out, jo))
-          continue;
-#pragma unroll
-        for (int k = 0; k < Body::kOut; ++k) acc[k] += out[k];
-#pragma unroll
-        for (int k = 0; k < Body::kJ; ++k) atomicAdd(&jacc[k * ncand + j], jo[k]);
+      // rounds of 32 candidates; the last pass only drains the queue
+      const int rounds = (staged + 31) / 32;
+      for (int r = 0; r <= rounds; ++r) {
+        if (r < rounds) {
+          const int c = r * 32 + lane;
+          bool hit = false;
+          if (c < staged && !(c < home_end && c <= i)) {
+            const float d2 = dist2(cs[c] - o[0], cs[ncs + c] - o[1],
+                                   cs[2 * ncs + c] - o[2]);
+            hit = inside(d2, reach);
+          }
+          queue.push(hit, c);
+        }
+        if (queue.full() || (r == rounds && queue.n))
+          run_queued<Body>(p, o, lrow, cs, ncs, queue, acc, jacc);
       }
 #pragma unroll
       for (int k = 0; k < Body::kOut; ++k) {
@@ -130,14 +200,19 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < Body::kJ * ncand; t += blockDim.x) {
-      const float v = jacc[t];
-      const int k = t / ncand;
-      if (v != 0.0f) atomicAdd(&j_out[k * ext_plane + row_base + (t - k * ncand)], v);
+    for (int kw = warp; kw < Body::kJ * nw; kw += kWarps) {
+      const int k = kw / nw;
+      const int w = w0 + kw - k * nw;
+      const int off = staged_offset(w, w0, rx, cap);
+      const int64_t base = window(w, z, y, x, rz, ry, rx, ey, ex, cap, len);
+      for (int l = lane; l < len; l += 32) {
+        const float v = jacc[k * ncs + off + l];
+        if (v != 0.0f) atomicAdd(&j_out[k * ext_plane + base + l], v);
+      }
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < Body::kOut * cap; t += blockDim.x) {
+  for (int t = threadIdx.x; t < Body::kOut * cap; t += kThreads) {
     const int k = t / cap;
     own_out[k * own_plane + static_cast<int64_t>(cell) * cap + (t - k * cap)] = oacc[t];
   }
@@ -150,18 +225,21 @@ cudaError_t launch(const float* own, const float* cand, float* own_out,
                    cudaStream_t stream) {
   const int ncells = cz * cy * cx;
   if (ncells == 0 || cap == 0) return cudaSuccess;
-  const int ncand = (2 * rx + 1) * cap;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_cand + Body::kJ) * ncand +
-                       static_cast<size_t>(Body::kOut) * cap);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  // every window staged at once where that fits, else the most that fits
+  const int total = (rx + 1) * cap + (ry + rz * (2 * ry + 1)) * (2 * rx + 1) * cap;
+  const size_t fixed =
+      sizeof(float) * Body::kOut * cap + sizeof(int) * kWarps * kQueue;
+  const size_t per = sizeof(float) * (n_cand + Body::kJ);
+  int ncs = total;
+  if (fixed + per * ncs > kMaxSmem) ncs = static_cast<int>((kMaxSmem - fixed) / per);
+  const int n_win = 1 + ry + rz * (2 * ry + 1);
+  if (ncs < (n_win > 1 ? 2 * rx + 1 : rx + 1) * cap)
+    return cudaErrorInvalidConfiguration;  // one window must fit
+  const size_t smem = fixed + per * ncs;
+  const cudaError_t e = allow_smem(sweep_kernel<Body>, smem);
+  if (e != cudaSuccess) return e;
   sweep_kernel<Body><<<ncells, kThreads, smem, stream>>>(
-      own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p);
+      own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p, ncs);
   return cudaGetLastError();
 }
 

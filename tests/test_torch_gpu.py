@@ -549,3 +549,162 @@ def test_stencil_kernel_matches_plain(cuda):
     seen = _record([(stencil, "stencil_sweep")], run)
     assert sorted(b for _, b in seen) == ["chain", "cn", "coulomb"]
     _replay(seen)
+
+
+def _dense_calls(cuda, seed, b, n, cell, cutoff, dead=0, zmax=4):
+    """The three dense sweep calls of ``batch_dense_dftd3`` on the card
+    (``dead`` element-0 atoms at random places, padding to the tile;
+    ``zmax`` elements in the tables)."""
+    from nvalchemiops_torch.interactions.dispersion import dense_d3
+
+    rng = np.random.default_rng(seed)
+    tab = _d3_tables(rng, zmax)
+    cell = torch.as_tensor(cell, dtype=torch.float32, device=cuda)
+    frac = torch.as_tensor(rng.uniform(0, 1, (b, n, 3)), dtype=torch.float32,
+                           device=cuda)
+    pos = frac @ cell
+    numbers = rng.integers(1, zmax + 1, (b, n)).astype(np.int32)
+    if dead:
+        numbers[:, rng.choice(n, dead, replace=False)] = 0
+    seen = _record([(dense_d3, "dense_pairs")], lambda: (
+        dense_d3.batch_dense_dftd3(pos, numbers, cell, cutoff, *tab, 0.42,
+                                   4.1, 1.7)))
+    assert sorted(body for _, body in seen) == ["chain", "cn", "direct"]
+    return seen
+
+
+_TRICLINIC = [[12.0, 0.0, 0.0], [3.0, 11.0, 0.0], [1.5, 2.0, 10.5]]
+
+
+@pytest.mark.parametrize("seed,b,n,cell,cutoff,dead,zmax", [
+    (21, 3, 300, np.eye(3) * 16.0, 5.0, 7, 4),     # padded tile, dead atoms
+    (22, 2, 100, np.eye(3) * 30.0, 0.05, 0, 4),    # no pair in range
+    (23, 2, 70, np.eye(3) * 4.0, 3.6, 3, 4),       # every pair, 8 combos
+    (24, 2, 200, _TRICLINIC, 6.0, 2, 4),           # triclinic cell
+    (25, 4, 2000, np.eye(3) * 41.2, 21.2, 0, 16),  # the 21.2 A batch shape
+    (26, 4, 2000, np.eye(3) * 27.0, 9.0, 0, 16),   # the 9 A batch shape
+    (27, 2, 300, np.eye(3) * 16.0, 5.0, 0, 80),    # i rows too wide to stage
+], ids=["padded", "none-in-range", "all-in-range", "triclinic", "21.2A",
+        "9A", "wide-rows"])
+def test_distance_first_dense_kernel_matches_plain(cuda, seed, b, n, cell,
+                                                   cutoff, dead, zmax):
+    """Kernel 4 against its plain version, every body: the tile and combo
+    cases of its distance test and queue, the batch shapes, and zm = 405,
+    whose direct-body i rows do not fit in shared memory beside the block's
+    other buffers (read through L1)."""
+    from nvalchemiops_torch.kernels import dense_pairs as ds
+    from nvalchemiops_torch.kernels import launch_counts
+
+    seen = _dense_calls(cuda, seed, b, n, cell, cutoff, dead, zmax)
+    if cutoff == 3.6:
+        assert len(seen[("dense_pairs", "cn")][0][2]) == 8
+    for (_, body), (args, kwargs) in seen.items():
+        before = launch_counts[f"dense_pairs_{body}"]
+        out_k = ds.dense_pairs(body, *args, **kwargs)
+        assert launch_counts[f"dense_pairs_{body}"] == before + 1
+        out_p = ds.dense_pairs_plain(body, *args, **kwargs)
+        torch.cuda.synchronize()
+        for a, p in zip(out_k, out_p):
+            _close(a, p)
+        if cutoff == 0.05:
+            assert not out_k.any()
+
+
+def _window_case(cuda, seed, n, box, cutoff, geometry=None,
+                 half_empty=False, full_cell=False):
+    """A random system on the card in a halo grid with no atom past a
+    cell's capacity: atoms in half the box (empty cells), the cap equal to
+    the largest occupancy (a full cell), or ``geometry = (dims, radius,
+    cap)`` given (the cap raised to the occupancy where it is smaller)."""
+    from nvalchemiops_torch import grid
+
+    rng = np.random.default_rng(seed)
+    tab = _d3_tables(rng)
+    lo = rng.uniform(0, box, (n, 3))
+    if half_empty:
+        lo[:, 0] *= 0.5
+    pos = torch.as_tensor(lo, dtype=torch.float32, device=cuda)
+    cell = torch.eye(3, device=cuda) * box
+    numbers = rng.integers(1, 5, n).astype(np.int32)
+    q = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    dims, radius, cap = geometry or grid.estimate_grid_geometry(
+        cell, [True] * 3, cutoff, n, 0.6)
+    probe = grid.build_atom_grid(pos, cell, [True] * 3, dims, radius, cap)
+    most = int(probe.counts_max)
+    cap = most if full_cell else max(cap, most)
+    g = grid.build_atom_grid(pos, cell, [True] * 3, dims, radius, cap)
+    return g, numbers, q, tab
+
+
+@pytest.mark.parametrize("case", ["full cell, ccutoff below",
+                                  "empty cells, ccutoff above",
+                                  "staged window groups"])
+def test_distance_first_window_kernel_matches_plain(cuda, case):
+    """Kernel 1 against its plain version on every body it launches (CN,
+    D3 direct, chain, Coulomb, the fused body separate and combined): a
+    full cell, empty cells, a Coulomb cutoff below and above the D3
+    cutoff, and windows too large for shared memory at once (radius 2,
+    cap 64: the D3 bodies stage them in groups)."""
+    from nvalchemiops_torch import grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.kernels import window_sweep as ws
+
+    if case.startswith("full"):
+        cutoff, ccutoff = 5.0, 4.0
+        g, numbers, q, tab = _window_case(cuda, 31, 3000, 26.0, cutoff,
+                                          full_cell=True)
+    elif case.startswith("empty"):
+        cutoff, ccutoff = 4.0, 5.0
+        g, numbers, q, tab = _window_case(cuda, 32, 2000, 26.0, ccutoff,
+                                          half_empty=True)
+    else:
+        cutoff, ccutoff = 7.0, 6.0
+        g, numbers, q, tab = _window_case(cuda, 33, 4000, 24.0, cutoff,
+                                          geometry=((6, 6, 6), (2, 2, 2), 64))
+        assert g.cap == 64 and g.radius == (2, 2, 2)
+    n_cells = int(np.prod(g.dims))
+    counts = torch.bincount(g.flat_slot.long() // g.cap,
+                            minlength=n_cells)[:n_cells]
+    if case.startswith("full"):
+        assert int(counts.max()) == g.cap
+    if case.startswith("empty"):
+        assert int((counts == 0).sum()) > 0
+
+    seen = {}
+
+    def run():
+        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7)
+        grid.grid_coulomb_energy_forces(g, q, cutoff, 0.35)
+        for combine in (False, True):
+            grid_d3.grid_dftd3_coulomb(
+                g, numbers, q, *tab, cutoff, 0.42, 4.1, 1.7,
+                coulomb_cutoff=ccutoff, alpha=0.35, engine="window",
+                combine_forces=combine)
+
+    def record(orig):
+        def wrapper(body, *args, **kwargs):
+            fused = body == "d3_direct_coulomb"
+            seen.setdefault((body, fused and args[3].combine_forces),
+                            (args, kwargs))
+            return orig(body, *args, **kwargs)
+        return wrapper
+
+    undo = [(m, m.window_sweep) for m in (grid_d3, grid)]
+    for m, orig in undo:
+        m.window_sweep = record(orig)
+    try:
+        run()
+    finally:
+        for m, orig in undo:
+            m.window_sweep = orig
+    assert sorted(seen) == [("chain", False), ("cn", False),
+                            ("coulomb", False), ("d3_direct", False),
+                            ("d3_direct_coulomb", False),
+                            ("d3_direct_coulomb", True)]
+    for (body, _), (args, kwargs) in seen.items():
+        out_k = ws.window_sweep(body, *args, **kwargs)
+        out_p = ws.window_sweep_plain(body, *args, **kwargs)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            for fa, fb in zip(a, b):            # per output plane
+                _close(fa, fb)
