@@ -16,9 +16,11 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    stage times (CUDA events) and peak memory;
 5. kernel vs plain: every kernel call of phases 3 and 4 is replayed on its
    captured inputs through the kernel and through its plain PyTorch
-   version, compared within a stated f32 tolerance and timed; two launches
-   of the windowed spread on the main path's inputs must agree bit for bit
-   (and in phase 9 two of the dense spread, on the batch and the fallback);
+   version, compared within a stated f32 tolerance and timed (with device
+   time, bound and library call on the composite and the main path); two
+   launches of the windowed spread and of the windowed gather on the main
+   path's inputs must agree bit for bit (and in phase 9 two of the dense
+   spread, on the batch and the fallback);
 6. batched D3, dense: ``batch_dftd3`` on 128 x 2,000 atoms in 41.2 A boxes
    at 21.2 A (4 image combos) and in 27 A boxes at 9 A (minimum image),
    the systems of the JAX package's batched D3 benchmark; the router must
@@ -59,8 +61,9 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
-path.  Each replay of kernels 1 and 4 at 109,744 atoms and at 128 x 2,000
-prints its device time beside the parent tree's (``PARENT_DEVICE_MS``).
+path.  Each replay of kernels 1, 2, 4 and 8 at 109,744 atoms, at 128 x
+2,000 and on the W = 20 windows prints its device time beside the parent
+tree's (``PARENT_DEVICE_MS``).
 
 Each phase sets the launch counts to 0 just before it drives its path and
 reads them just after; a kernel of the path that did not launch fails the
@@ -147,7 +150,8 @@ HYBRID = dict(n_rep=48, a=3.0, jitter=0.2, cutoff=9.0, alpha=0.35, zmax=16,
 # device ms per call of every body of kernels 1 and 4 before their
 # distance-first redesign (the parent tree's kernels), measured with
 # pair_sweep_times.py on an NVIDIA H100 80GB HBM3 at 700.00 W: kernel 1 at
-# 109,744 atoms, kernel 4 at 128 x 2,000 atoms (PERF.md)
+# 109,744 atoms, kernel 4 at 128 x 2,000 atoms; likewise kernels 8 and 2
+# before their redesign (PERF.md)
 PARENT_DEVICE_MS = {
     "window_sweep[cn]": 0.307, "window_sweep[d3_direct]": 1.789,
     "window_sweep[chain]": 0.515, "window_sweep[coulomb]": 0.501,
@@ -156,6 +160,12 @@ PARENT_DEVICE_MS = {
     "dense_pairs[cn] 21.2 A": 2.467, "dense_pairs[direct] 21.2 A": 7.072,
     "dense_pairs[chain] 21.2 A": 2.699, "dense_pairs[cn] 9.0 A": 1.429,
     "dense_pairs[direct] 9.0 A": 8.198, "dense_pairs[chain] 9.0 A": 1.695,
+    # kernels 8 and 2 before their redesign, at 109,744 atoms (and the
+    # gather of the W = 20 windowed batch)
+    "chunk_sweep[cn]": 0.355, "chunk_sweep[d3_direct]": 1.167,
+    "chunk_sweep[chain]": 0.497, "chunk_sweep[coulomb]": 0.511,
+    "chunk_sweep[d3_direct_coulomb]": 2.992,
+    "windowed_gather_grad W=12": 0.1015, "windowed_gather_grad W=20": 0.0832,
 }
 
 KERNEL_SOURCES = {
@@ -213,25 +223,43 @@ def cuda_time_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def device_time_ms(fn, reps=5):
+#: profiler runs of :func:`device_time_ms` that recorded fewer kernel
+#: launches than calls, and were taken again: (busy us, launches, reps)
+LOST_PROFILES = []
+
+
+def device_time_ms(fn, reps=5, tries=3):
     """Device time of one call of ``fn``: the CUDA kernels (memsets
     included) that one torch.profiler run of ``reps`` calls records, summed,
     over ``reps``.  Unlike :func:`cuda_time_ms` it leaves out the time the
-    card waits for the host between launches.  None when the profiler saw
-    no device time."""
+    card waits for the host between launches.
+
+    Every call of ``fn`` launches at least one kernel, so a run that
+    records fewer launches than calls has lost device events (one run of
+    a probe did, with none at all; PERF.md section 7): it is noted in
+    ``LOST_PROFILES`` and taken again, up to ``tries`` runs, and then this
+    raises.  It never returns None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / reps if busy else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern)
+        launches = sum(e.count for e in kern)
+        if busy > 0 and launches >= reps:
+            return busy / 1e3 / reps
+        LOST_PROFILES.append((busy, launches, reps))
+    raise RuntimeError(f"device_time_ms: {tries} profiler runs of {reps} "
+                       f"calls lost their device events: "
+                       f"{LOST_PROFILES[-tries:]}")
 
 
 class Capture:
@@ -417,20 +445,22 @@ def library_call(key, args):
 
 
 def parent_key(key, args, ctx):
-    """Key of ``PARENT_DEVICE_MS`` for a kernel 1 or 4 replay: the fused body
-    names its force mode, the dense sweep its cutoff."""
+    """Key of ``PARENT_DEVICE_MS`` for a replay: kernel 1's fused body names
+    its force mode, the dense sweep its cutoff, the gather its window."""
     if key == "window_sweep[d3_direct_coulomb]" and args[4].combine_forces:
         return "window_sweep[d3_direct_coulomb+combine]"
     if key.startswith("dense_pairs"):
         return f"{key} {ctx['cutoff']} A"
+    if key == "windowed_gather_grad":
+        return f"{key} W={args[2]}"
     return key
 
 
 def compare_kernels(calls, label, ctx=None):
     """Replay each captured call through kernel and plain version; with
     ``ctx`` also time the library call and compute the bound, and with
-    ``ctx["parent"]`` print the parent tree's device time of kernels 1
-    and 4 beside their own."""
+    ``ctx["parent"]`` print the parent tree's device time of the kernels
+    redesigned since (``PARENT_DEVICE_MS``) beside their own."""
     from nvalchemiops_torch.kernels import chunk_sweep as cs
     from nvalchemiops_torch.kernels import dense_pairs as ds
     from nvalchemiops_torch.kernels import launch_counts
@@ -512,21 +542,28 @@ def compare_kernels(calls, label, ctx=None):
 
 
 def check_deterministic(calls, label, key="windowed_spread"):
-    """Two launches of a spread kernel on the captured inputs give the same
-    bits: the windowed spread has one writer per output adding its slots in
-    a fixed order, the dense spread sums in fixed point."""
+    """Two launches of a kernel on the captured inputs give the same bits:
+    the windowed spread and gather have one writer per output adding in a
+    fixed order, the dense spread sums in fixed point."""
     from nvalchemiops_torch.kernels.separable_spline import separable_spread
-    from nvalchemiops_torch.kernels.windowed_gather import spread_windows
+    from nvalchemiops_torch.kernels.windowed_gather import (
+        gather_grad_planes, spread_windows,
+    )
 
     kern = {"windowed_spread": spread_windows,
+            "windowed_gather_grad": gather_grad_planes,
             "separable_spread": separable_spread}[key]
     args, kwargs = calls[key]
     first = kern(*args, **kwargs)
     second = kern(*args, **kwargs)
     torch.cuda.synchronize()
-    if not torch.equal(first, second):
-        diff = (first - second).abs().max().item()
-        raise AssertionError(f"{label}: two launches differ (max {diff:.3e})")
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            diff = (a - b).abs().max().item()
+            raise AssertionError(f"{label}: two launches differ (max "
+                                 f"{diff:.3e})")
     phase(f"{label}: two launches bitwise equal")
 
 
@@ -833,6 +870,20 @@ def run_batched_d3(dev):
     return capture.calls, counts_m, ctx
 
 
+def pme_batch_system(dev):
+    """The JAX package's batched PME benchmark system (run_benchmarks.py
+    bench_pme_batch): numpy ``default_rng(5)``, positions then normal
+    charges; returns ``(positions [B, n, 3], charges [B, n], cell)``."""
+    cfg = PME_BATCH
+    rng = np.random.default_rng(5)
+    b, n = cfg["b"], cfg["n"]
+    pos = torch.as_tensor(rng.uniform(0, cfg["box"], (b * n, 3)),
+                          dtype=torch.float32, device=dev).reshape(b, n, 3)
+    q = torch.as_tensor(rng.normal(size=b * n), dtype=torch.float32,
+                        device=dev).reshape(b, n)
+    return pos, q, torch.eye(3, device=dev) * cfg["box"]
+
+
 def run_pme(dev, f_p_full, pme_err, full_inputs):
     """Phase 8; returns the dense and fallback captures, counts, contexts,
     and the composite's dense spread call with its context."""
@@ -848,13 +899,8 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
     cfg = PME_BATCH
     win_keys = ["windowed_spread", "windowed_gather_grad"]
     dense_keys = ["separable_spread", "separable_gather"]
-    rng = np.random.default_rng(5)      # run_benchmarks.py bench_pme_batch
     b, n = cfg["b"], cfg["n"]
-    pos = torch.as_tensor(rng.uniform(0, cfg["box"], (b * n, 3)),
-                          dtype=torch.float32, device=dev).reshape(b, n, 3)
-    q = torch.as_tensor(rng.normal(size=b * n), dtype=torch.float32,
-                        device=dev).reshape(b, n)
-    cell = torch.eye(3, device=dev) * cfg["box"]
+    pos, q, cell = pme_batch_system(dev)
 
     def run_dense():
         return batch_pme_reciprocal(pos, q, cell, cfg["alpha"], cfg["mesh"],
@@ -942,7 +988,7 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
         win_keys, forbid=dense_keys)
     capture.restore()
     compare_kernels(capture.calls, f"{label_w} (tile 16, W = 20)",
-                    {"atoms": n, "order": 4})
+                    {"atoms": n, "order": 4, "parent": True})
     if counts_w["windowed_spread"] != bw:
         raise AssertionError(f"windowed batch: {counts_w}")
     check_forces("windowed batch", f_w8)
@@ -1351,13 +1397,20 @@ def main():
         raise AssertionError(f"main path never launched: {missing}")
 
     # -- phase 5: kernel vs plain on the captured main-path inputs ----------
-    compare_kernels(small_calls, "composite 1,024 atoms")
+    pos_c, cell_c, _, _, _, _, cna_c, _ = composite.build_system()
+    ctx_small = {"n": pos_c.shape[0],
+                 "volume": float(abs(np.linalg.det(cell_c))),
+                 "cutoff": composite.CUTOFF, "mesh": cna_c.shape[1],
+                 "atoms": pos_c.shape[0], "order": 4}
+    compare_kernels(small_calls, "composite 1,024 atoms", ctx_small)
     ctx_full = {"n": n, "volume": float(abs(np.linalg.det(cell_np))),
                 "cutoff": cutoff, "mesh": cna.shape[1], "atoms": n,
                 "order": 4, "parent": True}
     full_rows = compare_kernels(full_calls, f"full width {n} atoms",
                                 ctx_full)
     check_deterministic(full_calls, "full width windowed spread")
+    check_deterministic(full_calls, "full width windowed gather",
+                        "windowed_gather_grad")
     del full_calls, small_calls
 
     # -- phases 6 and 7: batched D3, dense and grid branch -----------------
@@ -1437,6 +1490,8 @@ def main():
     missing = set(KERNEL_SOURCES) - {k.split("[")[0] for k in listed}
     if missing:
         raise AssertionError(f"kernel table lacks {sorted(missing)}")
+    phase(f"profiler runs taken again for lost device events: "
+          f"{len(LOST_PROFILES)} {LOST_PROFILES}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,17 +23,37 @@
 //
 // What bounds it on the H100.  The pair bodies are FP32-ALU and SFU bound;
 // the three C6 contractions are f32 dot products of length zm on the CUDA
-// cores (no TF32), zmax1 times kernel 1's.  The TPU kernel sized G for
-// 16 MB of VMEM; here the chunk lives in shared memory: own scalars, own lf
-// rows, candidate scalars, candidate zm-wide rows and the j sums, with the
-// rows at an odd stride so lane-strided reads do not collide in the banks.
-// The wrapper picks G (kernels/chunk_sweep.py:super_chunk_cells) so that
-// this fits the 227 KB a block may use.  Design: one block per (own row,
-// offset, chunk); one warp per own slot, lanes stride the candidates; row
-// sums in registers (warp shuffle, then one global atomic per own slot and
-// output, since the offsets run in different blocks), column sums through
-// shared-memory atomics, then one global atomic per candidate slot and
-// output into [n_j, ez, ey, ex, cap].
+// cores (no TF32), zmax1 times kernel 1's.  Only about one candidate in ten
+// is a pair inside the cutoff (PERF.md), so a warp whose lanes stride the
+// candidates and run the body in place (this kernel's first design, as
+// kernel 7 still does) spends nearly every warp step on the body at a few
+// useful lanes.  The TPU kernel sized G for 16 MB of VMEM; here the chunk
+// lives in shared memory: own scalars, own lf rows, candidate scalars,
+// candidate zm-wide rows, the own and j sums and the warps' queues, with
+// the rows
+// at an odd stride so lane-strided reads do not collide in the banks.  The
+// wrapper picks G (kernels/chunk_sweep.py:super_chunk_cells) so that this
+// fits the 227 KB a block may use.
+//
+// Design: distance test first (kernel 1's recipe, window_sweep.cu).  One
+// block per (own row, offset, chunk); one warp per own slot.  The warp
+// tests the slot against 32 staged candidates at a time -- r^2 rounded as
+// the plain version rounds it, against Body::reach_sq (the larger of the
+// two cutoffs for the fused body); parked (empty or padding) slots lie far
+// beyond it -- and queues the hits (WarpQueue: ballot and popcount prefix
+// into shared memory); whenever 32 wait, each lane runs the body on one of
+// them.  No C6 dot, exp, term or atomic is spent on a pair outside the
+// reach.  Only the 2 rx + 1 x-cells around the own slot's cell are tested
+// (merged-window cells gl .. gl + 2 rx for own cell gl of the chunk): the
+// others lie beyond the cutoff, as in kernel 1.  An own slot meets only
+// ~10 pairs an offset, so a queue drained at each slot's end would run the
+// body at a third of the lanes: the warp's slots all feed one queue, an
+// entry names its own slot.  The j-side terms go to shared-memory sums
+// (atomics); the own-side terms are summed per slot over the pop's lanes
+// (a segmented warp reduction, in f64) and then added to shared-memory
+// sums.  Both
+// are flushed once a block with one global atomic per slot and output (own
+// into [n_out, cz, cy, cx, cap], j into [n_j, ez, ey, ex, cap]).
 //
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
 // float32 tensors allocated by the Python wrapper; own_out and j_out must be
@@ -50,13 +70,80 @@ using namespace pair_bodies;
 
 using D3CoulombSeparate = D3CoulombBody<true, false>;
 
+// Shared memory of one block: the staged chunk, the own-side and j-side
+// sums (floats) and the warps' queues (kQueue ints a warp).
 template <class Body>
-__host__ __device__ inline size_t chunk_smem_floats(int g, int cap, int rx,
-                                                    int nf) {
+__host__ __device__ inline size_t chunk_smem_bytes(int g, int cap, int rx,
+                                                   int nf) {
   const size_t m = static_cast<size_t>(g) * cap;
   const size_t w = static_cast<size_t>(g + 2 * rx) * cap;
   const size_t fs = feat_stride(nf);
-  return Body::kOwn * m + m * fs + Body::kCand * w + w * fs + Body::kJ * w;
+  return sizeof(float) *
+             (Body::kOwn * m + m * fs + Body::kCand * w + w * fs +
+              Body::kOut * m + Body::kJ * w) +
+         sizeof(int) * kWideWarps * kQueue;
+}
+
+// One pop of the warp's queue.  An entry is (own index << 16) | candidate
+// index; each lane runs the body on its entry and adds the j-side terms to
+// the shared sums jacc[k][w].  Entries come off the queue in push order,
+// so the lanes of one own slot are contiguous: a segmented reduction over
+// the warp sums each slot's own-side terms into its first lane, which adds
+// them to oacc[k][m] (one shared atomic per slot and output instead of one
+// per lane: the lanes of a slot would collide on its address).  The
+// reduction runs in f64: summed in f32 it moved the block engine's Coulomb
+// forces further from the window engine's than the cross-engine bar of
+// chip_smoke.py allows; in f64 they stay inside it, at 2-9% more device
+// time (PERF.md, kernel 8).
+template <class Body>
+__device__ __forceinline__ void run_queued(const Params& p, const float* os,
+                                           int m, const float* ls,
+                                           const float* cs, int w,
+                                           const float* cf, int fstride,
+                                           WarpQueue& queue, float* oacc,
+                                           float* jacc) {
+  const int lane = threadIdx.x & 31;
+  const int e = queue.pop();
+  const int i = e < 0 ? -1 : e >> 16;
+  float out[Body::kOut];
+#pragma unroll
+  for (int k = 0; k < Body::kOut; ++k) out[k] = 0.0f;
+  if (e >= 0) {
+    const int c = e & 0xffff;
+    float o[Body::kOwn];
+#pragma unroll
+    for (int f = 0; f < Body::kOwn; ++f) o[f] = os[f * m + i];
+    float jo[Body::kJ];
+    if (Body::pair(p, o, ls + i * fstride, cs, w, cf, fstride, c, out, jo)) {
+#pragma unroll
+      for (int k = 0; k < Body::kJ; ++k) atomicAdd(&jacc[k * w + c], jo[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < Body::kOut; ++k) out[k] = 0.0f;
+    }
+  }
+  // entries are in queue order, so each own slot's lanes are contiguous:
+  // a segmented reduction toward each slot's first lane, in f64, then one
+  // atomic
+  double od[Body::kOut];
+#pragma unroll
+  for (int k = 0; k < Body::kOut; ++k) od[k] = out[k];
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int ni = __shfl_down_sync(0xffffffffu, i, s);
+    const bool same = lane + s < 32 && ni == i;
+#pragma unroll
+    for (int k = 0; k < Body::kOut; ++k) {
+      const double v = __shfl_down_sync(0xffffffffu, od[k], s);
+      if (same) od[k] += v;
+    }
+  }
+  const int prev = __shfl_up_sync(0xffffffffu, i, 1);
+  if (i >= 0 && (lane == 0 || prev != i)) {
+#pragma unroll
+    for (int k = 0; k < Body::kOut; ++k)
+      if (od[k] != 0.0) atomicAdd(&oacc[k * m + i], static_cast<float>(od[k]));
+  }
 }
 
 template <class Body>
@@ -76,7 +163,9 @@ __global__ void __launch_bounds__(kWideThreads)
   float* ls = os + Body::kOwn * m;             // [m][fstride]
   float* cs = ls + m * fstride;                // [kCand][w]
   float* cf = cs + Body::kCand * w;            // [w][fstride]
-  float* jacc = cf + w * fstride;              // [kJ][w]
+  float* oacc = cf + w * fstride;              // [kOut][m]
+  float* jacc = oacc + Body::kOut * m;         // [kJ][w]
+  int* queues = reinterpret_cast<int*>(jacc + Body::kJ * w);
 
   const int n_chunks = cx / g_cells;
   const int chunk = blockIdx.x % n_chunks;
@@ -94,7 +183,10 @@ __global__ void __launch_bounds__(kWideThreads)
   const int64_t cand0 =
       ((static_cast<int64_t>(z + rz + dz) * ey + (y + ry + dy)) * ex +
        chunk * g_cells) * cap;
+  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const float reach = Body::reach_sq(p);
+  WarpQueue queue{queues + warp * kQueue, 0};
 
   for (int t = threadIdx.x; t < Body::kOwn * m; t += blockDim.x) {
     const int f = t / m;
@@ -114,17 +206,41 @@ __global__ void __launch_bounds__(kWideThreads)
       cf[r * fstride + (t - r * nf)] = cfeat[(cand0 + r) * nf + (t - r * nf)];
     }
   }
-  for (int t = threadIdx.x; t < Body::kJ * w; t += blockDim.x) jacc[t] = 0.0f;
+  for (int t = threadIdx.x; t < Body::kOut * m + Body::kJ * w;
+       t += blockDim.x)
+    oacc[t] = 0.0f;  // oacc and jacc
   __syncthreads();
 
+  // the warp's own slots one after another, all feeding one queue: a slot
+  // meets ~10 pairs an offset, so pops span slots and run at full warps
   const int tri = rx * cap;  // home: keep cand_flat > own_flat + rx * cap
   for (int i = warp; i < m; i += kWideWarps) {
-    float o[Body::kOwn];
-#pragma unroll
-    for (int f = 0; f < Body::kOwn; ++f) o[f] = os[f * m + i];
-    warp_own_slot<Body>(p, o, ls + i * fstride, cs, w, cf, fstride,
-                        home ? i + tri + 1 : 0, jacc, w, own_out, own_plane,
-                        own0 + i);
+    const float ox = os[i], oy = os[m + i], oz = os[2 * m + i];
+    // the 2 rx + 1 x-cells around the own slot's cell
+    const int gl = i / cap;
+    const int j0 = home ? i + tri + 1 : gl * cap;
+    const int j1 = (gl + 2 * rx + 1) * cap;
+    for (int c0 = j0; c0 < j1; c0 += 32) {
+      const int c = c0 + lane;
+      bool hit = false;
+      if (c < j1) {
+        const float d2 = dist2(cs[c] - ox, cs[w + c] - oy, cs[2 * w + c] - oz);
+        hit = inside(d2, reach);
+      }
+      queue.push(hit, i << 16 | c);
+      if (queue.full())
+        run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc);
+    }
+  }
+  if (queue.n)
+    run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc);
+  __syncthreads();
+  // one global atomic per own slot and output: the offsets of a row run in
+  // different blocks
+  for (int t = threadIdx.x; t < Body::kOut * m; t += blockDim.x) {
+    const float v = oacc[t];
+    const int k = t / m;
+    if (v != 0.0f) atomicAdd(&own_out[k * own_plane + own0 + (t - k * m)], v);
   }
   flush_j<Body::kJ>(jacc, w, j_out, ext_plane, cand0);
 }
@@ -134,11 +250,13 @@ cudaError_t launch(const float* own, const float* cand, const float* lf,
                    const float* cfeat, float* own_out, float* j_out, int cz,
                    int cy, int cx, int rz, int ry, int rx, int cap, int g,
                    int nf, const Params& p, cudaStream_t stream) {
-  if (g <= 0 || cx % g) return cudaErrorInvalidValue;
+  // queue entries pack (own index << 16 | candidate index)
+  if (g <= 0 || cx % g || (g + 2 * rx) * cap > 0xffff)
+    return cudaErrorInvalidValue;
   const int n_off = 1 + ry + rz * (2 * ry + 1);
   const int blocks = cz * cy * n_off * (cx / g);
   if (blocks == 0 || cap == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * chunk_smem_floats<Body>(g, cap, rx, nf);
+  const size_t smem = chunk_smem_bytes<Body>(g, cap, rx, nf);
   const cudaError_t e = allow_smem(chunk_kernel<Body>, smem);
   if (e != cudaSuccess) return e;
   chunk_kernel<Body><<<blocks, kWideThreads, smem, stream>>>(

@@ -3,7 +3,7 @@
 // Pair bodies shared by the pair-sweep kernels: window_sweep.cu (kernel 1),
 // row_sweep.cu (kernel 7), chunk_sweep.cu (kernel 8) and stencil_sweep.cu
 // (kernel 9), the steps kernels 7 and 8 share, and the warp queue of the
-// distance-first sweeps (kernel 1 and dense_pairs.cu, kernel 4).  Each body
+// distance-first sweeps (kernels 1, 4 and 8).  Each body
 // turns one (own, candidate) pair into own-side terms and j-side terms; the
 // kernels differ only in how they enumerate pairs and where they sum the
 // terms.  The math follows the JAX pass bodies term for
@@ -358,7 +358,7 @@ struct D3CoulombBody {
 // ---------------------------------------------------------------------------
 // A warp's queue of pair entries in shared memory, for sweeps that test the
 // distance first and run a body only on the pairs inside it, at full warps
-// (kernels 1 and 4; kernels 7 and 8 may take it up).  push() appends the
+// (kernels 1, 4 and 8; kernel 7 may take it up).  push() appends the
 // lanes' hits in lane order (ballot and popcount prefix); once 32 or more
 // wait, pop() hands each lane one entry, in queue order, and keeps the rest.
 // Entries are non-negative ints; pop() gives -1 to lanes past the end.
@@ -394,7 +394,7 @@ struct WarpQueue {
 // ---------------------------------------------------------------------------
 // Shared by the zm-wide sweeps (row_sweep.cu, chunk_sweep.cu): block shape,
 // shared-memory limit, half-space offset order, the rows' shared stride, the
-// warp-per-own-slot step and the j flush.
+// j flush, and kernel 7's warp-per-own-slot step.
 // ---------------------------------------------------------------------------
 
 constexpr int kWideThreads = 256;
@@ -427,8 +427,9 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// One warp pairs own slot o with the staged candidates j0 .. w - 1, lanes
-// striding them: j-side terms go into the shared sums jacc[k * jstride + j]
+// Kernel 7's step (kernel 8 tests the distance first instead): one warp
+// pairs own slot o with the staged candidates j0 .. w - 1, lanes striding
+// them: j-side terms go into the shared sums jacc[k * jstride + j]
 // (shared atomics); each own-side sum is reduced over the warp and added
 // with one global atomic into own_out[k * own_plane + own_slot], since a
 // slot's row offsets run in different blocks.

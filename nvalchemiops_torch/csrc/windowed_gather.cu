@@ -18,20 +18,34 @@
 // What bounds them on the H100.  Bytes: the spread reads q and the Sx | Sy
 // | Sz columns of smat and writes the windows (at the main path's 128^3
 // mesh, 4,096 tiles of cap 40 and W = 12: 24 MB + 28 MB, 0.016 ms at
-// 3.35 TB/s); the gather reads smat and the windows.  The TPU kernels
-// built the dense [W, cap] x [cap, W^2] product on the matrix unit (with
-// one-hot matmuls, as Mosaic could not reshape [cap, W, W]).  Done densely
-// here, the spread is bound by shared-memory loads: three per multiply-add,
-// W^3 cap multiply-adds per tile, of which all but order^3 are exact zeros
-// (an order-4 row has 4 of its W columns non-zero per axis).
+// 3.35 TB/s); the gather reads all of smat and the windows (47 MB + 28 MB,
+// 0.023 ms) and writes four planes.  The TPU kernels built the dense [W,
+// cap] x [cap, W^2] products on the matrix unit (with one-hot matmuls, as
+// Mosaic could not reshape [cap, W, W]).  Done densely here, both are
+// bound by shared-memory loads: W^3 cap multiply-adds per tile, of which
+// all but order^3 per slot are exact zeros (an order-4 row has 4 of its W
+// columns non-zero per axis).
 //
-// Design.  Gather: one block per tile stages the window in shared memory;
-// one thread per slot keeps its six W-wide rows in registers and skips the
-// (z, y) rows where its banded B-spline weights are zero, so the dense
-// contraction costs ~W*16 instead of W^3 multiply-adds per slot.
-// Spread: output-stationary and band-skipping.  A block holds whole tiles
-// (4 of W = 8, 2 of W = 12, 1 of W = 20) and stages q*Sz, Sy and Sx of up
-// to kStage slots per tile in shared memory (16-byte loads), with one
+// Gather design: band only, staged coalesced, four threads a slot.  A
+// block takes up to 64 consecutive slots of one tile: the whole tile where
+// the tiles give two blocks an SM (the main path's 4,096), else a tile's
+// slots split over several blocks (the 64 tiles of the W = 20 batch), so
+// the card fills at small t.  All threads stage the tile's window and the
+// slots' smat rows into shared memory with 16-byte cp.async copies, then
+// OR each slot's non-zero S | dS columns into one bit mask per axis (a
+// shared atomicOr per float4).  Each mask gives the slot's band start:
+// four columns (moved left at the window's edge), or every column the
+// non-zero ones span where that is wider (any row works, up to a dense
+// one).  Each of the slot's four threads then contracts one z row of the
+// band against its 4 x 4 (y, x) window entries (16 window reads, ~50
+// multiply-adds), and a butterfly shuffle over the four lanes sums the
+// value and three gradient components; lane a writes plane a.  A skipped
+// term has an exactly-zero factor, so for finite inputs the result equals
+// the dense sum.
+//
+// Spread design: output-stationary and band-skipping.  A block holds whole
+// tiles (4 of W = 8, 2 of W = 12, 1 of W = 20) and stages q*Sz, Sy and Sx of
+// up to kStage slots per tile in shared memory (16-byte loads), with one
 // packed pair of words per slot, found by scanning its rows (any row
 // works, up to a dense one): the non-zero columns of Sy and of Sx as bit
 // masks, and the first and last non-zero column of q*Sz.  Each thread owns
@@ -42,11 +56,12 @@
 // the band.  A skipped term has a factor that is exactly +-0, so for
 // finite inputs the sum equals the dense one.  Stores are z-major, so
 // consecutive threads write consecutive (y, x).  Neither kernel uses
-// atomics: every output has one writer that adds the slots in ascending
+// atomics on its outputs: every output has one writer that adds in a fixed
 // order, so both are deterministic (two launches give equal bits).
 //
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
-// float32 tensors the Python wrapper allocated.  W is a template argument
+// float32 tensors the Python wrapper allocated (16-byte aligned for the
+// gather's copies).  W is a template argument
 // (tiles 4, 8, 16 -> W 8, 12, 20); the wrapper rejects other tiles.
 // Returns the cudaError_t of the launch.
 
@@ -55,58 +70,181 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// Gather (kernel 2)
+// ---------------------------------------------------------------------------
+
+constexpr int kGatherMaxSlots = 64;  // slots a block takes, 4 threads each
+
+// Shared stride of a staged smat row: 16-byte aligned, and the rows of the
+// 8 slots a warp holds start on 8 different bank quads.
 template <int W>
-__global__ void __launch_bounds__(64)
+__host__ __device__ constexpr int gather_row_stride() {
+  return 6 * W + 4;
+}
+
+template <int W>
+__host__ __device__ constexpr size_t gather_smem_bytes(int slots) {
+  const size_t rows = static_cast<size_t>(slots) * gather_row_stride<W>();
+  return sizeof(float) * (static_cast<size_t>(W) * W * W + rows) +
+         sizeof(unsigned) * 3 * slots;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// A slot's band on one axis from the bit mask of its non-zero S | dS
+// columns: four columns from `start` (moved left at the window's edge) when
+// the non-zero columns span at most four, else every column they span.
+template <int W>
+__device__ __forceinline__ void axis_band(unsigned m, int& start, int& len) {
+  const int lo = __ffs(m) - 1;
+  const int hi = 31 - __clz(m);
+  if (hi - lo < 4) {
+    start = min(lo, W - 4);
+    len = 4;
+  } else {
+    start = lo;
+    len = hi - lo + 1;
+  }
+}
+
+// One thread's share of a slot: the band's z rows a, a + 4, ... against
+// its y and x bands.  r is the slot's staged row (Sx | Sy | Sz | dSx | dSy
+// | dSz); Fixed: every band four wide (order <= 4), loops fully unrolled.
+template <int W, bool Fixed>
+__device__ __forceinline__ void gather_share(const float* r, const float* sw,
+                                             int a, int xs, int xn, int ys,
+                                             int yn, int zs, int zn, float& v,
+                                             float& gx, float& gy, float& gz) {
+  constexpr int WW = W * W;
+  if (Fixed) xn = yn = zn = 4;
+  for (int z = zs + a; z < zs + zn; z += 4) {
+    const float sz = r[2 * W + z];
+    const float dsz = r[5 * W + z];
+    if (sz == 0.0f && dsz == 0.0f) continue;
+    float q = 0.0f, qx = 0.0f, qy = 0.0f;
+#pragma unroll
+    for (int b = 0; b < (Fixed ? 4 : yn); ++b) {
+      const int y = ys + b;
+      const float sy = r[W + y];
+      const float dsy = r[4 * W + y];
+      const float* row = sw + z * WW + y * W + xs;
+      float px = 0.0f, pdx = 0.0f;
+#pragma unroll
+      for (int c = 0; c < (Fixed ? 4 : xn); ++c) {
+        const float m = row[c];
+        px = fmaf(r[xs + c], m, px);
+        pdx = fmaf(r[3 * W + xs + c], m, pdx);
+      }
+      q = fmaf(sy, px, q);
+      qx = fmaf(sy, pdx, qx);
+      qy = fmaf(dsy, px, qy);
+    }
+    v = fmaf(sz, q, v);
+    gx = fmaf(sz, qx, gx);
+    gy = fmaf(sz, qy, gy);
+    gz = fmaf(dsz, q, gz);
+  }
+}
+
+// Block: `slots` consecutive slots of one tile (chunk blockIdx % chunks of
+// tile blockIdx / chunks), 4 threads a slot.  Stages the tile's window and
+// the slots' rows with cp.async, ORs each slot's non-zero columns into a
+// mask per axis, then each thread contracts one z row of its slot's band;
+// a butterfly over the slot's 4 lanes leaves every sum in every lane, and
+// lane a writes output plane a.
+template <int W>
+__global__ void __launch_bounds__(4 * kGatherMaxSlots)
     gather_grad_kernel(const float* __restrict__ smat,
                        const float* __restrict__ win, float* __restrict__ val,
                        float* __restrict__ gx, float* __restrict__ gy,
-                       float* __restrict__ gz, int cap, int kw) {
+                       float* __restrict__ gz, int cap, int slots,
+                       int chunks) {
   constexpr int WW = W * W;
-  __shared__ float sw[W * WW];  // window [z][y * W + x]
-  const int64_t t = blockIdx.x;
-  for (int k = threadIdx.x; k < W * WW; k += blockDim.x) sw[k] = win[t * W * WW + k];
+  constexpr int kWin = W * WW;
+  constexpr int kStride = gather_row_stride<W>();
+  constexpr int kV = 6 * W / 4;        // float4s of an smat row
+  extern __shared__ __align__(16) float gsm[];
+  float* sw = gsm;                     // window [z][y * W + x]
+  float* rows = sw + kWin;             // [slots][kStride]
+  unsigned* masks = reinterpret_cast<unsigned*>(rows + slots * kStride);
+
+  const int tile = static_cast<int>(blockIdx.x) / chunks;
+  const int c0 = (static_cast<int>(blockIdx.x) - tile * chunks) * slots;
+  const int64_t t = tile;
+  const int ns = min(slots, cap - c0);
+  const float* wsrc = win + t * kWin;
+  const float* rsrc = smat + (t * cap + c0) * (6 * W);
+  for (int k = threadIdx.x; k < kWin / 4; k += blockDim.x)
+    cp_async16(sw + 4 * k, wsrc + 4 * k);
+  for (int k = threadIdx.x; k < ns * kV; k += blockDim.x) {
+    const int s = k / kV;
+    const int j = 4 * (k - s * kV);
+    cp_async16(rows + s * kStride + j, rsrc + s * (6 * W) + j);
+  }
+  for (int k = threadIdx.x; k < 3 * slots; k += blockDim.x) masks[k] = 0u;
+  cp_async_wait_all();
   __syncthreads();
-  for (int c = threadIdx.x; c < cap; c += blockDim.x) {
-    const float* s = smat + (t * cap + c) * kw;
-    float sx[W], sdx[W];
-#pragma unroll
-    for (int x = 0; x < W; ++x) {
-      sx[x] = s[x];
-      sdx[x] = s[3 * W + x];
+  // band masks: the non-zero columns of S and dS of each axis (a float4
+  // never straddles two axis blocks: W is a multiple of 4)
+  for (int k = threadIdx.x; k < ns * kV; k += blockDim.x) {
+    const int s = k / kV;
+    const int j = 4 * (k - s * kV);
+    const float4 e = *reinterpret_cast<const float4*>(rows + s * kStride + j);
+    const unsigned m = (e.x != 0.0f ? 1u : 0u) | (e.y != 0.0f ? 2u : 0u) |
+                       (e.z != 0.0f ? 4u : 0u) | (e.w != 0.0f ? 8u : 0u);
+    const int blk = j / W;
+    if (m) atomicOr(&masks[3 * s + blk % 3], m << (j - blk * W));
+  }
+  __syncthreads();
+
+  const int s = threadIdx.x >> 2;
+  const int a = threadIdx.x & 3;
+  float v = 0.0f, sgx = 0.0f, sgy = 0.0f, sgz = 0.0f;
+  if (s < ns) {
+    const unsigned mx = masks[3 * s], my = masks[3 * s + 1];
+    const unsigned mz = masks[3 * s + 2];
+    // an all-zero axis puts a zero factor in every term
+    if (mx && my && mz) {
+      int xs, xn, ys, yn, zs, zn;
+      axis_band<W>(mx, xs, xn);
+      axis_band<W>(my, ys, yn);
+      axis_band<W>(mz, zs, zn);
+      const float* r = rows + s * kStride;
+      if (xn == 4 && yn == 4 && zn == 4)
+        gather_share<W, true>(r, sw, a, xs, xn, ys, yn, zs, zn, v, sgx, sgy,
+                              sgz);
+      else
+        gather_share<W, false>(r, sw, a, xs, xn, ys, yn, zs, zn, v, sgx, sgy,
+                               sgz);
     }
-    float v = 0.0f, a = 0.0f, b = 0.0f, g = 0.0f;
-    for (int z = 0; z < W; ++z) {
-      const float sz = s[2 * W + z];
-      const float dsz = s[5 * W + z];
-      if (sz == 0.0f && dsz == 0.0f) continue;
-      float q = 0.0f, qx = 0.0f, qy = 0.0f;
-      for (int y = 0; y < W; ++y) {
-        const float sy = s[W + y];
-        const float dsy = s[4 * W + y];
-        if (sy == 0.0f && dsy == 0.0f) continue;
-        const float* row = sw + z * WW + y * W;
-        float px = 0.0f, pdx = 0.0f;
+  }
 #pragma unroll
-        for (int x = 0; x < W; ++x) {
-          px += sx[x] * row[x];
-          pdx += sdx[x] * row[x];
-        }
-        q += sy * px;
-        qx += sy * pdx;
-        qy += dsy * px;
-      }
-      v += sz * q;
-      a += sz * qx;
-      b += sz * qy;
-      g += dsz * q;
-    }
-    const int64_t o = t * cap + c;
-    val[o] = v;
-    gx[o] = a;
-    gy[o] = b;
-    gz[o] = g;
+  for (int o = 1; o < 4; o <<= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+    sgx += __shfl_xor_sync(0xffffffffu, sgx, o);
+    sgy += __shfl_xor_sync(0xffffffffu, sgy, o);
+    sgz += __shfl_xor_sync(0xffffffffu, sgz, o);
+  }
+  if (s < ns) {
+    float* dst = a == 0 ? val : (a == 1 ? gx : (a == 2 ? gy : gz));
+    dst[t * cap + c0 + s] = a == 0 ? v : (a == 1 ? sgx : (a == 2 ? sgy : sgz));
   }
 }
+
+// ---------------------------------------------------------------------------
+// Spread (kernel 3)
+// ---------------------------------------------------------------------------
 
 constexpr int kStage = 64;           // slots per tile staged at a time
 
@@ -226,12 +364,42 @@ __global__ void __launch_bounds__(spread_threads<W>())
   }
 }
 
+// Slots a block takes: whole tiles where the tiles alone give two blocks an
+// SM, else the tile's slots split over more blocks (multiples of 8 slots,
+// so every warp is full).
+inline int gather_slots(int ntiles, int cap) {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      n_sm = 132;
+  }
+  const int max_chunks = (cap + 7) / 8;
+  const int want = (2 * n_sm + ntiles - 1) / ntiles;
+  const int chunks = want < 1 ? 1 : (want > max_chunks ? max_chunks : want);
+  const int slots = ((cap + chunks - 1) / chunks + 7) / 8 * 8;
+  return slots < kGatherMaxSlots ? slots : kGatherMaxSlots;
+}
+
 template <int W>
 cudaError_t gather_launch(const float* smat, const float* win, float* val,
                           float* gx, float* gy, float* gz, int ntiles, int cap,
-                          int kw, cudaStream_t stream) {
-  gather_grad_kernel<W><<<ntiles, 64, 0, stream>>>(smat, win, val, gx, gy, gz,
-                                                   cap, kw);
+                          cudaStream_t stream) {
+  const int slots = gather_slots(ntiles, cap);
+  const int chunks = (cap + slots - 1) / slots;
+  const size_t smem = gather_smem_bytes<W>(slots);
+  static size_t opted = 48 * 1024;  // dynamic shared memory opted into
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_grad_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    opted = smem;
+  }
+  gather_grad_kernel<W><<<ntiles * chunks, 4 * slots, smem, stream>>>(
+      smat, win, val, gx, gy, gz, cap, slots, chunks);
   return cudaGetLastError();
 }
 
@@ -253,13 +421,14 @@ extern "C" int nv_windowed_gather_grad(const float* smat, const float* win,
                                        int w_win, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ntiles == 0 || cap == 0) return cudaSuccess;
+  if (kw != 6 * w_win) return cudaErrorInvalidValue;
   switch (w_win) {
     case 8:
-      return gather_launch<8>(smat, win, val, gx, gy, gz, ntiles, cap, kw, st);
+      return gather_launch<8>(smat, win, val, gx, gy, gz, ntiles, cap, st);
     case 12:
-      return gather_launch<12>(smat, win, val, gx, gy, gz, ntiles, cap, kw, st);
+      return gather_launch<12>(smat, win, val, gx, gy, gz, ntiles, cap, st);
     case 20:
-      return gather_launch<20>(smat, win, val, gx, gy, gz, ntiles, cap, kw, st);
+      return gather_launch<20>(smat, win, val, gx, gy, gz, ntiles, cap, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -190,21 +190,61 @@ def _params(cutoff, a1, a2, s6, s8, k1, k3):
                        k3=float(k3))
 
 
+def _check_dense_knobs(engine, block, interpret):
+    """The JAX dense engines' knobs: ``engine`` ``"auto"`` or ``"pallas"``
+    run the port's triangle sweep (kernel 4, the Pallas sweep's
+    counterpart); ``"xla"`` is not ported; ``block`` (the Pallas tile) and
+    ``interpret`` are checked and change nothing (kernel 4 has its own
+    tiles, and the wrappers take the plain version on CPU tensors)."""
+    if engine == "xla":
+        raise NotImplementedError(
+            "dense D3 engine='xla' is not ported (ROADMAP.md, queue 1 item "
+            "6: the XLA engines)")
+    if engine not in ("auto", "pallas"):
+        raise ValueError(f"unknown dense engine {engine!r}")
+    if block is not None and (isinstance(block, bool)
+                              or not isinstance(block, (int, np.integer))
+                              or block <= 0):
+        raise ValueError(f"block must be None or a positive int, got "
+                         f"{block!r}")
+    if not isinstance(interpret, (bool, np.bool_)):
+        raise ValueError(f"interpret must be a bool, got {interpret!r}")
+
+
+def _check_combos(combos):
+    """Explicit image combos: a non-empty list of second-image bit
+    triples."""
+    combos = [tuple(int(b) for b in c) for c in combos]
+    if not combos or any(len(c) != 3 or set(c) - {0, 1} for c in combos):
+        raise ValueError(f"combos must be (bx, by, bz) bit triples, got "
+                         f"{combos!r}")
+    return combos
+
+
 def dense_dftd3(positions, numbers, cell, cutoff, rcov, r4r2, c6ab,
                 cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0, k3=-4.0,
-                images: bool | None = None):
+                images: bool | None = None, combos=None,
+                engine: str = "auto", block: int | None = None,
+                interpret: bool = False):
     """DFT-D3(BJ) of one periodic system by dense pair tiles.
 
     ``images=None`` picks the minimum image when ``cutoff <= width/2`` and
-    the second-image sweep when ``width/2 < cutoff < width``.  Tables may
-    be numpy arrays or tensors.  Returns ``(energy, forces [n, 3], cn
-    [n])`` in the positions' dtype on their device.
+    the second-image sweep when ``width/2 < cutoff < width``.  ``combos``
+    (second-image bit triples) replaces the distance-pruned combos, as in
+    the JAX package.  Tables may be numpy arrays or tensors.  Returns
+    ``(energy, forces [n, 3], cn [n])`` in the positions' dtype on their
+    device.  ``engine``, ``block`` and ``interpret``: see
+    :func:`_check_dense_knobs`.
     """
+    _check_dense_knobs(engine, block, interpret)
     dtype, device = positions.dtype, positions.device
     cell = torch.as_tensor(cell, dtype=dtype, device=device).reshape(3, 3)
     images = _resolve_images(images, cell, cutoff)
-    combos = _image_combos(images, _np(cell) if images else None,
-                           float(cutoff))
+    if combos is None:
+        combos = _image_combos(images, _np(cell) if images else None,
+                               float(cutoff))
+    else:
+        combos = _check_combos(combos)
     numbers = torch.as_tensor(_np(numbers)).to(device=device,
                                                dtype=INDEX_DTYPE)
     e, f, cn = _dense_impl(
@@ -216,16 +256,27 @@ def dense_dftd3(positions, numbers, cell, cutoff, rcov, r4r2, c6ab,
 
 def batch_dense_dftd3(positions, numbers, cells, cutoff, rcov, r4r2, c6ab,
                       cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0, k3=-4.0,
-                      images: bool | None = None):
+                      system_chunk: int | None = None,
+                      images: bool | None = None, engine: str = "auto",
+                      block: int | None = None, interpret: bool = False):
     """Batched dense D3: ``positions [B, n, 3]``, ``numbers [B, n]``,
     ``cells`` ``[3, 3]`` shared or ``[B, 3, 3]``.  Returns ``(energy [B],
     forces [B, n, 3], cn [B, n])``.
 
     ``images`` is resolved on the host from the narrowest cell of the
     batch and applied to all systems, with the union of their combos.
+    ``system_chunk`` runs the batch ``system_chunk`` systems at a time (one
+    launch of each pass per chunk); it must divide ``B``, as in the JAX
+    package.  By default the whole batch is one chunk: the kernel streams
+    its tiles, so the batch needs no more memory than its inputs.
+    ``engine``, ``block`` and ``interpret``: see :func:`_check_dense_knobs`.
     """
+    _check_dense_knobs(engine, block, interpret)
     dtype, device = positions.dtype, positions.device
     b = positions.shape[0]
+    chunk = b if system_chunk is None else int(system_chunk)
+    if chunk < 1 or b % chunk:
+        raise ValueError(f"B={b} must divide by system_chunk={system_chunk}")
     cells = torch.as_tensor(cells, dtype=dtype, device=device)
     if cells.dim() == 2:
         cells = cells.expand(b, 3, 3)
@@ -233,9 +284,14 @@ def batch_dense_dftd3(positions, numbers, cells, cutoff, rcov, r4r2, c6ab,
     images, combos = _batch_combos(_np(cells), cutoff, images)
     numbers = torch.as_tensor(_np(numbers)).to(device=device,
                                                dtype=INDEX_DTYPE)
-    return _dense_impl(positions, numbers, cells, cutoff,
-                       _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device),
-                       _params(cutoff, a1, a2, s6, s8, k1, k3), combos)
+    tables = _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device)
+    params = _params(cutoff, a1, a2, s6, s8, k1, k3)
+    outs = [_dense_impl(positions[c:c + chunk], numbers[c:c + chunk],
+                        cells[c:c + chunk], cutoff, tables, params, combos)
+            for c in range(0, b, chunk)]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(o) for o in zip(*outs))
 
 
 def batch_route(cells, pbc, cutoff, n_atoms: int) -> str:

@@ -140,6 +140,57 @@ def compact_d3_elements(numbers, rcov, r4r2, c6ab, cn_ref):
             c6_np[np.ix_(sel, sel)], cn_c)
 
 
+# the precision strings of jax.lax.Precision and its member names
+_PRECISION_NAMES = {"default", "high", "highest", "bfloat16", "bfloat16_3x",
+                    "tensorfloat32", "float32", "fastest"}
+
+
+def _check_precision(precision):
+    """Raise ``ValueError`` unless ``precision`` is a value the JAX package
+    takes: ``None``, a ``jax.lax.Precision`` member or its string, or a
+    pair of either."""
+    if precision is None:
+        return
+    pair = isinstance(precision, (list, tuple))
+    names = [getattr(p, "name", p) for p in (precision if pair
+                                             else [precision])]
+    if (pair and len(names) != 2) or not all(
+            isinstance(n, str) and n.lower() in _PRECISION_NAMES
+            for n in names):
+        raise ValueError(f"precision must be None, a jax.lax.Precision or "
+                         f"one of {sorted(_PRECISION_NAMES)}, got "
+                         f"{precision!r}")
+
+
+def _feature_dtype(feature_dtype):
+    """``feature_dtype`` as a torch floating dtype (``None`` stays): a torch
+    dtype, or a numpy/JAX dtype or its name; ``ValueError`` otherwise."""
+    if feature_dtype is None or isinstance(feature_dtype, torch.dtype):
+        dt = feature_dtype
+    else:
+        name = getattr(feature_dtype, "__name__", None) or getattr(
+            feature_dtype, "name", None) or str(feature_dtype)
+        dt = getattr(torch, str(name).rsplit(".", 1)[-1], None)
+    if feature_dtype is not None and not (isinstance(dt, torch.dtype)
+                                          and dt.is_floating_point):
+        raise ValueError(f"feature_dtype must be a floating dtype, got "
+                         f"{feature_dtype!r}")
+    return dt
+
+
+def _check_engine(name, engine, ported):
+    """``NotImplementedError`` naming ROADMAP for the JAX package's
+    ``"xla"`` engine, ``ValueError`` for a name neither package has."""
+    if engine in ported:
+        return
+    if engine == "xla":
+        raise NotImplementedError(
+            f"{name} engine='xla' is not ported (ROADMAP.md, queue 1 item 6:"
+            " the XLA engines)")
+    raise ValueError(f"{name}: unknown engine {engine!r}; the port has "
+                     f"{[e for e in ported if e]}")
+
+
 def _sweep(grid, engine, block_g, body, own, cand, params, lf=None,
            cf=None):
     """One pass on the engine's kernel: ``"window"`` (kernel 1, factored
@@ -286,7 +337,8 @@ def _parked_px(grid, z_ext):
 def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
                   r4r2_plane, r4r2_ext, cna_elem, mask_elem, c6p_elem,
                   params: SweepParams, engine: str = "window", block_g=None,
-                  q=None, cn_plane=None, skip_chain: bool = False):
+                  q=None, cn_plane=None, skip_chain: bool = False,
+                  feature_dtype=None):
     """D3 passes 1-3 on one engine's pair sweep (``"window"``, ``"pallas"``
     or ``"block"``: the JAX ``_grid_d3_window_impl``,
     ``_grid_d3_pallas_impl`` and ``_grid_d3_block_impl``); returns the
@@ -297,6 +349,8 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
     replaces pass 1; ``skip_chain`` stops after pass 2 and appends the
     dE/dCN plane instead of adding the chain forces (the hybrid engine's
     hooks, as ``cn_a_override`` / ``skip_chain`` of the JAX row sweep).
+    ``feature_dtype`` rounds the pass-2 feature planes to that dtype (the
+    JAX window engine's storage cast).
     """
     px_d = _parked_px(grid, z_ext)
     if cn_plane is None:
@@ -304,6 +358,9 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
                                 engine, block_g)
     lf, e_pl, edc_pl, w_plane = _d3_plane_features(
         z_plane, cn_plane, cna_elem, mask_elem, c6p_elem, params.k3)
+    if feature_dtype is not None:
+        lf, e_pl, edc_pl = (a.to(feature_dtype).to(a.dtype)
+                            for a in (lf, e_pl, edc_pl))
     si_plane = torch.sqrt(r4r2_plane * _SQRT3)
     si_ext = torch.sqrt(r4r2_ext * _SQRT3)
     e_pl, fx, fy, fz, decn, *coul = _d3_pass2_direct(
@@ -365,10 +422,15 @@ def grid_dftd3(
     cutoff: float,
     a1, a2, s8,
     s6=1.0, k1=16.0, k3=-4.0,
+    precision=None,
     engine: str | None = None,
     block_G: int | None = None,
+    compute_virial: bool = False,
     stencil=None,
+    bilinear: str = "stack",
+    feature_dtype=None,
     hybrid_cn: str = "stencil",
+    cell=None,
 ):
     """DFT-D3(BJ) energy, forces and CNs on the atom grid.
 
@@ -376,7 +438,8 @@ def grid_dftd3(
     (:func:`element_cn_ref`); the C6 availability mask must be separable
     (:func:`element_c6_mask`).  Tables may be numpy arrays or tensors.
     Returns ``(energy_total, forces [N, 3], coord_num [N])`` in the grid's
-    dtype on the grid's device.
+    dtype on the grid's device.  The parameters are the JAX package's, in
+    its order.
 
     ``engine``:
 
@@ -395,16 +458,30 @@ def grid_dftd3(
       (an engine the port does not have).  The stencil's chain forces are
       added per atom.
 
-    The JAX package's ``"xla"`` engine is listed in ROADMAP.md.
+    The JAX package's ``"xla"`` engine and ``compute_virial=True`` raise
+    ``NotImplementedError`` (ROADMAP.md); ``cell`` only feeds the virial.
+    ``precision`` (the TPU matrix unit's passes) and ``bilinear`` (the XLA
+    engine's einsum grouping) are checked and change nothing: every port
+    engine computes its C6 dots in full f32.  ``feature_dtype`` rounds the
+    pass-2 feature planes (``lf``, ``e``, ``edc``) to that dtype on the
+    window and hybrid engines, where the JAX package stores them in it;
+    the block and pallas engines ignore it, as the JAX ones do.
     """
+    _check_precision(precision)
+    if bilinear not in ("stack", "split", "quad"):
+        raise ValueError(f"bilinear must be 'stack', 'split' or 'quad', got "
+                         f"{bilinear!r}")
+    feature_dtype = _feature_dtype(feature_dtype)
+    if compute_virial:
+        raise NotImplementedError(
+            "grid_dftd3(compute_virial=True) is not ported (ROADMAP.md, "
+            "queue 1 item 2: the window engine's virial)")
     if engine is None and stencil is not None:
         engine = "hybrid"
     if engine == "hybrid" and stencil is None:
         raise ValueError("engine='hybrid' requires a StencilGrid (stencil=...)")
-    if engine not in (None, "window", "block", "pallas", "hybrid"):
-        raise NotImplementedError(
-            f"grid_dftd3 engine={engine!r} is not ported (ROADMAP.md, "
-            "'Engines off the default path')")
+    _check_engine("grid_dftd3", engine,
+                  (None, "window", "block", "pallas", "hybrid"))
     if hybrid_cn not in ("stencil", "row"):
         raise ValueError(f"hybrid_cn must be 'stencil' or 'row', got "
                          f"{hybrid_cn!r}")
@@ -426,7 +503,7 @@ def grid_dftd3(
             cn_plane = scatter_to_grid(grid, cn_a)
         e_pl, fx_pl, fy_pl, fz_pl, cn_pl, decn_pl = _grid_d3_impl(
             grid, *planes, params, "window", cn_plane=cn_plane,
-            skip_chain=True)
+            skip_chain=True, feature_dtype=feature_dtype)
         chain_a = stencil_cn_chain_forces(
             stencil, rcov_a, gather_from_grid(grid, decn_pl), float(cutoff),
             float(k1), rcov_planes=rcov_planes)
@@ -434,8 +511,10 @@ def grid_dftd3(
                                                         cn_pl))
         forces = torch.stack([f1, f2, f3], dim=-1) + chain_a
         return e_pl.sum(), forces, cn_g if cn_a is None else cn_a
+    engine = engine or "window"
     e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(
-        grid, *planes, params, engine or "window", block_g=block_g)
+        grid, *planes, params, engine, block_g=block_g,
+        feature_dtype=feature_dtype if engine == "window" else None)
     energy = e_pl.sum()
     f1, f2, f3, coord_num = gather_rows_from_grid(
         grid, (fx_pl, fy_pl, fz_pl, cn_pl))
@@ -474,10 +553,7 @@ def grid_dftd3_coulomb(
     D3 + Coulomb and the trailing entry is ``None``.  The JAX package's
     ``"xla"`` engine is listed in ROADMAP.md.
     """
-    if engine not in ("block", "window"):
-        raise NotImplementedError(
-            f"grid_dftd3_coulomb engine={engine!r} is not ported (ROADMAP.md,"
-            " 'Engines off the default path')")
+    _check_engine("grid_dftd3_coulomb", engine, ("block", "window"))
     if coulomb_cutoff is None:
         coulomb_cutoff = cutoff
     _, _, planes, (q_plane,) = _d3_inputs(grid, numbers, rcov, r4r2, c6ab,
@@ -505,28 +581,28 @@ def grid_dftd3_coulomb(
 
 def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
                      r4r2, c6ab, cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0,
-                     k3=-4.0, cap: int | None = None,
-                     engine: str | None = None):
+                     k3=-4.0, target_occupancy: float = 0.66,
+                     cap: int | None = None, engine: str = "window"):
     """Batched DFT-D3(BJ) on one whole-batch halo grid.
 
     The systems share the grid geometry estimated from ``cells[0]``; the
     grid is built once for the batch (:func:`grid.batch_build_atom_grid`)
     and each system runs :func:`grid_dftd3` on its part with ``engine``,
     in a loop over systems.  ``positions [B, n, 3]``, ``numbers [B, n]``
-    (0 = padding atom), ``cells`` ``[3, 3]`` or ``[B, 3, 3]``; ``cap``
-    overrides the estimated slot capacity (target occupancy 0.66, as in the
-    JAX package).  Returns ``(energy [B], forces [B, n, 3], cn [B, n])``.
-    The default engine is the window engine (the JAX package defaults to
-    its xla engine here, which agrees with the window engine to f64
-    rounding).
+    (0 = padding atom), ``cells`` ``[3, 3]`` or ``[B, 3, 3]``;
+    ``target_occupancy`` sizes the estimated slot capacity, and ``cap``
+    overrides it, as in the JAX package.  Returns ``(energy [B], forces [B,
+    n, 3], cn [B, n])``.  The default engine is the window engine (the JAX
+    package defaults to its xla engine here, which agrees with the window
+    engine to f64 rounding).
     """
     b, n = positions.shape[0], positions.shape[1]
     cells_np = np.asarray(_np(cells), dtype=np.float64)
     dims, radius, cap_est = estimate_grid_geometry(
         cells_np if cells_np.ndim == 2 else cells_np[0], pbc, cutoff, n,
-        target_occupancy=0.66)
+        target_occupancy=target_occupancy)
     g = batch_build_atom_grid(positions, cells, pbc, dims, radius,
-                              cap or cap_est)
+                              cap_est if cap is None else cap)
     numbers_np = _np(numbers)
     outs = [grid_dftd3(system_grid(g, i), numbers_np[i], rcov, r4r2, c6ab,
                        cn_ref_elem, cutoff, a1, a2, s8, s6=s6, k1=k1, k3=k3,

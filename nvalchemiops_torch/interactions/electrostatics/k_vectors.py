@@ -18,9 +18,11 @@ TWOPI = 2.0 * math.pi
 __all__ = ["generate_k_vectors_pme"]
 
 
-def generate_k_vectors_pme(cell, mesh_dimensions):
+def generate_k_vectors_pme(cell, mesh_dimensions, reciprocal_cell=None):
     """rfft-grid k-vectors for one system (``cell [3, 3]``) or a batch
-    (``cell [B, 3, 3]``).
+    (``cell [B, 3, 3]``).  ``reciprocal_cell`` (rows ``2 pi (cell^T)^-1``,
+    shaped like ``cell``) is used as given instead of being computed, as
+    in the JAX package.
 
     Returns ``(k_vectors [.., nx, ny, nz//2+1, 3], k_squared_safe)`` where
     ``k_squared_safe`` floors ``|k|^2`` at 1e-12.
@@ -29,7 +31,11 @@ def generate_k_vectors_pme(cell, mesh_dimensions):
     cell = cell.reshape(lead + (3, 3))
     dtype, device = cell.dtype, cell.device
     nx, ny, nz = (int(d) for d in mesh_dimensions)
-    reciprocal_cell = TWOPI * torch.linalg.inv(cell.transpose(-1, -2))
+    if reciprocal_cell is None:
+        reciprocal_cell = TWOPI * torch.linalg.inv(cell.transpose(-1, -2))
+    else:
+        reciprocal_cell = torch.as_tensor(
+            reciprocal_cell, dtype=dtype, device=device).reshape(lead + (3, 3))
     mx = torch.fft.fftfreq(nx, d=1.0, dtype=dtype, device=device) * nx
     my = torch.fft.fftfreq(ny, d=1.0, dtype=dtype, device=device) * ny
     mz = torch.fft.rfftfreq(nz, d=1.0, dtype=dtype, device=device) * nz

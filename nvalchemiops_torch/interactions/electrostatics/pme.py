@@ -238,18 +238,44 @@ def _dense_pme_single(positions, charges, cell, alpha, mesh_dimensions,
     return tuple(None if o is None else o[0] for o in out)
 
 
+def _check_pme_knobs(fft_mode, spread_engine, gather_engine,
+                     fft_modes=("xla", "matmul")):
+    """``fft_mode="matmul"`` (the matrix-unit DFT) is not ported; the
+    spline engine strings name the JAX package's two implementations of
+    one per-tile contraction, which the port runs on its kernels whichever
+    is named."""
+    if fft_mode not in fft_modes:
+        raise ValueError(f"fft_mode must be one of {list(fft_modes)}, got "
+                         f"{fft_mode!r}")
+    if fft_mode == "matmul":
+        raise NotImplementedError(
+            "fft_mode='matmul' is not ported (ROADMAP.md, queue 1 item 7: "
+            "mathops/matmul_dft.py); the port convolves with torch.fft")
+    for name, value in (("spread_engine", spread_engine),
+                        ("gather_engine", gather_engine)):
+        if value not in ("xla", "pallas"):
+            raise ValueError(f"{name} must be 'xla' or 'pallas', got "
+                             f"{value!r}")
+
+
 def pme_reciprocal_space(
     positions,
     charges,
     cell,
     alpha,
-    mesh_dimensions,
+    mesh_dimensions=None,
+    mesh_spacing=None,
     spline_order: int = 4,
+    batch_idx=None,
     k_vectors=None,
     k_squared=None,
     compute_forces: bool = False,
     compute_charge_gradients: bool = False,
+    accuracy: float = 1e-6,
     tile_capacity: int | None = None,
+    fft_mode: str = "xla",
+    gather_engine: str = "xla",
+    spread_engine: str = "xla",
 ):
     """FFT-based reciprocal-space PME for one system.
 
@@ -260,7 +286,23 @@ def pme_reciprocal_space(
     tile holds more atoms than its capacity, the spread and gathers take
     the dense separable path (as the JAX package's fallback does).  Raises
     ``NotImplementedError`` for a mesh the windowed path does not support.
+
+    The parameters are the JAX package's, in its order.  Not ported, each
+    raising ``NotImplementedError`` (ROADMAP.md): ``batch_idx``, a mesh
+    chosen from ``mesh_spacing`` or ``accuracy`` (no ``mesh_dimensions``:
+    both wait for ``parameters.py``) and ``fft_mode="matmul"``.
+    ``spread_engine`` / ``gather_engine``: see :func:`_check_pme_knobs`.
     """
+    _check_pme_knobs(fft_mode, spread_engine, gather_engine)
+    if batch_idx is not None:
+        raise NotImplementedError(
+            "pme_reciprocal_space(batch_idx=...) is not ported (ROADMAP.md, "
+            "queue 1 item 3); batch_pme_reciprocal takes uniform batches")
+    if mesh_dimensions is None:
+        raise NotImplementedError(
+            "pme_reciprocal_space needs mesh_dimensions: a mesh from "
+            f"mesh_spacing={mesh_spacing!r} or accuracy={accuracy!r} waits "
+            "for parameters.py (ROADMAP.md, queue 1 item 3)")
     dtype = positions.dtype
     n = positions.shape[0]
     mesh_dimensions = tuple(int(d) for d in mesh_dimensions)
@@ -291,25 +333,38 @@ def pme_reciprocal_space(
 def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
                          spline_order: int = 4, compute_forces: bool = False,
                          tile_capacity: int | None = None,
+                         fft_mode: str = "auto",
                          compute_charge_gradients: bool = False,
-                         engine: str = "auto"):
+                         engine: str = "auto",
+                         spread_engine: str = "xla",
+                         gather_engine: str = "xla",
+                         tile: int | None = None):
     """Batched reciprocal-space PME on uniform ``[B, n, 3]`` system stacks.
 
     ``engine``: ``"dense"`` (the separable-spline kernels over the whole
-    batch at once), ``"windowed"`` (the tile-windowed pipeline per system;
-    tiles of 16 mesh points for small meshes when no ``tile_capacity`` is
-    given, else 8), or ``"auto"``: dense for per-system meshes up to
-    ``DENSE_MESH_MAX_POINTS``, windowed above.  ``alpha`` scalar or
-    ``[B]``; ``cells`` ``[3, 3]`` shared or ``[B, 3, 3]``.  Returns
-    per-atom energies ``[B, n]``, plus forces ``[B, n, 3]`` and/or
-    ``d(sum E)/dq [B, n]``, in the return patterns of
-    :func:`pme_reciprocal_space`.
+    batch at once), ``"windowed"`` (the tile-windowed pipeline per system,
+    on tiles of ``tile`` mesh points; by default 16 for small meshes when
+    no ``tile_capacity`` is given, else 8), or ``"auto"``: dense for
+    per-system meshes up to ``DENSE_MESH_MAX_POINTS``, windowed above.
+    ``alpha`` scalar or ``[B]``; ``cells`` ``[3, 3]`` shared or ``[B, 3,
+    3]``.  Returns per-atom energies ``[B, n]``, plus forces ``[B, n, 3]``
+    and/or ``d(sum E)/dq [B, n]``, in the return patterns of
+    :func:`pme_reciprocal_space`.  The parameters are the JAX package's,
+    in its order: ``fft_mode="auto"`` convolves with ``torch.fft`` (the
+    JAX package picks its matrix-unit DFT for small meshes, which the port
+    does not have: ``"matmul"`` raises ``NotImplementedError``);
+    ``spread_engine`` / ``gather_engine``: see :func:`_check_pme_knobs`.
     """
+    _check_pme_knobs(fft_mode, spread_engine, gather_engine,
+                     ("auto", "xla", "matmul"))
     mesh_dimensions = tuple(int(d) for d in mesh_dimensions)
-    ntiles8 = math.prod(d // 8 for d in mesh_dimensions)
-    # small meshes: 16-point tiles (the JAX package's rule, fit on the TPU)
-    tile = (16 if (tile_capacity is None and ntiles8 <= 512
-                   and all(d % 16 == 0 for d in mesh_dimensions)) else 8)
+    if tile is None:
+        # small meshes: 16-point tiles (the JAX package's rule, fit on the
+        # TPU)
+        ntiles8 = math.prod(d // 8 for d in mesh_dimensions)
+        tile = (16 if (tile_capacity is None and ntiles8 <= 512
+                       and all(d % 16 == 0 for d in mesh_dimensions))
+                else 8)
     if not sw.windowed_applicable(mesh_dimensions, spline_order, tile=tile):
         raise ValueError(
             f"mesh {mesh_dimensions} / order {spline_order} not supported "

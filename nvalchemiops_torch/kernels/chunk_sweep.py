@@ -9,7 +9,9 @@ of one row (M = G*cap own slots) meet one merged candidate window of W =
 candidate index exceeds the own index plus rx*cap (each pair once).  Pairs
 further than rx cells apart in x lie beyond the cutoff and fail the
 distance test, so the result is kernel 1's up to summation order.  One CUDA
-block per (own row, offset, chunk).  Bodies and features:
+block per (own row, offset, chunk); a warp tests one own slot against the
+2*rx + 1 x-cells around it and runs the body only on the pairs inside the
+body's reach (distance first, as kernel 1).  Bodies and features:
 
 =====================  =======================================  ====  ====
 body                   own / candidate features                 own   j
@@ -52,14 +54,19 @@ BODIES = {
 
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_BYTES = 232448
+#: the kernel's warps a block and the ints of each warp's pair queue
+#: (csrc/pair_bodies.cuh: kWideWarps, kQueue)
+WARPS, QUEUE = 8, 64
 
 
 def chunk_smem_bytes(body: str, g: int, cap: int, rx: int, nf: int) -> int:
-    """Shared memory of one block (csrc/chunk_sweep.cu:chunk_smem_floats)."""
-    _, n_feat, _, n_j = BODIES[body]
+    """Shared memory of one block (csrc/chunk_sweep.cu:chunk_smem_bytes):
+    the staged chunk, the own and j sums and the warps' queues."""
+    _, n_feat, n_out, n_j = BODIES[body]
     m, w = g * cap, (g + 2 * rx) * cap
     fs = (nf | 1) if nf else 0
-    return 4 * (n_feat * m + m * fs + n_feat * w + w * fs + n_j * w)
+    return 4 * (n_feat * m + m * fs + n_feat * w + w * fs + n_out * m
+                + n_j * w + WARPS * QUEUE)
 
 
 def super_chunk_cells(body: str, cx: int, cap: int, rx: int,

@@ -104,6 +104,10 @@ def gather_grad_planes(smat, win, w_win: int):
     if smat.device.type == "cpu":
         return gather_grad_planes_plain(smat, win, w_win)
     _cuda_checks("gather_grad_planes", w_win, smat, win)
+    if smat.data_ptr() % 16 or win.data_ptr() % 16:
+        raise ValueError("gather_grad_planes: the CUDA kernel copies smat "
+                         "and win in 16-byte units; pass 16-byte aligned "
+                         "tensors")
     outs = [torch.empty((t, cap), dtype=smat.dtype, device=smat.device)
             for _ in range(4)]
     err = load_library().nv_windowed_gather_grad(

@@ -254,9 +254,15 @@ def _fold_axis(arr, nt_axis: int, n: int, tile: int):
     return torch.movedim(core, 0, nt_axis)
 
 
-def windowed_spread(tiles: MeshTiles, values):
+def windowed_spread(tiles: MeshTiles, values, engine: str = "xla"):
     """``mesh[x, y, z] = sum_n values[n] Sx Sy Sz`` via per-tile windows
-    (CUDA kernel on a CUDA device) and the parity fold."""
+    (CUDA kernel on a CUDA device) and the parity fold.  ``engine`` names
+    the JAX package's two implementations of the per-tile contraction
+    (``"xla"``, ``"pallas"``); both are this one function, so it is checked
+    and changes nothing."""
+    if engine not in ("xla", "pallas"):
+        raise ValueError(f"windowed_spread engine must be 'xla' or 'pallas', "
+                         f"got {engine!r}")
     nx, ny, nz = tiles.mesh_dims
     tile, cap, w_win = tiles.tile, tiles.cap, tiles.w_win
     ntx, nty, ntz = nx // tile, ny // tile, nz // tile
@@ -293,15 +299,21 @@ def _extract_windows(mesh, tile: int):
     return a.reshape(ntx * nty * ntz, w_win, w_win * w_win)
 
 
-def windowed_gather(tiles: MeshTiles, mesh, with_gradient: bool = False):
+def windowed_gather(tiles: MeshTiles, mesh, with_gradient: bool = False,
+                    order: str | None = None):
     """Per-atom interpolation ``values [N]``, or ``(values, grad_frac
     [N, 3])`` with the gradient along fractional axes scaled by the mesh
     dims (rotate with ``tiles.inv`` for Cartesian).
 
     With the gradient the per-tile contraction is the CUDA kernel on a
     CUDA device; the value-only gather is plain torch, as it was plain XLA
-    in the JAX package.
+    in the JAX package.  ``order`` (``None``, ``"m"`` or ``"z"``) is the
+    JAX XLA path's contraction order; every order is this one function, so
+    it is checked and changes nothing.
     """
+    if order not in (None, "m", "z"):
+        raise ValueError(f"windowed_gather order must be None, 'm' or 'z', "
+                         f"got {order!r}")
     win = _extract_windows(mesh, tiles.tile).contiguous()
     w = tiles.w_win
 

@@ -1,15 +1,24 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Device time of every body of the two main pair sweeps on the card.
+"""Device time of the redesigned kernels on the card, body by body.
 
-Times kernel 1 (``window_sweep``: CN, D3 direct, chain, Coulomb and the
-fused D3 + Coulomb body, separate and combined) on the 109,744-atom CsCl
-main path of ``chip_smoke.py`` (16^3 cells, radius 1, cap 40, 9.6 A), and
-kernel 4 (``dense_pairs``: CN, direct, chain) on the batched D3 systems of
+Times, on the 109,744-atom CsCl main path of ``chip_smoke.py`` (16^3
+cells, radius 1, cap 40, 9.6 A, 128^3 mesh): kernel 1 (``window_sweep``:
+CN, D3 direct, chain, Coulomb and the fused D3 + Coulomb body, separate
+and combined), kernel 8 (``chunk_sweep``: the same five bodies of the
+block engines, the fused one with separate force channels) and kernel 2
+(``windowed_gather_grad``, W = 12); kernel 2 again on the W = 20 windows
+of the 8 x 2,000-atom windowed PME batch at 64^3; and kernel 4
+(``dense_pairs``: CN, direct, chain) on the batched D3 systems of
 ``chip_smoke.d3_batch_system`` (128 x 2,000 atoms at 21.2 A in 41.2 A
 boxes, 4 image combos, and at 9 A in 27 A boxes, minimum image).  Each
 kernel call is captured from the public entry points, then replayed
 ``--reps`` times under ``torch.profiler`` (``chip_smoke.device_time_ms``:
 the kernel sum per call, the wrapper's memsets included).
+``--profiler-check N`` first times one call N times and reports the
+profiler runs that lost their device events.  ``--engine-errors`` also
+prints the block engines' f32 forces against the window engine's on the
+main path (max and RMS relative, as ``chip_smoke.py``'s cross-engine bars
+read them): the numerics of a kernel 8 change, parent against change.
 
 ``--tree DIR`` imports ``nvalchemiops_torch`` from another checkout (for
 instance the parent commit, unpacked with ``git archive`` into a directory
@@ -54,10 +63,14 @@ def window_key(body, radius, own, cand, params, *rest):
 
 
 def main_path_calls(dev):
-    """Kernel 1's calls on the 109,744-atom main path (and its fused
-    D3 + Coulomb engine, whose Coulomb cutoff is the D3 cutoff)."""
-    from nvalchemiops_torch import composite, grid
+    """Kernel 1's and kernel 8's calls on the 109,744-atom main path (with
+    the fused D3 + Coulomb engines, whose Coulomb cutoff is the D3 cutoff)
+    and kernel 2's call of its PME force evaluation; also the block
+    engines' f32 forces against the window engine's, as (max rel, RMS
+    rel)."""
+    from nvalchemiops_torch import composite, grid, spline_windowed
     from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.interactions.electrostatics import pme
 
     (pos_np, cell_np, numbers, charges, rcov, r4r2, cna,
      c6) = composite.build_system(chip_smoke.FULL_N_REP)
@@ -76,20 +89,67 @@ def main_path_calls(dev):
     calls = {}
     undo = [record(m, "window_sweep", window_key, calls)
             for m in (grid, grid_d3)]
+    undo += [record(m, "chunk_sweep",
+                    lambda body, *a: f"chunk_sweep[{body}]", calls)
+             for m in (grid, grid_d3)]
+    undo.append(record(spline_windowed, "gather_grad_planes", gather_key,
+                       calls))
     try:
-        grid_d3.grid_dftd3(g, *d3)
-        grid.grid_coulomb_energy_forces(g, q, cutoff, alpha)
+        _, f_d3, _ = grid_d3.grid_dftd3(g, *d3)
+        _, f_c = grid.grid_coulomb_energy_forces(g, q, cutoff, alpha)
         for combine in (False, True):
             grid_d3.grid_dftd3_coulomb(
                 g, numbers, q, *d3[1:], coulomb_cutoff=cutoff, alpha=alpha,
                 combine_forces=combine, engine="window")
+        _, b_d3, _ = grid_d3.grid_dftd3(g, *d3, engine="block")
+        _, b_c = grid.grid_coulomb_energy_forces(g, q, cutoff, alpha,
+                                                 engine="block")
+        _, bf_d3, _, _, bf_c = grid_d3.grid_dftd3_coulomb(
+            g, numbers, q, *d3[1:], coulomb_cutoff=cutoff, alpha=alpha,
+            engine="block")
+        pme.pme_reciprocal_space(
+            pos, q, cell, alpha, mesh_dimensions=chip_smoke.FULL_MESH,
+            compute_forces=True,
+            tile_capacity=spline_windowed.observed_tile_capacity(
+                pos, cell, chip_smoke.FULL_MESH))
     finally:
         for u in undo:
             u()
     torch.cuda.synchronize()
     label = (f"{pos.shape[0]} atoms, dims {tuple(dims)}, radius "
              f"{tuple(radius)}, cap {cap}, counts_max {int(g.counts_max)}")
-    return calls, label
+    errors = {name: chip_smoke.force_errors(f, ref) for name, f, ref in (
+        ("grid_dftd3 block d3", b_d3, f_d3),
+        ("grid_coulomb_energy_forces block", b_c, f_c),
+        ("grid_dftd3_coulomb block d3", bf_d3, f_d3),
+        ("grid_dftd3_coulomb block coulomb", bf_c, f_c))}
+    return calls, label, errors
+
+
+def gather_key(smat, win, w_win):
+    return f"windowed_gather_grad W={w_win}"
+
+
+def windowed_batch_calls(dev):
+    """Kernel 2's call on the W = 20 windows of the 8 x 2,000-atom windowed
+    PME batch at 64^3 (tiles of 16), the first systems of
+    ``chip_smoke.pme_batch_system``."""
+    from nvalchemiops_torch import spline_windowed
+    from nvalchemiops_torch.interactions.electrostatics import pme
+
+    pos, q, cell = chip_smoke.pme_batch_system(dev)
+    b = chip_smoke.PME_WINDOWED["b"]
+    calls = {}
+    undo = record(spline_windowed, "gather_grad_planes", gather_key, calls)
+    try:
+        pme.batch_pme_reciprocal(pos[:b], q[:b], cell,
+                                 chip_smoke.PME_BATCH["alpha"],
+                                 chip_smoke.PME_WINDOWED["mesh"],
+                                 compute_forces=True, engine="windowed")
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return calls
 
 
 def dense_calls(dev):
@@ -124,6 +184,12 @@ def main():
                     help="checkout whose nvalchemiops_torch is timed")
     ap.add_argument("--reps", type=int, default=20,
                     help="calls per profiler run")
+    ap.add_argument("--engine-errors", action="store_true",
+                    help="print the block engines' forces against the "
+                         "window engine's")
+    ap.add_argument("--profiler-check", type=int, default=0, metavar="N",
+                    help="first time one call N times and count the "
+                         "profiler runs that lost their device events")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("pair_sweep_times.py needs a CUDA device")
@@ -143,14 +209,28 @@ def main():
     build_library()
     dev = torch.device("cuda", 0)
     print(card, flush=True)
-    k1, label = main_path_calls(dev)
-    calls = {**k1, **dense_calls(dev)}
+    main, label, engine_errors = main_path_calls(dev)
+    if args.engine_errors:
+        print(json.dumps({"tree": tree, "engine_errors": engine_errors}),
+              flush=True)
+    batch = windowed_batch_calls(dev)
+    calls = {**main, **batch, **dense_calls(dev)}
+    if args.profiler_check:
+        fn, a, kw = calls["windowed_gather_grad W=12"]
+        lost = len(chip_smoke.LOST_PROFILES)
+        for _ in range(args.profiler_check):
+            chip_smoke.device_time_ms(lambda: fn(*a, **kw), reps=args.reps)
+        print(json.dumps({"tree": tree, "profiler_check": {
+            "runs": args.profiler_check,
+            "lost": chip_smoke.LOST_PROFILES[lost:]}}), flush=True)
     for key, (fn, a, kw) in sorted(calls.items()):
         ms = chip_smoke.device_time_ms(lambda: fn(*a, **kw), reps=args.reps)
+        shape = ("8 x 2,000 atoms, 64^3, W = 20" if key in batch
+                 else "128 x 2,000" if key.startswith("dense") else label)
         print(json.dumps({"tree": tree, "kernel": key, "device_ms": ms,
-                          "reps": args.reps,
-                          "shape": label if key.startswith("window")
-                          else "128 x 2,000"}), flush=True)
+                          "reps": args.reps, "shape": shape}), flush=True)
+    print(json.dumps({"tree": tree,
+                      "lost_profiles": chip_smoke.LOST_PROFILES}), flush=True)
 
 
 if __name__ == "__main__":

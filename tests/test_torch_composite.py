@@ -11,6 +11,17 @@ from benchmarks import composite_accuracy as jca
 from nvalchemiops_torch import composite
 from tests._torch_port import assert_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(n_rep=4, cutoff=5.0, alpha=0.4, mesh=(16, 16, 16))  # 128 atoms
 
 

@@ -17,6 +17,17 @@ from tests._torch_port import (
     assert_close, port_grid, random_system, synthetic_tables,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 A1, A2, S8 = 0.42, 4.1, 1.7
 
 

@@ -708,3 +708,98 @@ def test_distance_first_window_kernel_matches_plain(cuda, case):
         for a, b in zip(out_k, out_p):
             for fa, fb in zip(a, b):            # per output plane
                 _close(fa, fb)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("tile,mesh", [(4, (8, 8, 16)), (8, (16, 16, 32)),
+                                       (16, (32, 32, 64)),
+                                       (8, (64, 64, 64))])
+def test_band_gather_kernel_cases(cuda, tile, mesh, order):
+    """Kernel 2 at W = 8, 12 and 20, orders 1-4: few tiles (a tile's slots
+    split over several blocks) and 512 tiles (whole tiles a block), padded
+    and empty slots, the upper z tiles empty, atoms on mesh points; for
+    order 4 also synthetic rows with bands at the window's edges, wider
+    than four columns and dense.  Against the plain version; two launches
+    give equal bits."""
+    from nvalchemiops_torch import spline_windowed
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import windowed_gather as wg
+
+    rng = np.random.default_rng(40 + tile + order)
+    box, n = 9.0, 4 * int(np.prod(mesh)) // tile ** 2
+    pos = rng.uniform(0.0, box, (n, 3))
+    pos[:n // 8] = rng.integers(0, mesh[0], (n // 8, 3)) * (
+        box / np.array(mesh))
+    pos[:, 2] *= 0.6
+    cell = torch.eye(3, device=cuda) * box
+    pos_t = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    probe = spline_windowed.build_mesh_tiles(pos_t, cell, mesh, order, cap=8,
+                                             tile=tile)
+    cap = int(probe.counts_max) + 5
+    tiles = spline_windowed.build_mesh_tiles(pos_t, cell, mesh, order,
+                                             cap=cap, tile=tile)
+    w = tiles.w_win
+    smat = tiles.smat.clone()
+    if order == 4:
+        rows = smat.view(smat.shape[0], cap, 6, w)
+        vals = torch.as_tensor(rng.uniform(0.1, 1.0, (6, w)),
+                               dtype=torch.float32, device=cuda)
+        rows[0, 0] = 0.0
+        rows[0, 0, :, w - 2:] = vals[:, :2]          # band at the right edge
+        rows[0, 1] = 0.0
+        rows[0, 1, :, :3] = vals[:, :3]              # and at the left
+        rows[1, 0] = 0.0
+        rows[1, 0, :, 1:7] = vals[:, 1:7]            # six columns wide
+        rows[1, 1] = vals - 0.5                      # dense
+    win = torch.as_tensor(rng.normal(size=(smat.shape[0], w, w * w)),
+                          dtype=torch.float32, device=cuda)
+    assert bool((smat == 0).all(-1).any())           # empty slots
+    before = launch_counts["windowed_gather_grad"]
+    got = wg.gather_grad_planes(smat, win, w)
+    again = wg.gather_grad_planes(smat, win, w)
+    assert launch_counts["windowed_gather_grad"] == before + 2
+    want = wg.gather_grad_planes_plain(smat, win, w)
+    torch.cuda.synchronize()
+    for a, b, p in zip(got, again, want):
+        _close(a, p)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["full cell, ccutoff below",
+                                  "empty cells, ccutoff above",
+                                  "G = 1 and one chunk a row"])
+def test_distance_first_chunk_kernel_matches_plain(cuda, case):
+    """Kernel 8 against its plain version on its five bodies (CN, D3
+    direct, chain, the fused body, Coulomb): a full cell, empty cells, a
+    Coulomb cutoff below and above the D3 cutoff, G above 1 (the card's
+    pick), G = 1 and G = cx."""
+    from nvalchemiops_torch import grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    if case.startswith("empty"):
+        cutoff, ccutoff = 4.0, 5.0
+        g, numbers, q, tab = _window_case(cuda, 36, 2000, 26.0, ccutoff,
+                                          half_empty=True)
+    else:
+        cutoff, ccutoff = 5.0, 4.0
+        g, numbers, q, tab = _window_case(cuda, 35, 3000, 26.0, cutoff,
+                                          full_cell=True)
+
+    def run():
+        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7,
+                           engine="block")
+        grid_d3.grid_dftd3_coulomb(g, numbers, q, *tab, cutoff, 0.42, 4.1,
+                                   1.7, coulomb_cutoff=ccutoff, alpha=0.35)
+        grid.grid_coulomb_energy_forces(g, q, cutoff, 0.35, engine="block")
+
+    seen = _record([(grid_d3, "chunk_sweep"), (grid, "chunk_sweep")], run)
+    assert sorted(seen) == [("chunk_sweep", b) for b in (
+        "chain", "cn", "coulomb", "d3_direct", "d3_direct_coulomb")]
+    if case.startswith("full"):
+        assert max(args[4] for args, _ in seen.values()) > 1
+    if not case.startswith("G"):
+        _replay(seen)
+        return
+    for width in (1, g.dims[2]):
+        _replay({k: (args[:4] + (width,) + args[5:], kwargs)
+                 for k, (args, kwargs) in seen.items()})

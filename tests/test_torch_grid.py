@@ -21,6 +21,17 @@ from nvalchemiops_torch.neighborlist.neighbor_utils import (
 )
 from tests._torch_port import port_grid
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CASES = {

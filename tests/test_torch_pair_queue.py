@@ -26,6 +26,17 @@ from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
 from nvalchemiops_torch.kernels import dense_pairs as dp
 from nvalchemiops_torch.kernels import window_sweep as ws
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 LANES = 32
 WARPS = 8            # warps per block in both kernels
@@ -250,16 +261,18 @@ def test_dense_blocks_cover_the_triangle_once():
 # ---------------------------------------------------------------------------
 
 
-def cell_windows(z, y, x, radius, dims, cap):
-    """``(first extended slot, length)`` of own cell (z, y, x)'s windows in
-    the kernel's order: the home row from the centre cell on, then every
-    half-space row over its 2*rx+1 x-cells."""
+def cell_windows(radius, dims, cap):
+    """``(first extended slot [n_cells], length)`` of every own cell's
+    windows in the kernel's order: the home row from the centre cell on,
+    then every half-space row over its 2*rx+1 x-cells."""
     rz, ry, rx = radius
-    _, cy, cx = dims
+    cz, cy, cx = dims
     ey, ex = cy + 2 * ry, cx + 2 * rx
-    rows = [(0, 0, x + rx, (rx + 1) * cap)] + [
-        (dz, dy, x, (2 * rx + 1) * cap) for dz, dy in ws.halfspace_zy(rz, ry)]
-    return [((((z + rz + dz) * ey + (y + ry + dy)) * ex + x0) * cap, n)
+    cell = torch.arange(cz * cy * cx)
+    z, y, x = cell // (cy * cx), (cell // cx) % cy, cell % cx
+    rows = [(0, 0, rx, (rx + 1) * cap)] + [
+        (dz, dy, 0, (2 * rx + 1) * cap) for dz, dy in ws.halfspace_zy(rz, ry)]
+    return [((((z + rz + dz) * ey + (y + ry + dy)) * ex + x + x0) * cap, n)
             for dz, dy, x0, n in rows]
 
 
@@ -285,40 +298,39 @@ def reach_sq(body, params):
 def emulate_window(body, radius, own, cand, params, lf=None, capacity=None):
     """Kernel 1's partition and queues in torch: per own cell, its windows
     staged in groups of at most ``capacity`` candidates (all at once by
-    default); per own slot, every staged candidate tested 32 at a time, the
-    hits queued and the body run on the queued pairs.  Returns ``(own_out,
-    j_out, visits)`` with every queued (own slot, extended slot)."""
+    default); per own slot, every staged candidate tested and the hits
+    queued in staged order (the warp pops them 32 at a time: the order and
+    the batches change no sum), the body run on the queued pairs.  All
+    cells at once.  Returns ``(own_out, j_out, visits)`` with every queued
+    (own slot, extended slot)."""
     n_out, n_j = ws.body_outputs(body, params)
     n_own, cz, cy, cx, cap = own.shape
     own_f = own.reshape(n_own, -1)
     cand_f = cand.reshape(cand.shape[0], -1)
     lf_f = None if lf is None else lf.reshape(-1, lf.shape[-1])
     reach = reach_sq(body, params)
+    n_cells = cz * cy * cx
+    wins = cell_windows(radius, (cz, cy, cx), cap)
+    own_slot = torch.arange(n_cells * cap).reshape(n_cells, cap)
     own_slots, cand_slots = [], []
-    for cell in range(cz * cy * cx):
-        z, y, x = cell // (cy * cx), (cell // cx) % cy, cell % cx
-        wins = cell_windows(z, y, x, radius, (cz, cy, cx), cap)
-        for group in stage_groups(wins, capacity or sum(n for _, n in wins)):
-            staged = torch.cat([torch.arange(wins[k][0], wins[k][0]
-                                             + wins[k][1]) for k in group])
-            home_end = cap if group[0] == 0 else 0
-            for i in range(cap):
-                slot = cell * cap + i
-                d = [cand_f[a, staged] - own_f[a, slot] for a in range(3)]
-                d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-                hit = (d2 > 1e-20) & (d2 < reach)
-                hit[:home_end] &= torch.arange(home_end) > i
-                queue = WarpQueue()
-                for c0 in range(0, len(staged), LANES):
-                    queue.push([int(c) for c in staged[c0:c0 + LANES][
-                        hit[c0:c0 + LANES]]])
-                for batch in queue.drain():
-                    own_slots += [slot] * len(batch)
-                    cand_slots += batch
-    own_out = torch.zeros((n_out, cz * cy * cx * cap), dtype=own.dtype)
+    for group in stage_groups(wins, capacity or sum(n for _, n in wins)):
+        staged = torch.cat([wins[k][0][:, None] + torch.arange(wins[k][1])
+                            for k in group], dim=1)      # [cells, L]
+        d = [cand_f[a][staged][:, None, :] - own_f[a][own_slot][..., None]
+             for a in range(3)]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]     # [cells, cap, L]
+        hit = (d2 > 1e-20) & (d2 < reach)
+        if group[0] == 0:            # the centre cell keeps slot pairs i < j
+            pos = torch.arange(staged.shape[1])
+            hit &= (pos[None, :] >= cap) | (pos[None, :] > torch.arange(
+                cap)[:, None])
+        cell, i, k = torch.nonzero(hit, as_tuple=True)
+        own_slots.append(own_slot[cell, i])
+        cand_slots.append(staged[cell, k])
+    oi, ci = torch.cat(own_slots), torch.cat(cand_slots)
+    own_out = torch.zeros((n_out, n_cells * cap), dtype=own.dtype)
     j_out = torch.zeros((n_j, cand_f.shape[1]), dtype=own.dtype)
-    if own_slots:
-        oi, ci = torch.tensor(own_slots), torch.tensor(cand_slots)
+    if len(oi):
         o = own_f[:, oi][..., None, None]
         c = cand_f[:, ci][..., None, None]
         li = None if lf_f is None else lf_f[oi][:, None]
@@ -330,7 +342,7 @@ def emulate_window(body, radius, own, cand, params, lf=None, capacity=None):
             j_out[k].index_add_(0, ci, blk.reshape(-1))
     return (own_out.reshape((n_out,) + tuple(own.shape[1:])),
             j_out.reshape((n_j,) + tuple(cand.shape[1:])),
-            list(zip(own_slots, cand_slots)))
+            list(zip(oi.tolist(), ci.tolist())))
 
 
 def grid_case(seed, n, box, cutoff, half_empty=False, full_cell=False):
@@ -383,15 +395,15 @@ def atom_pairs(g, visits):
     cz, cy, cx = g.dims
     cap = g.cap
     aid = g.ext_aid.reshape(-1)
-    out = []
-    for own_slot, ext_slot in visits:
-        cell, i = divmod(own_slot, cap)
-        z, y, x = cell // (cy * cx), (cell // cx) % cy, cell % cx
-        ext_own = (((z + rz) * (cy + 2 * ry) + y + ry) * (cx + 2 * rx)
-                   + x + rx) * cap + i
-        a, b = int(aid[ext_own]), int(aid[ext_slot])
-        out.append((min(a, b), max(a, b)))
-    return out
+    own_slot, ext_slot = (torch.tensor([v[k] for v in visits],
+                                       dtype=torch.long) for k in (0, 1))
+    cell, i = own_slot // cap, own_slot % cap
+    z, y, x = cell // (cy * cx), (cell // cx) % cy, cell % cx
+    ext_own = (((z + rz) * (cy + 2 * ry) + y + ry) * (cx + 2 * rx)
+               + x + rx) * cap + i
+    a, b = aid[ext_own].long(), aid[ext_slot].long()
+    return list(zip(torch.minimum(a, b).tolist(),
+                    torch.maximum(a, b).tolist()))
 
 
 def brute_pairs(pos, box, cutoff):

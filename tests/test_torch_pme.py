@@ -23,6 +23,17 @@ from nvalchemiops_torch.interactions.electrostatics import pme as tpme
 from nvalchemiops_torch.kernels import windowed_gather as twg
 from tests._torch_port import assert_close, random_system
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MESH = (16, 16, 24)
 ALPHA = 0.45
 

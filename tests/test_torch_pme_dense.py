@@ -18,6 +18,17 @@ from nvalchemiops_torch.interactions.electrostatics import pme as tpme
 from nvalchemiops_torch.kernels import separable_spline as tss
 from tests._torch_port import assert_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MESH = (16, 12, 20)        # any dims: the dense path needs no tiles
 ALPHA = 0.4
 

@@ -26,6 +26,16 @@ from tests._torch_port import assert_close, port_grid, synthetic_tables
 from tests.test_torch_chunk_sweep import A1, A2, S8, _grid, _tables
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engines_case():
     """tests/test_grid.py:281-316: 100 atoms, sparse reference points."""

@@ -22,6 +22,17 @@ from nvalchemiops_torch import spline, spline_windowed
 from nvalchemiops_torch.kernels import separable_spline as ss
 from nvalchemiops_torch.kernels import windowed_gather as wg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMEM_LIMIT = 232_448       # bytes of shared memory one H100 block may use
 
 MESHES = [(8, 8, 8), (16, 16, 16), (24, 32, 40), (32, 32, 32), (5, 7, 9),

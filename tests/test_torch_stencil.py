@@ -29,6 +29,17 @@ from nvalchemiops_torch.kernels import stencil_sweep as ss
 from nvalchemiops_torch.kernels.window_sweep import SweepParams
 from tests._torch_port import assert_close, port_grid, synthetic_tables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread: Tier-1 runs six test workers on the CPU, and a
+    torch thread pool in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PBC = np.array([True] * 3)
 
 
