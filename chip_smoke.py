@@ -56,14 +56,16 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     110,592-atom simple-cubic crystal of the JAX package's hybrid probe
     (48^3, a = 3.0 A, 9 A, zmax-16 random tables): the stencil Coulomb and
     ``grid_dftd3(stencil=...)`` with both ``hybrid_cn`` values against the
-    window engine on the row grid; then the f32 kernels against the port's
-    plain path in f64 on the card on the same recipe at 13,824 atoms.
+    window engine on the row grid, and two launches of each kernel 9 call
+    on its captured inputs (equal bits); then the f32 kernels against the
+    port's plain path in f64 on the card on the same recipe at 13,824
+    atoms.
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
-path.  Each replay of kernels 1, 2, 4 and 8 at 109,744 atoms, at 128 x
-2,000 and on the W = 20 windows prints its device time beside the parent
-tree's (``PARENT_DEVICE_MS``).
+path.  Each replay of kernels 1, 2, 4, 7 and 8 at 109,744 atoms, at 128 x
+2,000 and on the W = 20 windows, and of kernel 9 on the crystal, prints its
+device time beside the parent tree's (``PARENT_DEVICE_MS``).
 
 Each phase sets the launch counts to 0 just before it drives its path and
 reads them just after; a kernel of the path that did not launch fails the
@@ -150,8 +152,8 @@ HYBRID = dict(n_rep=48, a=3.0, jitter=0.2, cutoff=9.0, alpha=0.35, zmax=16,
 # device ms per call of every body of kernels 1 and 4 before their
 # distance-first redesign (the parent tree's kernels), measured with
 # pair_sweep_times.py on an NVIDIA H100 80GB HBM3 at 700.00 W: kernel 1 at
-# 109,744 atoms, kernel 4 at 128 x 2,000 atoms; likewise kernels 8 and 2
-# before their redesign (PERF.md)
+# 109,744 atoms, kernel 4 at 128 x 2,000 atoms; likewise kernels 8 and 2,
+# and kernels 7 and 9, before their redesign (PERF.md)
 PARENT_DEVICE_MS = {
     "window_sweep[cn]": 0.307, "window_sweep[d3_direct]": 1.789,
     "window_sweep[chain]": 0.515, "window_sweep[coulomb]": 0.501,
@@ -166,6 +168,12 @@ PARENT_DEVICE_MS = {
     "chunk_sweep[chain]": 0.497, "chunk_sweep[coulomb]": 0.511,
     "chunk_sweep[d3_direct_coulomb]": 2.992,
     "windowed_gather_grad W=12": 0.1015, "windowed_gather_grad W=20": 0.0832,
+    # kernel 7 at 109,744 atoms (grid_dftd3(engine="pallas")) and kernel 9
+    # on the 110,592-atom crystal (48^3 voxels, radius 3)
+    "row_sweep[cn]": 0.366, "row_sweep[d3_direct]": 1.166,
+    "row_sweep[chain]": 0.524,
+    "stencil_sweep[cn]": 0.1033, "stencil_sweep[chain]": 0.1403,
+    "stencil_sweep[coulomb]": 0.1335,
 }
 
 KERNEL_SOURCES = {
@@ -459,7 +467,8 @@ def parent_key(key, args, ctx):
 def compare_kernels(calls, label, ctx=None):
     """Replay each captured call through kernel and plain version; with
     ``ctx`` also time the library call and compute the bound, and with
-    ``ctx["parent"]`` print the parent tree's device time of the kernels
+    ``ctx["parent"]`` (True, or the kernels whose parent times were read
+    at this shape) print the parent tree's device time of the kernels
     redesigned since (``PARENT_DEVICE_MS``) beside their own."""
     from nvalchemiops_torch.kernels import chunk_sweep as cs
     from nvalchemiops_torch.kernels import dense_pairs as ds
@@ -529,7 +538,9 @@ def compare_kernels(calls, label, ctx=None):
             row["library_device_ms"] = device_time_ms(lib) if lib else None
             parent = PARENT_DEVICE_MS.get(parent_key(key, args, ctx))
             msg += f" (device {row['device_ms']} ms"
-            if parent is not None and ctx.get("parent"):
+            wanted = ctx.get("parent")
+            if parent is not None and (wanted is True or wanted
+                                       and base in wanted):
                 msg += f"; parent tree {parent} ms"
             msg += (f") library "
                     f"{row['library_ms']} ms (device "
@@ -544,15 +555,18 @@ def compare_kernels(calls, label, ctx=None):
 def check_deterministic(calls, label, key="windowed_spread"):
     """Two launches of a kernel on the captured inputs give the same bits:
     the windowed spread and gather have one writer per output adding in a
-    fixed order, the dense spread sums in fixed point."""
+    fixed order, the dense spread sums in fixed point, and the voxel
+    stencil writes each output once, its slices added in a fixed order."""
     from nvalchemiops_torch.kernels.separable_spline import separable_spread
+    from nvalchemiops_torch.kernels.stencil_sweep import stencil_sweep
     from nvalchemiops_torch.kernels.windowed_gather import (
         gather_grad_planes, spread_windows,
     )
 
     kern = {"windowed_spread": spread_windows,
             "windowed_gather_grad": gather_grad_planes,
-            "separable_spread": separable_spread}[key]
+            "separable_spread": separable_spread,
+            "stencil_sweep": stencil_sweep}[key.split("[")[0]]
     args, kwargs = calls[key]
     first = kern(*args, **kwargs)
     second = kern(*args, **kwargs)
@@ -1007,14 +1021,16 @@ def off_path(expect):
             if k.startswith(SWEEP_COUNT_PREFIXES) and k not in expect]
 
 
-def drive_and_replay(label, fn, expect, ctx=None, profile=False):
+def drive_and_replay(label, fn, expect, ctx=None, profile=False,
+                     deterministic=()):
     """One drive of phases 10-12: ``fn`` returns a dict of output tensors
     (force channels named ``d3``, ``coulomb`` or ``combined``); the launch
     counts must show ``expect`` and no other pair sweep.  Checks finite
     outputs and the net force, prints the steady time (and with
-    ``profile`` the device busy time and idle share) and replays every
-    captured kernel call against its plain version.  Returns ``(out,
-    counts, rows)``."""
+    ``profile`` the device busy time and idle share), replays every
+    captured kernel call against its plain version and launches each
+    kernel named in ``deterministic`` twice on its captured inputs (equal
+    bits).  Returns ``(out, counts, rows)``."""
     capture = install_capture()
     out, counts = drive(label, fn, expect, forbid=off_path(expect))
     capture.restore()
@@ -1029,6 +1045,8 @@ def drive_and_replay(label, fn, expect, ctx=None, profile=False):
     if profile:
         profile_step(label, fn)
     rows = compare_kernels(capture.calls, label, ctx)
+    for key in deterministic:
+        check_deterministic(capture.calls, f"{label} {key}", key)
     return out, counts, rows
 
 
@@ -1191,7 +1209,8 @@ def run_stencil(dev):
                              f"{sg.radius}, expected 48^3 voxels, radius 3")
     hybrid, stencil_coulomb = runs(g, sg, numbers, q, tables)
     ctx = {"n": n_full, "volume": (cfg["n_rep"] * cfg["a"]) ** 3,
-           "cutoff": cutoff, "mesh": tables[3].shape[1]}
+           "cutoff": cutoff, "mesh": tables[3].shape[1],
+           "parent": ("stencil_sweep",)}
     window_d3 = ["window_sweep_cn", "window_sweep_d3_direct",
                  "window_sweep_chain"]
     (w_d3, _, _) = drive_and_replay(
@@ -1206,7 +1225,8 @@ def run_stencil(dev):
     table = {}
     s_c, counts, rows = drive_and_replay(
         f"{label} stencil_coulomb_energy_forces", stencil_coulomb,
-        ["stencil_sweep_coulomb"], ctx, profile=True)
+        ["stencil_sweep_coulomb"], ctx, profile=True,
+        deterministic=["stencil_sweep[coulomb]"])
     keep_rows(table, rows, counts)
     check_errors(f"{label} stencil Coulomb forces vs window engine",
                  s_c["coulomb"], w_c["coulomb"],
@@ -1220,7 +1240,9 @@ def run_stencil(dev):
     for cn_mode, expect in expects.items():
         h, counts, rows = drive_and_replay(
             f"{label} grid_dftd3(stencil=sg, hybrid_cn={cn_mode!r})",
-            hybrid(cn_mode), expect, ctx, profile=True)
+            hybrid(cn_mode), expect, ctx, profile=True,
+            deterministic=[f"stencil_sweep[{k[len('stencil_sweep_'):]}]"
+                           for k in expect if k.startswith("stencil")])
         keep_rows(table, rows, counts)
         check_errors(f"{label} hybrid ({cn_mode} CN) D3 forces vs window "
                      "engine", h["d3"], w_d3["d3"], ENGINE_BARS["hybrid_d3"])

@@ -25,17 +25,18 @@
 // the three C6 contractions are f32 dot products of length zm on the CUDA
 // cores (no TF32), zmax1 times kernel 1's.  Only about one candidate in ten
 // is a pair inside the cutoff (PERF.md), so a warp whose lanes stride the
-// candidates and run the body in place (this kernel's first design, as
-// kernel 7 still does) spends nearly every warp step on the body at a few
-// useful lanes.  The TPU kernel sized G for 16 MB of VMEM; here the chunk
-// lives in shared memory: own scalars, own lf rows, candidate scalars,
-// candidate zm-wide rows, the own and j sums and the warps' queues, with
-// the rows
-// at an odd stride so lane-strided reads do not collide in the banks.  The
-// wrapper picks G (kernels/chunk_sweep.py:super_chunk_cells) so that this
-// fits the 227 KB a block may use.
+// candidates and run the body in place (this kernel's first design, and
+// kernel 7's until it took up the same sweep) spends nearly every warp step
+// on the body at a few useful lanes.  The TPU kernel sized G for 16 MB of
+// VMEM; here the chunk lives in shared memory: own scalars, own lf rows,
+// candidate scalars, candidate zm-wide rows, the own and j sums and the
+// warps' queues, with the rows at an odd stride so lane-strided reads do
+// not collide in the banks.  The wrapper picks G
+// (kernels/chunk_sweep.py:super_chunk_cells) so that this fits the 227 KB
+// a block may use.
 //
-// Design: distance test first (kernel 1's recipe, window_sweep.cu).  One
+// Design: distance test first (kernel 1's recipe, window_sweep.cu), in the
+// steps kernel 7 shares (pair_bodies.cuh: sweep_chunk, run_queued).  One
 // block per (own row, offset, chunk); one warp per own slot.  The warp
 // tests the slot against 32 staged candidates at a time -- r^2 rounded as
 // the plain version rounds it, against Body::reach_sq (the larger of the
@@ -51,9 +52,9 @@
 // entry names its own slot.  The j-side terms go to shared-memory sums
 // (atomics); the own-side terms are summed per slot over the pop's lanes
 // (a segmented warp reduction, in f64) and then added to shared-memory
-// sums.  Both
-// are flushed once a block with one global atomic per slot and output (own
-// into [n_out, cz, cy, cx, cap], j into [n_j, ez, ey, ex, cap]).
+// sums.  Both are flushed once a block with one global atomic per slot
+// and output (own into [n_out, cz, cy, cx, cap], j into [n_j, ez, ey, ex,
+// cap]).
 //
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
 // float32 tensors allocated by the Python wrapper; own_out and j_out must be
@@ -82,68 +83,6 @@ __host__ __device__ inline size_t chunk_smem_bytes(int g, int cap, int rx,
              (Body::kOwn * m + m * fs + Body::kCand * w + w * fs +
               Body::kOut * m + Body::kJ * w) +
          sizeof(int) * kWideWarps * kQueue;
-}
-
-// One pop of the warp's queue.  An entry is (own index << 16) | candidate
-// index; each lane runs the body on its entry and adds the j-side terms to
-// the shared sums jacc[k][w].  Entries come off the queue in push order,
-// so the lanes of one own slot are contiguous: a segmented reduction over
-// the warp sums each slot's own-side terms into its first lane, which adds
-// them to oacc[k][m] (one shared atomic per slot and output instead of one
-// per lane: the lanes of a slot would collide on its address).  The
-// reduction runs in f64: summed in f32 it moved the block engine's Coulomb
-// forces further from the window engine's than the cross-engine bar of
-// chip_smoke.py allows; in f64 they stay inside it, at 2-9% more device
-// time (PERF.md, kernel 8).
-template <class Body>
-__device__ __forceinline__ void run_queued(const Params& p, const float* os,
-                                           int m, const float* ls,
-                                           const float* cs, int w,
-                                           const float* cf, int fstride,
-                                           WarpQueue& queue, float* oacc,
-                                           float* jacc) {
-  const int lane = threadIdx.x & 31;
-  const int e = queue.pop();
-  const int i = e < 0 ? -1 : e >> 16;
-  float out[Body::kOut];
-#pragma unroll
-  for (int k = 0; k < Body::kOut; ++k) out[k] = 0.0f;
-  if (e >= 0) {
-    const int c = e & 0xffff;
-    float o[Body::kOwn];
-#pragma unroll
-    for (int f = 0; f < Body::kOwn; ++f) o[f] = os[f * m + i];
-    float jo[Body::kJ];
-    if (Body::pair(p, o, ls + i * fstride, cs, w, cf, fstride, c, out, jo)) {
-#pragma unroll
-      for (int k = 0; k < Body::kJ; ++k) atomicAdd(&jacc[k * w + c], jo[k]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < Body::kOut; ++k) out[k] = 0.0f;
-    }
-  }
-  // entries are in queue order, so each own slot's lanes are contiguous:
-  // a segmented reduction toward each slot's first lane, in f64, then one
-  // atomic
-  double od[Body::kOut];
-#pragma unroll
-  for (int k = 0; k < Body::kOut; ++k) od[k] = out[k];
-#pragma unroll
-  for (int s = 1; s < 32; s <<= 1) {
-    const int ni = __shfl_down_sync(0xffffffffu, i, s);
-    const bool same = lane + s < 32 && ni == i;
-#pragma unroll
-    for (int k = 0; k < Body::kOut; ++k) {
-      const double v = __shfl_down_sync(0xffffffffu, od[k], s);
-      if (same) od[k] += v;
-    }
-  }
-  const int prev = __shfl_up_sync(0xffffffffu, i, 1);
-  if (i >= 0 && (lane == 0 || prev != i)) {
-#pragma unroll
-    for (int k = 0; k < Body::kOut; ++k)
-      if (od[k] != 0.0) atomicAdd(&oacc[k * m + i], static_cast<float>(od[k]));
-  }
 }
 
 template <class Body>
@@ -183,11 +122,7 @@ __global__ void __launch_bounds__(kWideThreads)
   const int64_t cand0 =
       ((static_cast<int64_t>(z + rz + dz) * ey + (y + ry + dy)) * ex +
        chunk * g_cells) * cap;
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float reach = Body::reach_sq(p);
-  WarpQueue queue{queues + warp * kQueue, 0};
-
   for (int t = threadIdx.x; t < Body::kOwn * m; t += blockDim.x) {
     const int f = t / m;
     os[t] = own[f * own_plane + own0 + (t - f * m)];
@@ -211,29 +146,10 @@ __global__ void __launch_bounds__(kWideThreads)
     oacc[t] = 0.0f;  // oacc and jacc
   __syncthreads();
 
-  // the warp's own slots one after another, all feeding one queue: a slot
-  // meets ~10 pairs an offset, so pops span slots and run at full warps
-  const int tri = rx * cap;  // home: keep cand_flat > own_flat + rx * cap
-  for (int i = warp; i < m; i += kWideWarps) {
-    const float ox = os[i], oy = os[m + i], oz = os[2 * m + i];
-    // the 2 rx + 1 x-cells around the own slot's cell
-    const int gl = i / cap;
-    const int j0 = home ? i + tri + 1 : gl * cap;
-    const int j1 = (gl + 2 * rx + 1) * cap;
-    for (int c0 = j0; c0 < j1; c0 += 32) {
-      const int c = c0 + lane;
-      bool hit = false;
-      if (c < j1) {
-        const float d2 = dist2(cs[c] - ox, cs[w + c] - oy, cs[2 * w + c] - oz);
-        hit = inside(d2, reach);
-      }
-      queue.push(hit, i << 16 | c);
-      if (queue.full())
-        run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc);
-    }
-  }
-  if (queue.n)
-    run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc);
+  // kernel 8 tests every own slot, parked ones too
+  sweep_chunk<Body, kWideWarps, false>(p, os, m, ls, cs, w, cf, fstride, cap,
+                                       rx, home, 0.0f, queues + warp * kQueue,
+                                       oacc, jacc, w);
   __syncthreads();
   // one global atomic per own slot and output: the offsets of a row run in
   // different blocks

@@ -3,7 +3,7 @@
 // Pair bodies shared by the pair-sweep kernels: window_sweep.cu (kernel 1),
 // row_sweep.cu (kernel 7), chunk_sweep.cu (kernel 8) and stencil_sweep.cu
 // (kernel 9), the steps kernels 7 and 8 share, and the warp queue of the
-// distance-first sweeps (kernels 1, 4 and 8).  Each body
+// distance-first sweeps (kernels 1, 4, 7 and 8).  Each body
 // turns one (own, candidate) pair into own-side terms and j-side terms; the
 // kernels differ only in how they enumerate pairs and where they sum the
 // terms.  The math follows the JAX pass bodies term for
@@ -358,7 +358,7 @@ struct D3CoulombBody {
 // ---------------------------------------------------------------------------
 // A warp's queue of pair entries in shared memory, for sweeps that test the
 // distance first and run a body only on the pairs inside it, at full warps
-// (kernels 1, 4 and 8; kernel 7 may take it up).  push() appends the
+// (kernels 1, 4, 7 and 8).  push() appends the
 // lanes' hits in lane order (ballot and popcount prefix); once 32 or more
 // wait, pop() hands each lane one entry, in queue order, and keeps the rest.
 // Entries are non-negative ints; pop() gives -1 to lanes past the end.
@@ -394,7 +394,7 @@ struct WarpQueue {
 // ---------------------------------------------------------------------------
 // Shared by the zm-wide sweeps (row_sweep.cu, chunk_sweep.cu): block shape,
 // shared-memory limit, half-space offset order, the rows' shared stride, the
-// j flush, and kernel 7's warp-per-own-slot step.
+// j flush, and the queued sweep of one staged chunk.
 // ---------------------------------------------------------------------------
 
 constexpr int kWideThreads = 256;
@@ -427,37 +427,125 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Kernel 7's step (kernel 8 tests the distance first instead): one warp
-// pairs own slot o with the staged candidates j0 .. w - 1, lanes striding
-// them: j-side terms go into the shared sums jacc[k * jstride + j]
-// (shared atomics); each own-side sum is reduced over the warp and added
-// with one global atomic into own_out[k * own_plane + own_slot], since a
-// slot's row offsets run in different blocks.
+// One pop of a warp's queue (kernels 7 and 8).  An entry is (own index <<
+// 16) | candidate index into the staged own scalars os [kOwn][m] and rows ls
+// [m][fstride] and candidates cs [kCand][w] and rows cf [w][fstride]; each
+// lane runs the body on its entry and adds the j-side terms to the shared
+// sums jacc[k * jstride + candidate].  Entries come off the queue in push
+// order, so the lanes of one own slot are contiguous: a segmented reduction
+// over the warp sums each slot's own-side terms into its first lane, which
+// adds them to oacc[k][m] (one shared atomic per slot and output instead of
+// one per lane: the lanes of a slot would collide on its address).  The
+// reduction runs in f64: summed in f32 it moved the block engine's Coulomb
+// forces further from the window engine's than the cross-engine bar of
+// chip_smoke.py allows; in f64 they stay inside it, at 2-9% more device
+// time (PERF.md, kernel 8).
 template <class Body>
-__device__ __forceinline__ void warp_own_slot(
-    const Params& p, const float* o, const float* lrow, const float* cs, int w,
-    const float* cf, int fstride, int j0, float* jacc, int jstride,
-    float* own_out, int64_t own_plane, int64_t own_slot) {
+__device__ __forceinline__ void run_queued(const Params& p, const float* os,
+                                           int m, const float* ls,
+                                           const float* cs, int w,
+                                           const float* cf, int fstride,
+                                           WarpQueue& queue, float* oacc,
+                                           float* jacc, int jstride) {
   const int lane = threadIdx.x & 31;
-  float acc[Body::kOut];
+  const int e = queue.pop();
+  const int i = e < 0 ? -1 : e >> 16;
+  float out[Body::kOut];
 #pragma unroll
-  for (int k = 0; k < Body::kOut; ++k) acc[k] = 0.0f;
-  for (int j = j0 + lane; j < w; j += 32) {
-    float out[Body::kOut], jo[Body::kJ];
-    if (!Body::pair(p, o, lrow, cs, w, cf, fstride, j, out, jo)) continue;
+  for (int k = 0; k < Body::kOut; ++k) out[k] = 0.0f;
+  if (e >= 0) {
+    const int c = e & 0xffff;
+    float o[Body::kOwn];
 #pragma unroll
-    for (int k = 0; k < Body::kOut; ++k) acc[k] += out[k];
+    for (int f = 0; f < Body::kOwn; ++f) o[f] = os[f * m + i];
+    float jo[Body::kJ];
+    if (Body::pair(p, o, ls + i * fstride, cs, w, cf, fstride, c, out, jo)) {
 #pragma unroll
-    for (int k = 0; k < Body::kJ; ++k) atomicAdd(&jacc[k * jstride + j], jo[k]);
+      for (int k = 0; k < Body::kJ; ++k)
+        atomicAdd(&jacc[k * jstride + c], jo[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < Body::kOut; ++k) out[k] = 0.0f;
+    }
   }
+  // entries are in queue order, so each own slot's lanes are contiguous:
+  // a segmented reduction toward each slot's first lane, in f64, then one
+  // atomic
+  double od[Body::kOut];
 #pragma unroll
-  for (int k = 0; k < Body::kOut; ++k) {
-    float v = acc[k];
-    for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-    if (lane == 0 && v != 0.0f) atomicAdd(&own_out[k * own_plane + own_slot], v);
+  for (int k = 0; k < Body::kOut; ++k) od[k] = out[k];
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int ni = __shfl_down_sync(0xffffffffu, i, s);
+    const bool same = lane + s < 32 && ni == i;
+#pragma unroll
+    for (int k = 0; k < Body::kOut; ++k) {
+      const double v = __shfl_down_sync(0xffffffffu, od[k], s);
+      if (same) od[k] += v;
+    }
+  }
+  const int prev = __shfl_up_sync(0xffffffffu, i, 1);
+  if (i >= 0 && (lane == 0 || prev != i)) {
+#pragma unroll
+    for (int k = 0; k < Body::kOut; ++k)
+      if (od[k] != 0.0) atomicAdd(&oacc[k * m + i], static_cast<float>(od[k]));
   }
 }
 
+// The distance-first sweep of one staged chunk (kernels 7 and 8): m own
+// slots of m / cap consecutive own x-cells against a merged candidate
+// window of w = m + 2 * rx * cap slots (extended x-cells from the chunk's
+// first own cell minus rx).  The block's kWarps warps take the own slots in
+// turn; a warp tests its slot against the 2 rx + 1 x-cells around the slot's
+// cell (window cells gl .. gl + 2 rx for own cell gl), 32 candidates at a
+// time, r^2 rounded as the plain version rounds it against Body::reach_sq;
+// the home row keeps candidates past the own slot (flat window index >
+// own index + rx * cap: the own cell's later slots and the rx cells to its
+// right).  Pairs further than rx cells apart in x lie beyond the cutoff.
+// The hits of all of a warp's slots feed one queue (a slot meets only ~10
+// pairs an offset), and whenever 32 wait each lane runs the body on one of
+// them; the queue is drained before returning.  With kParked, an own slot
+// with |px| >= parked is skipped without a test: the wrapper passes
+// DISPLACE / 2 (grid.py: empty slots and padding atoms lie beyond it) only
+// where such a slot can meet no candidate in reach, and +inf otherwise.
+template <class Body, int kWarps, bool kParked>
+__device__ __forceinline__ void sweep_chunk(const Params& p, const float* os,
+                                            int m, const float* ls,
+                                            const float* cs, int w,
+                                            const float* cf, int fstride,
+                                            int cap, int rx, bool home,
+                                            float parked, int* qbuf,
+                                            float* oacc, float* jacc,
+                                            int jstride) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float reach = Body::reach_sq(p);
+  const int tri = rx * cap;  // home: keep cand_flat > own_flat + rx * cap
+  WarpQueue queue{qbuf, 0};
+  for (int i = warp; i < m; i += kWarps) {
+    const float ox = os[i];
+    if (kParked && !(fabsf(ox) < parked)) continue;  // warp-uniform
+    const float oy = os[m + i], oz = os[2 * m + i];
+    const int gl = i / cap;
+    const int j0 = home ? i + tri + 1 : gl * cap;
+    const int j1 = (gl + 2 * rx + 1) * cap;
+    for (int c0 = j0; c0 < j1; c0 += 32) {
+      const int c = c0 + lane;
+      bool hit = false;
+      if (c < j1) {
+        const float d2 = dist2(cs[c] - ox, cs[w + c] - oy, cs[2 * w + c] - oz);
+        hit = inside(d2, reach);
+      }
+      queue.push(hit, i << 16 | c);
+      if (queue.full())
+        run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc,
+                         jstride);
+    }
+  }
+  if (queue.n)
+    run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc,
+                     jstride);
+}
 // After a barrier, adds the block's shared j sums jacc[kJ][n] into
 // j_out[k * plane + base + t]: one global atomic per nonzero slot and output.
 template <int kJ>

@@ -42,9 +42,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nv_window_sweep": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] * 9
                        + [_I, _I, _P],
-    "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
+    "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 8 + [_P],
     "nv_chunk_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 9 + [_P],
-    "nv_stencil_sweep": [_I] + [_P] * 3 + [_I] * 9 + [_F] * 3 + [_P],
+    "nv_stencil_sweep": [_I] + [_P] * 3 + [_I] * 8 + [_F] * 3 + [_P],
     "nv_windowed_gather_grad": [_P] * 6 + [_I] * 4 + [_P],
     "nv_windowed_spread": [_P] * 3 + [_I] * 4 + [_P],
     "nv_dense_pairs": [_I] + [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I] * 3

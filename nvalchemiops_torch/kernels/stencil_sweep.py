@@ -18,8 +18,16 @@ body         own / candidate features  outputs
 ``coulomb``  px py pz q                e fx fy fz
 ===========  ========================  =============
 
-Returns ``out [n_out, Cz, W0]``; :func:`stencil.own_interior` strips the
-halo columns.
+Returns ``out [n_out, Cz, W0]``, zero on the halo columns;
+:func:`stencil.own_interior` strips them.
+
+The kernel maps threads over the interior voxels only: a thread holds a
+segment of consecutive own voxels of one (y, x) column in registers (the
+last segment of a column ragged), streams each (dy, dx)'s candidate rows
+of its column once and applies each to the own voxels within Rz of it; the
+(dy, dx) pairs are split over the warps of a block (32 columns each),
+whose sums are added in a fixed order (equal bits run to run).  ``PLAN``
+holds each body's segment and warps.
 """
 
 from __future__ import annotations
@@ -32,10 +40,19 @@ from nvalchemiops_torch.kernels.build import (
 )
 from nvalchemiops_torch.kernels.window_sweep import BODY_FNS, SweepParams
 
-__all__ = ["BODIES", "full_offsets", "stencil_sweep", "stencil_sweep_plain"]
+__all__ = ["BODIES", "PLAN", "full_offsets", "stencil_slices",
+           "stencil_sweep", "stencil_sweep_plain"]
 
 #: body name -> (C body id, n_feat, n_out)
 BODIES = {"cn": (0, 4, 1), "chain": (1, 5, 3), "coulomb": (2, 4, 4)}
+
+#: body -> (own voxels of a z column a thread holds, most warps a block):
+#: the segment is the kernel's kTz (built for 2 and 4), the warps slices of
+#: the (dy, dx) offset pairs (at most kSlices = 16).  Read on the 48^3-voxel
+#: crystal at radius 3 (PERF.md, kernel 9): CN and Coulomb fastest at 4
+#: voxels and 16 warps, chain at 2 voxels and 12 warps (at 4 it needs 87
+#: registers).
+PLAN = {"cn": (4, 16), "chain": (2, 12), "coulomb": (4, 16)}
 
 
 def full_offsets(radius):
@@ -44,6 +61,13 @@ def full_offsets(radius):
     return [(dz, dy, dx) for dz in range(-rz, rz + 1)
             for dy in range(-ry, ry + 1) for dx in range(-rx, rx + 1)
             if (dz, dy, dx) != (0, 0, 0)]
+
+
+def stencil_slices(body: str, radius) -> int:
+    """Warps a block of the kernel has for ``body``: one a slice of the
+    (dy, dx) offset pairs, at most the body's ``PLAN`` count."""
+    _, ry, rx = radius
+    return min((2 * ry + 1) * (2 * rx + 1), PLAN[body][1])
 
 
 def _geometry(body, dims, radius, ext, own):
@@ -72,19 +96,20 @@ def stencil_sweep(body: str, dims, radius, ext, own, params: SweepParams):
     """Run one body over every (own voxel, offset) pair: CUDA kernel on a
     CUDA device, the plain version (:func:`stencil_sweep_plain`) on the
     CPU."""
-    ex, pad = _geometry(body, dims, radius, ext, own)
+    _geometry(body, dims, radius, ext, own)
     if own.device.type == "cpu":
         return stencil_sweep_plain(body, dims, radius, ext, own, params)
     check_cuda_tensors("stencil_sweep", ext, own)
     body_id, _, n_out = BODIES[body]
-    cz, w0 = own.shape[1:]
-    out = torch.empty((n_out, cz, w0), dtype=own.dtype, device=own.device)
+    cz, cy, cx = dims
+    out = torch.zeros((n_out, cz, own.shape[2]), dtype=own.dtype,
+                      device=own.device)
     rz, ry, rx = radius
     p = params
     err = load_library().nv_stencil_sweep(
-        body_id, ext.data_ptr(), own.data_ptr(), out.data_ptr(), cz, w0,
-        ext.shape[1], ext.shape[2], rz, ry, rx, ex, pad, p.cutoff * p.cutoff,
-        p.k1, p.alpha, current_stream(own))
+        body_id, ext.data_ptr(), own.data_ptr(), out.data_ptr(), cz, cy, cx,
+        rz, ry, rx, PLAN[body][0], stencil_slices(body, radius),
+        p.cutoff * p.cutoff, p.k1, p.alpha, current_stream(own))
     check_launch(f"stencil_sweep[{body}]", err)
     launch_counts[f"stencil_sweep_{body}"] += 1
     return out

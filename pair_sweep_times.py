@@ -5,12 +5,16 @@ Times, on the 109,744-atom CsCl main path of ``chip_smoke.py`` (16^3
 cells, radius 1, cap 40, 9.6 A, 128^3 mesh): kernel 1 (``window_sweep``:
 CN, D3 direct, chain, Coulomb and the fused D3 + Coulomb body, separate
 and combined), kernel 8 (``chunk_sweep``: the same five bodies of the
-block engines, the fused one with separate force channels) and kernel 2
-(``windowed_gather_grad``, W = 12); kernel 2 again on the W = 20 windows
-of the 8 x 2,000-atom windowed PME batch at 64^3; and kernel 4
+block engines, the fused one with separate force channels), kernel 7
+(``row_sweep``: CN, D3 direct and chain of ``grid_dftd3(engine="pallas")``)
+and kernel 2 (``windowed_gather_grad``, W = 12); kernel 2 again on the W =
+20 windows of the 8 x 2,000-atom windowed PME batch at 64^3; kernel 4
 (``dense_pairs``: CN, direct, chain) on the batched D3 systems of
 ``chip_smoke.d3_batch_system`` (128 x 2,000 atoms at 21.2 A in 41.2 A
-boxes, 4 image combos, and at 9 A in 27 A boxes, minimum image).  Each
+boxes, 4 image combos, and at 9 A in 27 A boxes, minimum image); and
+kernel 9 (``stencil_sweep``: CN and chain of the hybrid D3 engine,
+Coulomb of ``stencil_coulomb_energy_forces``) on the 110,592-atom crystal
+of ``chip_smoke.hybrid_system`` (48^3 voxels, radius 3, 9 A).  Each
 kernel call is captured from the public entry points, then replayed
 ``--reps`` times under ``torch.profiler`` (``chip_smoke.device_time_ms``:
 the kernel sum per call, the wrapper's memsets included).
@@ -19,6 +23,9 @@ profiler runs that lost their device events.  ``--engine-errors`` also
 prints the block engines' f32 forces against the window engine's on the
 main path (max and RMS relative, as ``chip_smoke.py``'s cross-engine bars
 read them): the numerics of a kernel 8 change, parent against change.
+``--segments 2,4`` also times kernel 9 with each of those own voxels a
+thread for every body (``kernels.stencil_sweep.PLAN``; the change tree
+only).
 
 ``--tree DIR`` imports ``nvalchemiops_torch`` from another checkout (for
 instance the parent commit, unpacked with ``git archive`` into a directory
@@ -63,11 +70,11 @@ def window_key(body, radius, own, cand, params, *rest):
 
 
 def main_path_calls(dev):
-    """Kernel 1's and kernel 8's calls on the 109,744-atom main path (with
-    the fused D3 + Coulomb engines, whose Coulomb cutoff is the D3 cutoff)
-    and kernel 2's call of its PME force evaluation; also the block
-    engines' f32 forces against the window engine's, as (max rel, RMS
-    rel)."""
+    """Kernel 1's, kernel 8's and kernel 7's calls on the 109,744-atom main
+    path (with the fused D3 + Coulomb engines, whose Coulomb cutoff is the
+    D3 cutoff) and kernel 2's call of its PME force evaluation; also the
+    block engines' f32 forces against the window engine's, as (max rel,
+    RMS rel)."""
     from nvalchemiops_torch import composite, grid, spline_windowed
     from nvalchemiops_torch.interactions.dispersion import grid_d3
     from nvalchemiops_torch.interactions.electrostatics import pme
@@ -94,8 +101,11 @@ def main_path_calls(dev):
              for m in (grid, grid_d3)]
     undo.append(record(spline_windowed, "gather_grad_planes", gather_key,
                        calls))
+    undo.append(record(grid_d3, "row_sweep",
+                       lambda body, *a: f"row_sweep[{body}]", calls))
     try:
         _, f_d3, _ = grid_d3.grid_dftd3(g, *d3)
+        grid_d3.grid_dftd3(g, *d3, engine="pallas")
         _, f_c = grid.grid_coulomb_energy_forces(g, q, cutoff, alpha)
         for combine in (False, True):
             grid_d3.grid_dftd3_coulomb(
@@ -152,6 +162,39 @@ def windowed_batch_calls(dev):
     return calls
 
 
+def crystal_calls(dev):
+    """Kernel 9's calls on the 110,592-atom crystal (``chip_smoke.
+    run_stencil``'s system): CN and chain of ``grid_dftd3(stencil=...)``,
+    Coulomb of ``stencil_coulomb_energy_forces``."""
+    from nvalchemiops_torch import composite, stencil
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    cfg = chip_smoke.HYBRID
+    pos, cell, numbers, charges, tables = chip_smoke.hybrid_system(
+        cfg["n_rep"])
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    pos, cell, q = on_card(pos), on_card(cell), on_card(charges)
+    tables = tuple(on_card(t) for t in tables)
+    cutoff = cfg["cutoff"]
+    g = composite.build_grid(pos, cell, cutoff)
+    sg = stencil.build_stencil_auto(pos, cell, np.array([True] * 3), cutoff)
+    calls = {}
+    undo = record(stencil, "stencil_sweep",
+                  lambda body, *a: f"stencil_sweep[{body}]", calls)
+    try:
+        grid_d3.grid_dftd3(g, numbers, *tables, cutoff,
+                           *chip_smoke.D3_PARAMS, stencil=sg)
+        stencil.stencil_coulomb_energy_forces(sg, q, cutoff, cfg["alpha"])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return calls, (f"{pos.shape[0]} atoms, stencil {tuple(sg.dims)} radius "
+                   f"{tuple(sg.radius)}")
+
+
 def dense_calls(dev):
     """Kernel 4's calls on the 128 x 2,000-atom batches at 21.2 A and 9 A."""
     from nvalchemiops_torch.interactions.dispersion import dense_d3
@@ -187,6 +230,9 @@ def main():
     ap.add_argument("--engine-errors", action="store_true",
                     help="print the block engines' forces against the "
                          "window engine's")
+    ap.add_argument("--segments", default="",
+                    help="comma-separated own voxels a thread for kernel 9 "
+                         "timings, every body (change tree only)")
     ap.add_argument("--profiler-check", type=int, default=0, metavar="N",
                     help="first time one call N times and count the "
                          "profiler runs that lost their device events")
@@ -214,7 +260,8 @@ def main():
         print(json.dumps({"tree": tree, "engine_errors": engine_errors}),
               flush=True)
     batch = windowed_batch_calls(dev)
-    calls = {**main, **batch, **dense_calls(dev)}
+    crystal, crystal_label = crystal_calls(dev)
+    calls = {**main, **batch, **dense_calls(dev), **crystal}
     if args.profiler_check:
         fn, a, kw = calls["windowed_gather_grad W=12"]
         lost = len(chip_smoke.LOST_PROFILES)
@@ -226,9 +273,27 @@ def main():
     for key, (fn, a, kw) in sorted(calls.items()):
         ms = chip_smoke.device_time_ms(lambda: fn(*a, **kw), reps=args.reps)
         shape = ("8 x 2,000 atoms, 64^3, W = 20" if key in batch
-                 else "128 x 2,000" if key.startswith("dense") else label)
+                 else "128 x 2,000" if key.startswith("dense")
+                 else crystal_label if key in crystal else label)
         print(json.dumps({"tree": tree, "kernel": key, "device_ms": ms,
                           "reps": args.reps, "shape": shape}), flush=True)
+    if args.segments:
+        from nvalchemiops_torch.kernels import stencil_sweep
+
+        default = dict(stencil_sweep.PLAN)
+        try:
+            for tz in (int(t) for t in args.segments.split(",")):
+                stencil_sweep.PLAN = {b: (tz, w) for b, (_, w)
+                                      in default.items()}
+                for key, (fn, a, kw) in sorted(crystal.items()):
+                    ms = chip_smoke.device_time_ms(lambda: fn(*a, **kw),
+                                                   reps=args.reps)
+                    print(json.dumps({"tree": tree, "kernel": key,
+                                      "segment": tz, "device_ms": ms,
+                                      "reps": args.reps,
+                                      "shape": crystal_label}), flush=True)
+        finally:
+            stencil_sweep.PLAN = default
     print(json.dumps({"tree": tree,
                       "lost_profiles": chip_smoke.LOST_PROFILES}), flush=True)
 

@@ -803,3 +803,95 @@ def test_distance_first_chunk_kernel_matches_plain(cuda, case):
     for width in (1, g.dims[2]):
         _replay({k: (args[:4] + (width,) + args[5:], kwargs)
                  for k, (args, kwargs) in seen.items()})
+
+
+@pytest.mark.parametrize("case", ["full cell", "empty cells",
+                                  "zmax-16 tables in groups", "main path"])
+def test_row_kernel_matches_plain(cuda, case):
+    """Kernel 7 against its plain version on its three bodies: a full cell,
+    empty cells (parked own slots skipped), zmax-16 tables (zm = 85) whose
+    rows are staged in groups of cells, and the 109,744-atom main path
+    (16 cells a row, cap 40, zm = 15: whole rows staged)."""
+    from nvalchemiops_torch import composite, grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.kernels import row_sweep as rs
+
+    if case == "main path":
+        (pos, cell, numbers, _, rcov, r4r2, cna,
+         c6) = composite.build_system(38)
+        numbers, *tab = grid_d3.compact_d3_elements(numbers, rcov, r4r2, c6,
+                                                    cna)
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+        cell = torch.as_tensor(cell, dtype=torch.float32, device=cuda)
+        cutoff = composite.CUTOFF
+        dims, radius, cap, origin = grid.choose_grid_geometry(
+            pos, cell, np.array([True] * 3), cutoff)
+        g = grid.build_atom_grid(pos, cell, [True] * 3, dims, radius, cap,
+                                 origin=origin)
+        assert g.dims == (16, 16, 16) and g.cap == 40
+        params = (composite.D3_A1, composite.D3_A2, composite.D3_S8)
+    elif case.startswith("zmax"):
+        g, numbers, _, tab, cutoff = _grid_case(cuda, 14, 16)
+        params = (0.42, 4.1, 1.7)
+    else:
+        cutoff = 5.0
+        g, numbers, _, tab = _window_case(
+            cuda, 37 if case == "full cell" else 38, 3000, 26.0, cutoff,
+            full_cell=case == "full cell", half_empty=case == "empty cells")
+        params = (0.42, 4.1, 1.7)
+    seen = _record([(grid_d3, "row_sweep")], lambda: grid_d3.grid_dftd3(
+        g, numbers, *tab, cutoff, *params, engine="pallas"))
+    assert sorted(seen) == [("row_sweep", b)
+                            for b in ("chain", "cn", "d3_direct")]
+    assert rs.skips_parked(g.dims, g.radius)
+    args, kwargs = seen[("row_sweep", "d3_direct")]
+    nf = kwargs["lf"].shape[-1]
+    g_cells = rs.row_group_cells("d3_direct", g.dims[2], g.cap, g.radius[2],
+                                 nf)
+    if case.startswith("zmax"):
+        assert nf == 170 and g_cells < g.dims[2]
+    if case == "main path":
+        assert g_cells == g.dims[2]
+    _replay(seen)
+
+
+@pytest.mark.parametrize("counts,radius,cutoff", [
+    ((7, 5, 7), (1, 1, 1), 2.9), ((9, 8, 11), (3, 3, 3), 8.5)])
+def test_stencil_kernel_segments_match_plain(cuda, counts, radius, cutoff):
+    """Kernel 9 on its three bodies against its plain version, with Cz not
+    a multiple of the segment (a ragged last segment) at radius 1 and 3;
+    two launches give equal bits."""
+    from nvalchemiops_torch import stencil
+    from nvalchemiops_torch.kernels import stencil_sweep as st
+
+    rng = np.random.default_rng(sum(counts))
+    nx, ny, nz = counts
+    lat = np.stack(np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                               indexing="ij"), -1).reshape(-1, 3)
+    pos = torch.as_tensor((lat + 0.5) * 3.0
+                          + rng.uniform(-0.2, 0.2, lat.shape),
+                          dtype=torch.float32, device=cuda)
+    cell = torch.diag(torch.tensor([nx * 3.0, ny * 3.0, nz * 3.0],
+                                   device=cuda))
+    sg = stencil.build_stencil_grid(pos, cell, [True] * 3, (nz, ny, nx),
+                                    radius)
+    assert int(sg.counts_max) == 1
+    assert all(nz % segment for segment, _ in st.PLAN.values())
+    n = pos.shape[0]
+    rcov, decn, q = (torch.as_tensor(v, dtype=torch.float32, device=cuda)
+                     for v in (rng.uniform(0.6, 1.4, n), rng.normal(size=n),
+                               rng.normal(size=n)))
+
+    def run():
+        stencil.stencil_coordination_numbers(sg, rcov, cutoff)
+        stencil.stencil_cn_chain_forces(sg, rcov, decn, cutoff)
+        stencil.stencil_coulomb_energy_forces(sg, q, cutoff, 0.35)
+
+    seen = _record([(stencil, "stencil_sweep")], run)
+    assert sorted(b for _, b in seen) == ["chain", "cn", "coulomb"]
+    _replay(seen)
+    for (_, body), (args, kwargs) in seen.items():
+        first = st.stencil_sweep(body, *args, **kwargs)
+        second = st.stencil_sweep(body, *args, **kwargs)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
