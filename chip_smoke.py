@@ -20,7 +20,8 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
    time, bound and library call on the composite and the main path); two
    launches of the windowed spread and of the windowed gather on the main
    path's inputs must agree bit for bit (and in phase 9 two of the dense
-   spread, on the batch and the fallback);
+   spread, on the batch and the fallback, and two of the dense gather, on
+   the batch, the fallback and the composite);
 6. batched D3, dense: ``batch_dftd3`` on 128 x 2,000 atoms in 41.2 A boxes
    at 21.2 A (4 image combos) and in 27 A boxes at 9 A (minimum image),
    the systems of the JAX package's batched D3 benchmark; the router must
@@ -39,9 +40,9 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
 9. kernel vs plain for the kernels of phases 6-8, as in phase 5: the 9 A
    batch (with bounds), the grid branch (cap 104) and the windowed batch
    (W = 20) right after their runs, the 21.2 A batch, the dense PME, the
-   composite's dense spread (B = 1, 32^3) and the 128^3 fallback with
-   bounds; the dense spread of the batch and of the fallback also under
-   other slab plans;
+   composite's dense spread and gather (B = 1, 32^3) and the 128^3
+   fallback with bounds; the dense spread of the batch and of the fallback
+   also under other slab plans;
 10. the 1,024-atom composite on the other grid engines: ``grid_dftd3``
     on the super-chunk (``"block"``, kernel 8) and per-row (``"pallas"``,
     kernel 7) sweeps, ``grid_coulomb_energy_forces(engine="block")`` and
@@ -64,7 +65,8 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
 path.  Each replay of kernels 1, 2, 4, 7 and 8 at 109,744 atoms, at 128 x
-2,000 and on the W = 20 windows, and of kernel 9 on the crystal, prints its
+2,000 and on the W = 20 windows, of kernel 9 on the crystal and of kernel
+6 on the batched PME, the 128^3 fallback and the composite prints its
 device time beside the parent tree's (``PARENT_DEVICE_MS``).
 
 Each phase sets the launch counts to 0 just before it drives its path and
@@ -153,7 +155,7 @@ HYBRID = dict(n_rep=48, a=3.0, jitter=0.2, cutoff=9.0, alpha=0.35, zmax=16,
 # distance-first redesign (the parent tree's kernels), measured with
 # pair_sweep_times.py on an NVIDIA H100 80GB HBM3 at 700.00 W: kernel 1 at
 # 109,744 atoms, kernel 4 at 128 x 2,000 atoms; likewise kernels 8 and 2,
-# and kernels 7 and 9, before their redesign (PERF.md)
+# kernels 7 and 9, and kernel 6, before their redesign (PERF.md)
 PARENT_DEVICE_MS = {
     "window_sweep[cn]": 0.307, "window_sweep[d3_direct]": 1.789,
     "window_sweep[chain]": 0.515, "window_sweep[coulomb]": 0.501,
@@ -174,6 +176,11 @@ PARENT_DEVICE_MS = {
     "row_sweep[chain]": 0.524,
     "stencil_sweep[cn]": 0.1033, "stencil_sweep[chain]": 0.1403,
     "stencil_sweep[coulomb]": 0.1335,
+    # kernel 6 on the batched dense PME, the 128^3 fallback and the
+    # composite on the dense engine
+    "separable_gather 64 x 2000, mesh 32x32x32": 0.0667,
+    "separable_gather 1 x 109744, mesh 128x128x128": 0.0300,
+    "separable_gather 1 x 1024, mesh 32x32x32": 0.01138,
 }
 
 KERNEL_SOURCES = {
@@ -461,6 +468,10 @@ def parent_key(key, args, ctx):
         return f"{key} {ctx['cutoff']} A"
     if key == "windowed_gather_grad":
         return f"{key} W={args[2]}"
+    if key == "separable_gather":
+        mesh, w = args[0], args[2]
+        return (f"{key} {w.shape[0]} x {w.shape[1]}, mesh "
+                f"{'x'.join(str(d) for d in mesh.shape[1:])}")
     return key
 
 
@@ -554,10 +565,13 @@ def compare_kernels(calls, label, ctx=None):
 
 def check_deterministic(calls, label, key="windowed_spread"):
     """Two launches of a kernel on the captured inputs give the same bits:
-    the windowed spread and gather have one writer per output adding in a
-    fixed order, the dense spread sums in fixed point, and the voxel
-    stencil writes each output once, its slices added in a fixed order."""
-    from nvalchemiops_torch.kernels.separable_spline import separable_spread
+    the windowed spread and gather and the dense gather have one writer
+    per output adding in a fixed order, the dense spread sums in fixed
+    point, and the voxel stencil writes each output once, its slices added
+    in a fixed order."""
+    from nvalchemiops_torch.kernels.separable_spline import (
+        separable_gather, separable_spread,
+    )
     from nvalchemiops_torch.kernels.stencil_sweep import stencil_sweep
     from nvalchemiops_torch.kernels.windowed_gather import (
         gather_grad_planes, spread_windows,
@@ -566,6 +580,7 @@ def check_deterministic(calls, label, key="windowed_spread"):
     kern = {"windowed_spread": spread_windows,
             "windowed_gather_grad": gather_grad_planes,
             "separable_spread": separable_spread,
+            "separable_gather": separable_gather,
             "stencil_sweep": stencil_sweep}[key.split("[")[0]]
     args, kwargs = calls[key]
     first = kern(*args, **kwargs)
@@ -951,8 +966,7 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
             composite.ALPHA, composite.MESH, compute_forces=True,
             engine="dense"), dense_keys, forbid=win_keys)
     capture.restore()
-    composite_calls = {k: v for k, v in capture.calls.items()
-                       if k == "separable_spread"}
+    composite_calls = capture.calls
     forces = {"pme": f_c[0].double().cpu().numpy()}
     rel_c = composite.relative_errors(forces, ref)["pme"]
     rms_c = composite.rms_errors(forces, ref)["pme"]
@@ -1006,9 +1020,11 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
     if counts_w["windowed_spread"] != bw:
         raise AssertionError(f"windowed batch: {counts_w}")
     check_forces("windowed batch", f_w8)
-    ctx = {"atoms": b * n, "order": 4}
-    ctx_fb = {"atoms": pos_f.shape[0], "order": 4}
-    ctx_c = {"atoms": pos_c.shape[0], "order": 4}
+    # the gather's parent tree times (PARENT_DEVICE_MS) beside its own
+    gather = ("separable_gather",)
+    ctx = {"atoms": b * n, "order": 4, "parent": gather}
+    ctx_fb = {"atoms": pos_f.shape[0], "order": 4, "parent": gather}
+    ctx_c = {"atoms": pos_c.shape[0], "order": 4, "parent": gather}
     return (dense_calls, counts, ctx, fallback_calls, ctx_fb,
             (composite_calls, ctx_c))
 
@@ -1457,6 +1473,11 @@ def main():
                         "separable_spread")
     check_deterministic(fb_calls, "PME 128^3 fallback dense spread",
                         "separable_spread")
+    for calls, label in ((pme_calls, "batched PME"),
+                         (fb_calls, "PME 128^3 fallback"),
+                         (comp_calls, "composite PME (B = 1)")):
+        check_deterministic(calls, f"{label} dense gather",
+                            "separable_gather")
     spread_plan_variants(pme_calls, f"batched PME {PME_BATCH['b']} x "
                          f"{PME_BATCH['n']}")
     spread_plan_variants(fb_calls, f"PME fallback {n} atoms at 128^3")

@@ -28,7 +28,12 @@
 // (atom, point) into device memory with a float atomic is bound instead by
 // the atomics' round trips to L2 (~65 G/s measured, 10-20x the byte
 // bound); one that adds into shared memory by its atomics there and by
-// the scan of the atoms each slab's block makes.
+// the scan of the atoms each slab's block makes.  The gather reads order^3
+// mesh points an atom, 16 z-rows of 4 points at order 4, scattered over
+// its system's mesh: read through L2 they cost a 32-byte sector or two
+// each, ~5x the bytes of the stencil when the atoms come in random order,
+// and a gather that keeps too few stencil bytes in flight is bound by the
+// latency of its loads instead.
 //
 // Design.  Spread: owner computes, with no global atomics.  The mesh is cut
 // into slabs of whole x-planes (of y-rows where one plane does not fit),
@@ -53,14 +58,36 @@
 // f32 when the slab is written.  (Thread-block clusters that shared the
 // scan through distributed shared memory, float atomics, and warps that
 // spread one atom's points across lanes measured slower; PERF.md.)
-// Gather: one thread per atom walks its order^3 points, summing z-rows
-// first (value and z-derivative), then y, then x, as separable partial
-// sums; each output has one writer, so the gather is deterministic.
+// Gather: the order is a template argument, so every loop unrolls and a
+// thread loads its share of an atom's stencil once, 16-byte rows at order
+// 4; it sums its rows as separable partial sums (z first: r and r_dz; then
+// y; then x) and each output is written once in a fixed order, so two
+// launches give the same bits.  Two paths, chosen by
+// kernels/separable_spline.py's gather_plan from the mesh's size against
+// shared memory and the atoms a block gets against the points it copies:
+// - staged: block (system, slice) has the TMA copy the system's mesh into
+//   shared memory in one bulk transfer behind an mbarrier while its
+//   threads load their atoms' stencils, one atom a thread, then sums the
+//   rows from there: HBM reads each mesh once and the 16 row reads of an
+//   atom never leave the SM.  The slices fill the SMs (64 systems: two
+//   each, 1,000 atoms a block).  Every block holds a whole mesh, so this
+//   takes meshes up to ~38^3.
+// - L2: rows read from device memory through L1/L2: one lane an atom, or,
+//   for a batch too small to fill the card that way, a group of 16 lanes
+//   (order 4) an atom, one (x, y) row a lane, summed by a fixed xor
+//   butterfly and written by lanes 0-3.  The 128^3 fallback's atoms come
+//   in lattice order, so their rows mostly hit L1.
+// On the staged path one thread an atom read faster on an H100 (PERF.md)
+// than groups of 16 or 4 lanes an atom fed a pass ahead, than a copy by
+// 4-byte cp.async into rows padded against bank conflicts, and than
+// blocks of one system's atoms reading their rows through L1.
 //
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
 // tensors allocated by the Python wrapper (gidx int32, the rest float32).
 // The spread also takes xbase [B, N] = gidx[:, :, 0, 0] contiguous and
-// writes every mesh point.  Returns the cudaError_t of the launch.
+// writes every mesh point; the gather takes gather_plan's lanes an atom
+// and slices a system (0: the L2 path).  Returns the cudaError_t of the
+// launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +101,10 @@ constexpr int kThreads = 1024;        // spread block (spread_plan's threads)
 constexpr int kScan = 8;              // atoms a thread tests per round
 constexpr int kList = 8192;           // (atom, x-point) pairs a round holds
 constexpr int kSmemLimit = 232448;    // shared memory a block may use
+constexpr int kGatherThreads = 1024;  // staged gather block (gather_plan)
+constexpr int kGatherL2Threads = 256; // L2 gather block
+constexpr int kGatherStaticSmem = 16; // the staged block's barrier
+constexpr unsigned kBulkBytes = 32768; // bytes of one bulk copy
 constexpr unsigned kFull = 0xffffffffu;
 
 // dynamic shared memory of a spread block: the slab's low and high words
@@ -274,48 +305,264 @@ cudaError_t spread_launch(const int* gidx, const int* xbase, const float* w,
   return cudaGetLastError();
 }
 
-template <bool kGrad>
-__global__ void __launch_bounds__(256)
-    gather_kernel(const float* __restrict__ mesh, const int* __restrict__ gidx,
-                  const float* __restrict__ w, const float* __restrict__ dw,
-                  float* __restrict__ val, float* __restrict__ grad,
-                  int64_t n_atoms, int N, int order, int nx, int ny, int nz) {
-  const int64_t atom = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (atom >= n_atoms) return;
-  const int* g = gidx + atom * 3 * order;
-  const float* ww = w + atom * 3 * order;
-  const float* dd = kGrad ? dw + atom * 3 * order : nullptr;
-  const float* m = mesh + (atom / N) * static_cast<int64_t>(nx) * ny * nz;
-  float v = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
-  for (int a = 0; a < order; ++a) {
-    const float* plane = m + static_cast<int64_t>(g[a]) * ny * nz;
-    float qv = 0.0f, qdy = 0.0f, qdz = 0.0f;
-    for (int b = 0; b < order; ++b) {
-      const float* row = plane + static_cast<int64_t>(g[order + b]) * nz;
-      float r = 0.0f, rdz = 0.0f;
-      for (int c = 0; c < order; ++c) {
-        const float x = __ldg(row + g[2 * order + c]);
-        r += ww[2 * order + c] * x;
-        if (kGrad) rdz += dd[2 * order + c] * x;
+// ---- gather ---------------------------------------------------------------
+
+// An atom's order^2 stencil rows (a, b) over a group of L lanes: L = 1, one
+// lane all rows; L = kRowLanes<O>, lane j row (j / O, j % O) (order^2
+// rounded up to a power of two, so the groups tile a warp and the
+// butterfly is a fixed xor pattern).  NA x and NB y entries a lane.
+template <int O>
+constexpr int kRowLanes = O == 1 ? 1 : (O == 2 ? 4 : 16);
+
+template <int O, int L, bool kGrad>
+struct LaneStencil {
+  static_assert(L == 1 || L == kRowLanes<O>, "lanes an atom: 1 or order^2");
+  static constexpr int NA = L == 1 ? O : 1, NB = NA;
+  int gx[NA] = {}, gy[NB] = {}, gz[O] = {};
+  float wx[NA] = {}, wy[NB] = {}, wz[O] = {};
+  float dx[NA] = {}, dy[NB] = {}, dz[O] = {};
+  bool on = false;  // a live atom and a lane with a row
+};
+
+// N entries of one axis from entry `first` (N = O: the whole axis)
+template <int O, int N, typename T>
+__device__ inline void load_part(const T* p, int first, T (&v)[N]) {
+  if constexpr (N == O)
+    load_axis<O>(p, v);
+  else
+    v[0] = __ldg(p + first);
+}
+
+template <int O, int L, bool kGrad>
+__device__ inline LaneStencil<O, L, kGrad> load_lane(
+    const int* __restrict__ gidx, const float* __restrict__ w,
+    const float* __restrict__ dw, int64_t atom, bool live, int j) {
+  using S = LaneStencil<O, L, kGrad>;
+  S s;
+  if (!live || j >= O * O) return s;
+  const int a0 = j / O, b0 = j % O;  // lane 0 of L = 1: the whole axes
+  const int* g = gidx + atom * 3 * O;
+  const float* ww = w + atom * 3 * O;
+  s.on = true;
+  load_part<O, S::NA>(g, a0, s.gx);
+  load_part<O, S::NB>(g + O, b0, s.gy);
+  load_axis<O>(g + 2 * O, s.gz);
+  load_part<O, S::NA>(ww, a0, s.wx);
+  load_part<O, S::NB>(ww + O, b0, s.wy);
+  load_axis<O>(ww + 2 * O, s.wz);
+  if constexpr (kGrad) {
+    const float* dd = dw + atom * 3 * O;
+    load_part<O, S::NA>(dd, a0, s.dx);
+    load_part<O, S::NB>(dd + O, b0, s.dy);
+    load_axis<O>(dd + 2 * O, s.dz);
+  }
+  return s;
+}
+
+// The lane's rows of the system's mesh m ([nx][ny][nz], from shared memory
+// with kStaged, else through L1/L2) as separable partial sums: z first (r
+// and r_dz), then y, then x; the terms (value, d/dx, d/dy, d/dz) summed
+// over the group's lanes by a fixed xor butterfly, so every lane of the
+// group holds the atom's four sums.
+template <int O, int L, bool kGrad, bool kStaged>
+__device__ inline void group_sums(const float* __restrict__ m, int ny, int nz,
+                                  const LaneStencil<O, L, kGrad>& s,
+                                  float (&t)[4]) {
+  using S = LaneStencil<O, L, kGrad>;
+  t[0] = t[1] = t[2] = t[3] = 0.0f;
+  if (s.on) {
+#pragma unroll
+    for (int a = 0; a < S::NA; ++a) {
+      float qv = 0.0f, qdy = 0.0f, qdz = 0.0f;
+#pragma unroll
+      for (int b = 0; b < S::NB; ++b) {
+        const float* p = m + (s.gx[a] * ny + s.gy[b]) * nz;
+        float r = 0.0f, rdz = 0.0f;
+#pragma unroll
+        for (int c = 0; c < O; ++c) {
+          float x;
+          if constexpr (kStaged)
+            x = p[s.gz[c]];
+          else
+            x = __ldg(p + s.gz[c]);
+          r += s.wz[c] * x;
+          if constexpr (kGrad) rdz += s.dz[c] * x;
+        }
+        qv += s.wy[b] * r;
+        if constexpr (kGrad) {
+          qdy += s.dy[b] * r;
+          qdz += s.wy[b] * rdz;
+        }
       }
-      qv += ww[order + b] * r;
-      if (kGrad) {
-        qdy += dd[order + b] * r;
-        qdz += ww[order + b] * rdz;
+      t[0] += s.wx[a] * qv;
+      if constexpr (kGrad) {
+        t[1] += s.dx[a] * qv;
+        t[2] += s.wx[a] * qdy;
+        t[3] += s.wx[a] * qdz;
       }
-    }
-    v += ww[a] * qv;
-    if (kGrad) {
-      gx += dd[a] * qv;
-      gy += ww[a] * qdy;
-      gz += ww[a] * qdz;
     }
   }
-  val[atom] = v;
-  if (kGrad) {
-    grad[atom * 3] = gx;
-    grad[atom * 3 + 1] = gy;
-    grad[atom * 3 + 2] = gz;
+#pragma unroll
+  for (int k = L / 2; k > 0; k >>= 1) {
+    t[0] += __shfl_xor_sync(kFull, t[0], k);
+    if constexpr (kGrad) {
+      t[1] += __shfl_xor_sync(kFull, t[1], k);
+      t[2] += __shfl_xor_sync(kFull, t[2], k);
+      t[3] += __shfl_xor_sync(kFull, t[3], k);
+    }
+  }
+}
+
+// lane j of the atom's group writes outputs j, j + L, ... (value, then
+// the three gradient components): each output once
+template <int L, bool kGrad>
+__device__ inline void write_atom(float* __restrict__ val,
+                                  float* __restrict__ grad, int64_t atom,
+                                  int j, const float (&t)[4]) {
+#pragma unroll
+  for (int k0 = 0; k0 < (kGrad ? 4 : 1); k0 += L) {
+    const int k = k0 + j;
+    if (k == 0) val[atom] = t[0];
+    if (kGrad && k >= 1 && k < 4)
+      grad[atom * 3 + k - 1] = k == 1 ? t[1] : (k == 2 ? t[2] : t[3]);
+  }
+}
+
+// Staged path: block (b, slice) has the TMA copy system b's mesh into shared
+// memory in one bulk transfer (complete on an mbarrier) while its threads
+// load their atoms' stencils, one atom a thread, then sums the atoms' rows
+// out of shared memory; a slice of more atoms than threads takes more
+// passes.
+template <int O, bool kGrad>
+__global__ void __launch_bounds__(kGatherThreads, 1)
+    gather_staged_kernel(const float* __restrict__ mesh,
+                         const int* __restrict__ gidx,
+                         const float* __restrict__ w,
+                         const float* __restrict__ dw, float* __restrict__ val,
+                         float* __restrict__ grad, int N, int nx, int ny,
+                         int nz, int slices) {
+  extern __shared__ __align__(16) float staged[];
+  __shared__ __align__(8) unsigned long long bar;
+  const int b = blockIdx.x / slices;
+  const int per = (N + slices - 1) / slices;
+  const int n0 = (blockIdx.x % slices) * per;
+  const int n1 = min(N, n0 + per);
+  if (n0 >= n1) return;
+
+  const unsigned bar_s = static_cast<unsigned>(__cvta_generic_to_shared(&bar));
+  if (threadIdx.x == 0) {
+    const unsigned bytes = 4u * nx * ny * nz;
+    const char* src = reinterpret_cast<const char*>(
+        mesh + static_cast<int64_t>(b) * nx * ny * nz);
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(staged));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_s));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                     "r"(bar_s), "r"(bytes)
+                 : "memory");
+    for (unsigned off = 0; off < bytes; off += kBulkBytes)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(dst + off),
+          "l"(src + off), "r"(min(kBulkBytes, bytes - off)), "r"(bar_s)
+          : "memory");
+  }
+  const int64_t sys = static_cast<int64_t>(b) * N;
+  int n = n0 + threadIdx.x;
+  LaneStencil<O, 1, kGrad> s =
+      load_lane<O, 1, kGrad>(gidx, w, dw, sys + n, n < n1, 0);
+  __syncthreads();  // the barrier is initialised
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar_s)
+      : "memory");
+  for (; n < n1; n += blockDim.x) {
+    float t[4];
+    group_sums<O, 1, kGrad, true>(staged, ny, nz, s, t);
+    write_atom<1, kGrad>(val, grad, sys + n, 0, t);
+    const int next = n + blockDim.x;
+    s = load_lane<O, 1, kGrad>(gidx, w, dw, sys + next, next < n1, 0);
+  }
+}
+
+// L2 path: a group of L lanes an atom, 32 / L atoms a warp, rows read from
+// the mesh in device memory through L1/L2.
+template <int O, int L, bool kGrad>
+__global__ void __launch_bounds__(kGatherL2Threads)
+    gather_l2_kernel(const float* __restrict__ mesh,
+                     const int* __restrict__ gidx, const float* __restrict__ w,
+                     const float* __restrict__ dw, float* __restrict__ val,
+                     float* __restrict__ grad, int64_t n_atoms, int N, int nx,
+                     int ny, int nz) {
+  const int lane = threadIdx.x & 31;
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32 *
+      (32 / L);
+  if (first >= n_atoms) return;  // warp-uniform
+  const int64_t atom = first + lane / L;
+  const int j = lane % L;
+  const bool live = atom < n_atoms;
+  const LaneStencil<O, L, kGrad> s =
+      load_lane<O, L, kGrad>(gidx, w, dw, atom, live, j);
+  const int64_t points = static_cast<int64_t>(nx) * ny * nz;
+  const float* m = mesh + (live ? atom / N : 0) * points;
+  float t[4];
+  group_sums<O, L, kGrad, false>(m, ny, nz, s, t);
+  if (live) write_atom<L, kGrad>(val, grad, atom, j, t);
+}
+
+template <int O, bool kGrad>
+cudaError_t gather_launch(const float* mesh, const int* gidx, const float* w,
+                          const float* dw, float* val, float* grad, int B,
+                          int N, int nx, int ny, int nz, int lanes, int slices,
+                          cudaStream_t stream) {
+  if (slices > 0) {
+    const int smem = 4 * nx * ny * nz;
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_staged_kernel<O, kGrad>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    gather_staged_kernel<O, kGrad>
+        <<<static_cast<unsigned>(B) * slices, kGatherThreads, smem, stream>>>(
+            mesh, gidx, w, dw, val, grad, N, nx, ny, nz, slices);
+    return cudaGetLastError();
+  }
+  if (lanes != 1 && lanes != kRowLanes<O>) return cudaErrorInvalidValue;
+  const int64_t n_atoms = static_cast<int64_t>(B) * N;
+  const int64_t blocks =
+      (n_atoms * lanes + kGatherL2Threads - 1) / kGatherL2Threads;
+  if (lanes == 1)
+    gather_l2_kernel<O, 1, kGrad>
+        <<<static_cast<unsigned>(blocks), kGatherL2Threads, 0, stream>>>(
+            mesh, gidx, w, dw, val, grad, n_atoms, N, nx, ny, nz);
+  else
+    gather_l2_kernel<O, kRowLanes<O>, kGrad>
+        <<<static_cast<unsigned>(blocks), kGatherL2Threads, 0, stream>>>(
+            mesh, gidx, w, dw, val, grad, n_atoms, N, nx, ny, nz);
+  return cudaGetLastError();
+}
+
+template <bool kGrad>
+cudaError_t gather_order(int order, const float* mesh, const int* gidx,
+                         const float* w, const float* dw, float* val,
+                         float* grad, int B, int N, int nx, int ny, int nz,
+                         int lanes, int slices, cudaStream_t st) {
+  switch (order) {
+    case 1:
+      return gather_launch<1, kGrad>(mesh, gidx, w, dw, val, grad, B, N, nx,
+                                     ny, nz, lanes, slices, st);
+    case 2:
+      return gather_launch<2, kGrad>(mesh, gidx, w, dw, val, grad, B, N, nx,
+                                     ny, nz, lanes, slices, st);
+    case 3:
+      return gather_launch<3, kGrad>(mesh, gidx, w, dw, val, grad, B, N, nx,
+                                     ny, nz, lanes, slices, st);
+    default:
+      return gather_launch<4, kGrad>(mesh, gidx, w, dw, val, grad, B, N, nx,
+                                     ny, nz, lanes, slices, st);
   }
 }
 
@@ -353,21 +600,22 @@ extern "C" int nv_separable_spread(const int* gidx, const int* xbase,
 extern "C" int nv_separable_gather(const float* mesh, const int* gidx,
                                    const float* w, const float* dw, float* val,
                                    float* grad, int B, int N, int order, int nx,
-                                   int ny, int nz, void* stream) {
-  if (order < 1 || order > kMaxOrder) return cudaErrorInvalidValue;
-  const int64_t n_atoms = static_cast<int64_t>(B) * N;
-  if (n_atoms == 0) return cudaSuccess;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n_atoms + threads - 1) / threads);
+                                   int ny, int nz, int lanes, int slices,
+                                   void* stream) {
+  if (order < 1 || order > kMaxOrder || slices < 0)
+    return cudaErrorInvalidValue;
+  // staged: one lane an atom, the mesh whole in 16-byte bulk units within
+  // a block's shared memory beside its barrier
+  const int64_t points = static_cast<int64_t>(nx) * ny * nz;
+  if (slices > 0 && (lanes != 1 || points % 4 != 0 ||
+                     4 * points + kGatherStaticSmem > kSmemLimit ||
+                     reinterpret_cast<uintptr_t>(mesh) % 16 != 0))
+    return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(B) * N == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dw != nullptr) {
-    gather_kernel<true><<<blocks, threads, 0, st>>>(mesh, gidx, w, dw, val,
-                                                    grad, n_atoms, N, order,
-                                                    nx, ny, nz);
-  } else {
-    gather_kernel<false><<<blocks, threads, 0, st>>>(mesh, gidx, w, dw, val,
-                                                     grad, n_atoms, N, order,
-                                                     nx, ny, nz);
-  }
-  return cudaGetLastError();
+  return dw != nullptr
+             ? gather_order<true>(order, mesh, gidx, w, dw, val, grad, B, N,
+                                  nx, ny, nz, lanes, slices, st)
+             : gather_order<false>(order, mesh, gidx, w, dw, val, grad, B, N,
+                                   nx, ny, nz, lanes, slices, st);
 }

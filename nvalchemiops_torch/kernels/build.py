@@ -50,7 +50,7 @@ _SIGNATURES = {
     "nv_dense_pairs": [_I] + [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I] * 3
                       + [ctypes.POINTER(_I), _P],
     "nv_separable_spread": [_P] * 5 + [_I] * 10 + [_P],
-    "nv_separable_gather": [_P] * 6 + [_I] * 6 + [_P],
+    "nv_separable_gather": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 def find_nvcc() -> str:

@@ -21,6 +21,9 @@ package's ``_separable_spread`` / ``_separable_gather`` do.
 The spread kernel owns the mesh in slabs, each accumulated in one block's
 shared memory in 64-bit fixed point (so its result does not depend on the
 order of the adds) and written once; :func:`spread_plan` picks the slabs.
+The gather kernel reads each atom's stencil rows from a copy of its
+system's mesh in shared memory (one atom a thread) or through L2 (one
+lane an atom, or one a row); :func:`gather_plan` picks the path.
 """
 
 from __future__ import annotations
@@ -36,9 +39,9 @@ from nvalchemiops_torch.kernels.build import (
 )
 from nvalchemiops_torch.types import INDEX_DTYPE
 
-__all__ = ["axis_weight_matrix", "SpreadPlan", "spread_plan",
-           "separable_spread", "separable_spread_plain", "separable_gather",
-           "separable_gather_plain"]
+__all__ = ["axis_weight_matrix", "SpreadPlan", "spread_plan", "GatherPlan",
+           "gather_plan", "separable_spread", "separable_spread_plain",
+           "separable_gather", "separable_gather_plain"]
 
 _CHUNK = 2048   # atoms per contraction of the plain versions, as in JAX
 
@@ -49,6 +52,22 @@ SPREAD_LIST_BYTES = 4 * (8192 + 4)    # the round's pair list and its count
 POINT_BYTES = 8             # a mesh point's 64-bit fixed-point sum
 SMEM_LIMIT = 232_448        # shared memory one block may use (H100: 227 KB)
 N_SM = 132                  # streaming multiprocessors of an H100 SXM
+
+# the gather kernel's launch (csrc/separable_spline.cu: kGatherThreads,
+# kGatherL2Threads, kGatherStaticSmem)
+GATHER_THREADS = 1024       # a staged block, one atom a thread
+GATHER_L2_THREADS = 256     # an L2 block
+GATHER_STATIC_SMEM = 16     # a staged block's barrier
+# the staged path when a block's atoms read at least this many stencil
+# points per mesh point it copies (order^3 an atom against nx ny nz): at
+# 32^3 it lost to the L2 path at 0.49 (16 x 2,000 atoms) and won at 0.98
+# (32 x 2,000; pair_sweep_times.py --gather-paths, PERF.md)
+STAGED_READS_MIN = 0.75
+# the L2 path gives each atom one lane a stencil row (order^2 lanes,
+# rounded up to a power of two) up to this many atoms in the batch, and
+# one lane above: few atoms spread over more lanes, many fill the card
+# with one lane each (rows won at 8,000 atoms, one lane at 32,000)
+L2_ROW_LANES_MAX_ATOMS = 64 * N_SM
 
 
 @dataclass(frozen=True)
@@ -115,6 +134,87 @@ def spread_plan(mesh_dims, order: int, batch: int,
     """
     return _plan(tuple(int(d) for d in mesh_dims), int(order), int(batch),
                  int(n_sm))
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """How the gather kernel walks a ``[B, nx, ny, nz]`` batch of meshes.
+
+    Staged: block ``(b, s)`` copies mesh ``b`` into shared memory and
+    gathers atoms ``[s * atoms_per_block, (s + 1) * atoms_per_block)`` of
+    system ``b`` (cut at ``N``), one a thread.  L2 (``slices == 0``):
+    ``lanes`` lanes an atom (1, or one a stencil row), rows read from
+    device memory, ``atoms_per_block`` atoms a block of ``threads``.
+    """
+
+    staged: bool
+    lanes: int
+    slices: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+    atoms_per_block: int
+
+    def atoms(self, s: int, n_atoms: int):
+        """``(n0, n1)``: the atoms of slice ``s`` of a staged system."""
+        n0 = min(s * self.atoms_per_block, n_atoms)
+        return n0, min(n0 + self.atoms_per_block, n_atoms)
+
+
+def row_lanes(order: int) -> int:
+    """Lanes of an atom's group when each lane takes one stencil row:
+    ``order^2`` rounded up to a power of two."""
+    return 1 << (order * order - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=64)
+def _gather_plan(mesh_dims, order: int, batch: int, atoms: int, n_sm: int,
+                 staged) -> GatherPlan:
+    nx, ny, nz = mesh_dims
+    if not 1 <= order <= 4:
+        raise ValueError(f"spline order must be 1-4, got {order}")
+    if min(nx, ny, nz) < 1:
+        raise ValueError(f"mesh dims must be positive, got {mesh_dims}")
+    points = nx * ny * nz
+    smem = 4 * points + GATHER_STATIC_SMEM
+    fits = points % 4 == 0 and smem <= SMEM_LIMIT
+    slices = max(1, n_sm // max(batch, 1))
+    per = -(-atoms // slices)
+    if staged and not fits:
+        raise ValueError(f"separable_gather: a {mesh_dims} mesh cannot be "
+                         f"staged ({smem} bytes, {points} points)")
+    if staged is None:
+        staged = fits and per * order ** 3 >= STAGED_READS_MIN * points
+    if staged:
+        return GatherPlan(staged=True, lanes=1, slices=slices,
+                          threads=GATHER_THREADS, smem_bytes=smem,
+                          blocks=batch * slices, atoms_per_block=per)
+    lanes = (row_lanes(order) if batch * atoms <= L2_ROW_LANES_MAX_ATOMS
+             else 1)
+    per = GATHER_L2_THREADS // lanes
+    return GatherPlan(staged=False, lanes=lanes, slices=0,
+                      threads=GATHER_L2_THREADS, smem_bytes=0,
+                      blocks=-(-batch * atoms // per), atoms_per_block=per)
+
+
+def gather_plan(mesh_dims, order: int, batch: int, atoms: int,
+                n_sm: int = N_SM, staged=None) -> GatherPlan:
+    """Path of :func:`separable_gather` for ``batch`` meshes of
+    ``mesh_dims`` and ``atoms`` atoms a system at spline ``order``.
+
+    Staged where the mesh fits in a block's shared memory (a whole number
+    of 16-byte units, up to ~38^3 points) and each block, one of ``n_sm
+    // batch`` slices of its system's atoms (the batch then fills the SMs,
+    one block each), reads at least ``STAGED_READS_MIN`` stencil points
+    per mesh point it copies; the L2 path otherwise, one lane a stencil
+    row up to ``L2_ROW_LANES_MAX_ATOMS`` atoms and one lane an atom above.
+    ``staged`` True or False forces a path (a measurement's probe, or a
+    mesh not on 16 bytes); a staged mesh that does not fit raises
+    ``ValueError``.
+    """
+    return _gather_plan(tuple(int(d) for d in mesh_dims), int(order),
+                        int(batch), int(atoms), int(n_sm),
+                        None if staged is None else bool(staged))
 
 
 def axis_weight_matrix(gidx_d, w_d, n_mesh: int):
@@ -229,7 +329,9 @@ def separable_gather(mesh, gidx, w, dw=None):
     """Interpolate ``mesh [B, nx, ny, nz]`` at the stencils: ``val [B, N]``,
     or ``(val, grad [B, N, 3])`` with derivative weights ``dw`` (one pass
     for the value and the three derivative gathers).  CUDA kernel on a CUDA
-    device, plain version on the CPU."""
+    device (rows staged in shared memory or read through L2, as
+    :func:`gather_plan` decides; each output written once in a fixed order,
+    so two launches give the same bits), plain version on the CPU."""
     _check("separable_gather", gidx, w, dw)
     if mesh.dim() != 4 or mesh.shape[0] != w.shape[0]:
         raise ValueError(f"separable_gather: mesh {tuple(mesh.shape)} must "
@@ -241,6 +343,13 @@ def separable_gather(mesh, gidx, w, dw=None):
     _check_index("separable_gather", gidx, w)
     b, nx, ny, nz = mesh.shape
     n, order = w.shape[1], w.shape[3]
+    if order == 4 and any(t.data_ptr() % 16 for t in (gidx, w, dw)
+                          if t is not None):
+        raise ValueError("separable_gather: order-4 stencils must start on "
+                         "16 bytes (the kernel loads whole z rows)")
+    # the staged copy moves whole 16-byte units
+    plan = gather_plan((nx, ny, nz), order, b, n,
+                       staged=None if mesh.data_ptr() % 16 == 0 else False)
     val = torch.empty((b, n), dtype=w.dtype, device=w.device)
     grad = (torch.empty((b, n, 3), dtype=w.dtype, device=w.device)
             if dw is not None else None)
@@ -248,7 +357,7 @@ def separable_gather(mesh, gidx, w, dw=None):
         mesh.data_ptr(), gidx.data_ptr(), w.data_ptr(),
         dw.data_ptr() if dw is not None else None, val.data_ptr(),
         grad.data_ptr() if grad is not None else None,
-        b, n, order, nx, ny, nz, current_stream(w))
+        b, n, order, nx, ny, nz, plan.lanes, plan.slices, current_stream(w))
     check_launch("separable_gather", err)
     launch_counts["separable_gather"] += 1
     return (val, grad) if dw is not None else val

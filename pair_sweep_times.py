@@ -25,7 +25,13 @@ main path (max and RMS relative, as ``chip_smoke.py``'s cross-engine bars
 read them): the numerics of a kernel 8 change, parent against change.
 ``--segments 2,4`` also times kernel 9 with each of those own voxels a
 thread for every body (``kernels.stencil_sweep.PLAN``; the change tree
-only).
+only).  Kernel 6 (``separable_gather``) is timed on the batched dense PME
+(64 x 2,000 atoms at 32^3), the 128^3 tile-overflow fallback of the main
+path (tile capacity 1) and the 1,024-atom composite on the dense engine
+(B = 1, 32^3); ``--gather-paths`` also times it on every path of
+``kernels.separable_spline.gather_plan`` (staged; L2 with one lane an atom
+or one a stencil row) with the batched call cut to 1, 4, 16, 32 and 64
+systems (the change tree only).
 
 ``--tree DIR`` imports ``nvalchemiops_torch`` from another checkout (for
 instance the parent commit, unpacked with ``git archive`` into a directory
@@ -195,6 +201,99 @@ def crystal_calls(dev):
                    f"{tuple(sg.radius)}")
 
 
+def gather_calls(dev):
+    """Kernel 6's calls: the batched dense PME of
+    ``chip_smoke.pme_batch_system`` (64 x 2,000 atoms at 32^3), the 128^3
+    tile-overflow fallback of the 109,744-atom main path (tile capacity 1)
+    and the 1,024-atom composite on the dense engine (B = 1, 32^3)."""
+    from nvalchemiops_torch import composite
+    from nvalchemiops_torch.interactions.electrostatics import pme
+
+    cfg = chip_smoke.PME_BATCH
+    pos, q, cell = chip_smoke.pme_batch_system(dev)
+    (pos_f, cell_f, _, q_f, *_) = composite.build_system(
+        chip_smoke.FULL_N_REP)
+    pos_c, cell_c, _, q_c, *_ = composite.build_system()
+
+    def on_card(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    runs = (
+        lambda: pme.batch_pme_reciprocal(pos, q, cell, cfg["alpha"],
+                                         cfg["mesh"], compute_forces=True),
+        lambda: pme.pme_reciprocal_space(
+            on_card(pos_f), on_card(q_f), on_card(cell_f), composite.ALPHA,
+            mesh_dimensions=chip_smoke.FULL_MESH, compute_forces=True,
+            tile_capacity=1),
+        lambda: pme.batch_pme_reciprocal(
+            on_card(pos_c)[None], on_card(q_c)[None], on_card(cell_c),
+            composite.ALPHA, composite.MESH, compute_forces=True,
+            engine="dense"))
+    calls = {}
+    undo = record(pme, "separable_gather",
+                  lambda *a: chip_smoke.parent_key("separable_gather", a,
+                                                   None), calls)
+    try:
+        for run in runs:
+            run()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return calls
+
+
+def gather_paths(calls, reps):
+    """Kernel 6 under each path the plan can take (staged; L2 with one lane
+    an atom and with one lane a stencil row) on the captured batched PME
+    gather cut to its first B systems, on the composite's and on the
+    128^3 fallback's: the measurement behind ``gather_plan``."""
+    import dataclasses
+
+    from nvalchemiops_torch.kernels import separable_spline as ss
+
+    cases = []
+    for key, (fn, a, kw) in sorted(calls.items()):
+        mesh, gidx, w, dw = a
+        systems = (1, 4, 16, 32, 64) if mesh.shape[0] > 1 else (1,)
+        cases += [(b, mesh[:b], gidx[:b], w[:b], dw[:b]) for b in systems]
+    plan_of = ss.gather_plan
+    try:
+        for b, mesh, gidx, w, dw in cases:
+            dims, (n, order) = tuple(mesh.shape[1:]), (w.shape[1], w.shape[3])
+            want = ss.separable_gather_plain(mesh, gidx, w, dw)
+            plans = [("l2", dataclasses.replace(
+                plan_of(dims, order, b, n, staged=False), lanes=lanes))
+                for lanes in (1, ss.row_lanes(order))]
+            try:
+                plans.insert(0, ("staged", plan_of(dims, order, b, n,
+                                                   staged=True)))
+            except ValueError:
+                pass
+            chosen = plan_of(dims, order, b, n)
+            for path, plan in plans:
+                ss.gather_plan = lambda *a_, _p=plan, **k: _p
+                got = ss.separable_gather(mesh, gidx, w, dw)
+                torch.cuda.synchronize()
+                err = max(((g.double() - x.double()).abs().max()
+                           / x.double().abs().max()).item()
+                          for g, x in zip(got, want))
+                if not err <= chip_smoke.KERNEL_RTOL:
+                    raise AssertionError(f"gather {path} {plan}: rel err "
+                                         f"{err:.3e}")
+                ms = chip_smoke.device_time_ms(
+                    lambda: ss.separable_gather(mesh, gidx, w, dw),
+                    reps=reps)
+                print(json.dumps({
+                    "kernel": "separable_gather",
+                    "shape": f"{b} x {n}, mesh {'x'.join(map(str, dims))}",
+                    "path": path, "lanes": plan.lanes,
+                    "slices": plan.slices, "planned": plan == chosen,
+                    "device_ms": ms, "max_rel_err": err, "reps": reps}),
+                    flush=True)
+    finally:
+        ss.gather_plan = plan_of
+
+
 def dense_calls(dev):
     """Kernel 4's calls on the 128 x 2,000-atom batches at 21.2 A and 9 A."""
     from nvalchemiops_torch.interactions.dispersion import dense_d3
@@ -233,6 +332,9 @@ def main():
     ap.add_argument("--segments", default="",
                     help="comma-separated own voxels a thread for kernel 9 "
                          "timings, every body (change tree only)")
+    ap.add_argument("--gather-paths", action="store_true",
+                    help="time kernel 6 on every path at several batch "
+                         "sizes (change tree only)")
     ap.add_argument("--profiler-check", type=int, default=0, metavar="N",
                     help="first time one call N times and count the "
                          "profiler runs that lost their device events")
@@ -261,7 +363,8 @@ def main():
               flush=True)
     batch = windowed_batch_calls(dev)
     crystal, crystal_label = crystal_calls(dev)
-    calls = {**main, **batch, **dense_calls(dev), **crystal}
+    gathers = gather_calls(dev)
+    calls = {**main, **batch, **dense_calls(dev), **crystal, **gathers}
     if args.profiler_check:
         fn, a, kw = calls["windowed_gather_grad W=12"]
         lost = len(chip_smoke.LOST_PROFILES)
@@ -274,7 +377,8 @@ def main():
         ms = chip_smoke.device_time_ms(lambda: fn(*a, **kw), reps=args.reps)
         shape = ("8 x 2,000 atoms, 64^3, W = 20" if key in batch
                  else "128 x 2,000" if key.startswith("dense")
-                 else crystal_label if key in crystal else label)
+                 else crystal_label if key in crystal
+                 else key.split(" ", 1)[1] if key in gathers else label)
         print(json.dumps({"tree": tree, "kernel": key, "device_ms": ms,
                           "reps": args.reps, "shape": shape}), flush=True)
     if args.segments:
@@ -294,6 +398,8 @@ def main():
                                       "shape": crystal_label}), flush=True)
         finally:
             stencil_sweep.PLAN = default
+    if args.gather_paths:
+        gather_paths(gathers, args.reps)
     print(json.dumps({"tree": tree,
                       "lost_profiles": chip_smoke.LOST_PROFILES}), flush=True)
 

@@ -251,15 +251,21 @@ def test_separable_kernels_match_plain(cuda):
     _close(ss.separable_gather(pot, gidx, w), val_p)
 
 
-def _seam_stencil(cuda, seed, b, n, mesh, order, box=27.0):
-    """Stencils of random atoms in a cubic box, the first four on the
-    periodic seam of every axis and on mesh points (theta = 0)."""
-    from nvalchemiops_torch import spline
-
-    rng = np.random.default_rng(seed)
+def _seam_positions(rng, b, n, box):
+    """Random atoms in a cubic box, the first four on the periodic seam of
+    every axis and on mesh points (theta = 0)."""
     pos = rng.uniform(0.0, box, (b, n, 3))
     pos[:, :4] = [[0.0, 0.0, 0.0], [box - 1e-3] * 3,
                   [1e-3, box - 1e-3, 0.0], [box * 0.5, box - 1e-3, 1e-3]]
+    return pos
+
+
+def _seam_stencil(cuda, seed, b, n, mesh, order, box=27.0):
+    """Stencils of :func:`_seam_positions` and random charges."""
+    from nvalchemiops_torch import spline
+
+    rng = np.random.default_rng(seed)
+    pos = _seam_positions(rng, b, n, box)
     cells = torch.eye(3, device=cuda).expand(b, 3, 3) * box
     gidx, w, _, _ = spline._stencil(
         torch.as_tensor(pos, dtype=torch.float32, device=cuda), cells, mesh,
@@ -295,6 +301,89 @@ def test_dense_spread_kernel_matches_plain(cuda, order, mesh, b, n):
     torch.cuda.synchronize()
     _close(got, want)
     assert torch.equal(got, again)
+
+
+def _gather_case(cuda, seed, b, n, mesh, order, box=27.0):
+    """Seam stencils with derivative weights, a random mesh on the card."""
+    from nvalchemiops_torch import spline
+
+    rng = np.random.default_rng(seed)
+    pos = _seam_positions(rng, b, n, box)
+    cells = torch.eye(3, device=cuda).expand(b, 3, 3) * box
+    gidx, w, dw, _ = spline._stencil(
+        torch.as_tensor(pos, dtype=torch.float32, device=cuda), cells, mesh,
+        order)
+    pot = torch.as_tensor(rng.normal(size=(b,) + mesh), dtype=torch.float32,
+                          device=cuda)
+    return pot, gidx, w, dw
+
+
+def _forced_gather_plan(ss, path, mesh, order, b, n):
+    """The plan of ``path``: "staged", or "l2 row" / "l2 atom" (one lane a
+    stencil row or one an atom)."""
+    import dataclasses
+
+    plan = ss.gather_plan(mesh, order, b, n, staged=path == "staged")
+    if path == "staged":
+        return plan
+    lanes = ss.row_lanes(order) if path == "l2 row" else 1
+    return dataclasses.replace(plan, lanes=lanes,
+                               atoms_per_block=plan.threads // lanes)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("path,mesh,b,n", [
+    ("staged", (32, 32, 32), 64, 2000),      # the batched PME, as planned
+    ("staged", (32, 32, 32), 1, 1024),       # the composite, forced staged
+    ("staged", (32, 32, 32), 200, 1100),     # one slice, two passes
+    ("staged", (24, 32, 40), 64, 2000),
+    ("l2 row", (32, 32, 32), 1, 1024),       # the composite, as planned
+    ("l2 atom", (32, 32, 32), 1, 1024),
+    ("l2 atom", (128, 128, 128), 1, 109_744),  # the 128^3 fallback
+    ("l2 row", (64, 64, 64), 8, 2000),
+])
+def test_dense_gather_kernel_matches_plain(cuda, monkeypatch, order, path,
+                                           mesh, b, n):
+    """Kernel 6 on each path agrees with its plain version, value and
+    gradients, seams included (132 slices of 8 atoms at B = 1: ragged and
+    empty slices; 1,100 atoms a block at B = 200: two passes), and gives
+    the same bits twice."""
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import separable_spline as ss
+
+    plan = _forced_gather_plan(ss, path, mesh, order, b, n)
+    monkeypatch.setattr(ss, "gather_plan", lambda *a, **k: plan)
+    pot, gidx, w, dw = _gather_case(cuda, 40 + order, b, n, mesh, order)
+    before = launch_counts["separable_gather"]
+    val, grad = ss.separable_gather(pot, gidx, w, dw)
+    assert launch_counts["separable_gather"] == before + 1
+    val2, grad2 = ss.separable_gather(pot, gidx, w, dw)
+    only = ss.separable_gather(pot, gidx, w)
+    want_v, want_g = ss.separable_gather_plain(pot, gidx, w, dw)
+    torch.cuda.synchronize()
+    _close(val, want_v)
+    for d in range(3):
+        _close(grad[..., d], want_g[..., d])
+    assert torch.equal(val, val2) and torch.equal(grad, grad2)
+    assert torch.equal(only, val)
+
+
+@pytest.mark.parametrize("order", [2, 4])
+def test_dense_gather_paths_give_equal_bits(cuda, monkeypatch, order):
+    """The staged path and the L2 path at one lane an atom sum each atom
+    in the same order."""
+    from nvalchemiops_torch.kernels import separable_spline as ss
+
+    mesh, b, n = (32, 32, 32), 16, 2000
+    pot, gidx, w, dw = _gather_case(cuda, 50 + order, b, n, mesh, order)
+    outs = []
+    for path in ("staged", "l2 atom"):
+        plan = _forced_gather_plan(ss, path, mesh, order, b, n)
+        monkeypatch.setattr(ss, "gather_plan", lambda *a, _p=plan, **k: _p)
+        outs.append(ss.separable_gather(pot, gidx, w, dw))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("tile", [4, 8, 16])
