@@ -144,6 +144,44 @@ ENGINE_BARS = {"d3": (8.67e-6, 3.67e-6), "coulomb": (3.00e-6, 1.23e-6),
                "combined": (4.13e-6, 1.83e-6),
                "hybrid_d3": (1.52e-5, 3.01e-6),
                "stencil_coulomb": (7.33e-6, 1.65e-6)}
+# phase 13: the neighbor lists and the list/matrix electrostatics.
+# NL_SAFETY sizes max_neighbors from a system's own density
+# (``estimate_max_neighbors(cutoff, density, NL_SAFETY)``); the default
+# density 0.35 / safety 5 would give K = 6,496 at 9.6 A.  Cross-engine and
+# cross-precision bars (max rel, RMS rel), both sides on the card: 1.25x
+# the larger of two readings of sound runs (rounded up; NVIDIA H100 80GB
+# HBM3, 700 W), one bar for energies and forces alike.  Readings: the
+# 109,744-atom real space against the window engine 2.799e-5 / 7.771e-6
+# (forces; energies 5.051e-6 / 5.062e-7; the window engine's erfc is a
+# polynomial good to 1.5e-7), particle_mesh_ewald against
+# grid_particle_mesh_ewald 1.790e-5 / 5.261e-6; on the 16 x 2,000 batch,
+# f32 against f64 4.123e-7 / 2.028e-7 (Ewald) and 4.092e-7 / 2.644e-7
+# (PME), PME against Ewald in f64 5.349e-8 / 2.219e-7, and the batch_idx
+# scatter path against the dense engine 9.649e-6 / 4.694e-6 (9.556e-6 in
+# the other run: the scatter's atomics; the dense engine's B-spline
+# weights round in f32 where the scatter path's local forms do not).
+NL_SAFETY = 1.5
+ELEC_BARS = {
+    "real_vs_grid": (3.50e-5, 9.72e-6),
+    "pme_vs_grid": (2.24e-5, 6.58e-6),
+    "batch_ewald_f32_vs_f64": (5.16e-7, 2.54e-7),
+    "batch_pme_f32_vs_f64": (5.12e-7, 3.31e-7),
+    "batch_ewald_vs_pme": (6.69e-8, 2.78e-7),
+    "batch_idx_vs_dense": (1.21e-5, 5.87e-6),
+}
+# the simple-cubic analytic oracle: a = 3.0 A, no
+# jitter, 4.5 A: 6 neighbors at 3.0 A and 12 at 4.24 A
+CRYSTAL = dict(a=3.0, cutoff=4.5, cell_list_n_rep=64, naive_n_rep=25)
+# the JAX package's batched Ewald benchmark (run_benchmarks.py:255-296,
+# benchmark_config.yaml ewald_batch): default_rng(3) draws the 64 x 2,000
+# case, then the 16 x 2,000 one; uniform positions, normal charges
+EWALD_BATCH = dict(cases=((64, 2000, 27.0), (16, 2000, 27.0)),
+                   accuracy=1e-6, dense_mesh=(32, 32, 32))
+# the reference's H100 rows (BASELINE.md:14, 17, 42-43)
+REFERENCE_MS = {"naive 16,384": 4.530, "cell list 262,144": 9.815,
+                "ewald recip 16 x 2,000": 7.467,
+                "ewald recip 64 x 2,000": 24.876}
+
 # the JAX package's hybrid probe system (benchmarks/hybrid_probe.py:33-71):
 # jittered simple-cubic crystal from default_rng(0), zmax-16 random tables,
 # a1/a2/s8 = 0.4/4.2/1.8; charges drawn after the tables; the f64 witness
@@ -1287,6 +1325,335 @@ def run_stencil(dev):
     return table
 
 
+def density_max_neighbors(n, cell, cutoff):
+    """``max_neighbors`` from the system's own density and ``NL_SAFETY``."""
+    from nvalchemiops_torch.neighborlist import estimate_max_neighbors
+
+    volume = abs(float(torch.linalg.det(cell.double().reshape(-1, 3, 3)[0])))
+    return estimate_max_neighbors(cutoff, n / volume, NL_SAFETY)
+
+
+def row_keys(nm, num, sh, fill):
+    """Each row of a neighbor matrix as sorted int64 keys of ``(j,
+    shift)`` (shifts in -1..1; empty slots last): equal keys, equal sets."""
+    code = ((sh[..., 0] + 1) * 9 + (sh[..., 1] + 1) * 3 + sh[..., 2] + 1).long()
+    keys = torch.where(nm != fill, nm.long() * 27 + code,
+                       torch.full((), 2 ** 62, device=nm.device))
+    return keys.sort(dim=1).values
+
+
+def ewald_batch_systems(dev):
+    """The batched Ewald benchmark's systems, f32 on the card:
+    ``{(b, n): (positions [b n, 3], charges, cells [b, 3, 3], batch_idx)}``."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for b, n, box in EWALD_BATCH["cases"]:
+        pos = rng.uniform(0, box, (b * n, 3))
+        q = rng.normal(size=b * n)
+        out[(b, n)] = (
+            torch.as_tensor(pos, dtype=torch.float32, device=dev),
+            torch.as_tensor(q, dtype=torch.float32, device=dev),
+            torch.eye(3, device=dev).expand(b, 3, 3).contiguous() * box,
+            torch.arange(b, device=dev).repeat_interleave(n).int())
+    return out
+
+
+def run_neighbor_electrostatics(dev, full):
+    """Phase 13: the neighbor lists and the list/matrix electrostatics
+    (Coulomb, Ewald, PME) through the public entry points; ``full`` holds
+    phase 4's inputs and window-engine Coulomb.  The calls of kernels 2
+    and 3 are replayed from the main-path PME; the kernel table keeps its
+    rows from the earlier phases."""
+    from nvalchemiops_torch import composite
+    from nvalchemiops_torch.interactions.electrostatics import (
+        batch_pme_reciprocal, estimate_ewald_parameters, ewald_real_space,
+        ewald_reciprocal_space, ewald_summation,
+        generate_k_vectors_ewald_summation, grid_particle_mesh_ewald,
+        particle_mesh_ewald, pme, pme_reciprocal_space,
+    )
+    from nvalchemiops_torch.kernels.separable_spline import (
+        separable_gather_plain, separable_spread_plain,
+    )
+    from nvalchemiops_torch.neighborlist import (
+        assert_max_neighbors, cell_list, naive_neighbor_list, neighbor_list,
+    )
+
+    pbc = np.array([True] * 3)
+    win_keys = ["windowed_spread", "windowed_gather_grad"]
+    dense_keys = ["separable_spread", "separable_gather"]
+    cutoff, alpha = composite.CUTOFF, composite.ALPHA
+
+    def matrix(pos, cell, cut, **kw):
+        k = density_max_neighbors(pos.shape[0], cell, cut)
+        nm, num, sh = neighbor_list(pos, cut, cell=cell, pbc=pbc,
+                                    max_neighbors=k, **kw)
+        assert_max_neighbors(nm, num)
+        return nm, num, sh, k
+
+    # -- the 1,024-atom composite ------------------------------------------
+    pos_c, cell_c, _, q_c, *_ = composite.build_system()
+    pos_c = torch.as_tensor(pos_c, dtype=torch.float32, device=dev)
+    cell_c = torch.as_tensor(cell_c, dtype=torch.float32, device=dev)
+    q_c = torch.as_tensor(q_c, dtype=torch.float32, device=dev)
+    nm, num, sh, k = matrix(pos_c, cell_c, cutoff, method="cell_list")
+    e_r, f_r = ewald_real_space(pos_c, q_c, cell_c, alpha, neighbor_matrix=nm,
+                                neighbor_matrix_shifts=sh,
+                                compute_forces=True)
+    ref = composite.load_reference()
+    rel = composite.relative_errors(
+        {"coulomb": f_r.double().cpu().numpy()}, ref)["coulomb"]
+    rms = composite.rms_errors(
+        {"coulomb": f_r.double().cpu().numpy()}, ref)["coulomb"]
+    bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["coulomb"])
+    phase(f"composite cell list: K {k}, max count {int(num.max())}, "
+          f"{int(num.sum())} pairs; ewald_real_space forces vs f64 "
+          f"reference: max rel {rel:.3e} (bar {bar[0]:.3e}), rms rel "
+          f"{rms:.3e} (bar {bar[1]:.3e})")
+    if not (rel <= bar[0] and rms <= bar[1]):
+        raise AssertionError("composite ewald_real_space above the Coulomb "
+                             "bar")
+    (e_pme, f_pme), _ = drive(
+        "composite particle_mesh_ewald (32^3, windowed)",
+        lambda: particle_mesh_ewald(
+            pos_c, q_c, cell_c, alpha, mesh_dimensions=composite.MESH,
+            neighbor_matrix=nm, neighbor_matrix_shifts=sh,
+            compute_forces=True), win_keys, forbid=dense_keys)
+    e_k, f_k = pme_reciprocal_space(pos_c, q_c, cell_c, alpha,
+                                    mesh_dimensions=composite.MESH,
+                                    compute_forces=True)
+    for name, a, b in (("energies", e_pme, e_r + e_k),
+                       ("forces", f_pme, f_r + f_k)):
+        diff = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        phase(f"composite particle_mesh_ewald {name} vs real + reciprocal "
+              f"called apart: max |diff| {diff:.3e} (scale {scale:.3e})")
+        if not diff <= 1e-6 * scale:
+            raise AssertionError(f"composite particle_mesh_ewald {name} "
+                                 "differ from the parts")
+    # a single-system mesh the windowed path rejects: the dense route
+    mesh36 = (36, 36, 36)
+    (_, f36), _ = drive(
+        "composite pme_reciprocal_space at 36^3 (dense route)",
+        lambda: pme_reciprocal_space(pos_c, q_c, cell_c, alpha,
+                                     mesh_dimensions=mesh36,
+                                     compute_forces=True),
+        dense_keys, forbid=win_keys)
+    with plain_kernels(pme, separable_spread=separable_spread_plain,
+                       separable_gather=separable_gather_plain):
+        _, f36_64 = pme_reciprocal_space(
+            pos_c.double(), q_c.double(), cell_c.double(), alpha,
+            mesh_dimensions=mesh36, compute_forces=True)
+    check_errors("composite PME 36^3 dense route f32 kernels vs f64 plain",
+                 f36, f36_64, tuple(BAR_FACTOR * v
+                                    for v in JAX_F32_BARS["pme"]))
+    del nm, sh, f36_64
+
+    # -- the main-path system, 109,744 atoms -------------------------------
+    pos, q, cell = full["pos"], full["q"], full["cell"]
+    n = pos.shape[0]
+    label = f"main path {n} atoms"
+    k = density_max_neighbors(n, cell, cutoff)
+
+    def build():
+        return cell_list(pos, cutoff, cell, pbc, max_neighbors=k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nm, num, sh = build()
+    assert_max_neighbors(nm, num)
+    e_r, f_r = ewald_real_space(pos, q, cell, alpha, neighbor_matrix=nm,
+                                neighbor_matrix_shifts=sh,
+                                compute_forces=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    capture = install_capture()
+    (e_p, f_p), _ = drive(
+        f"{label} particle_mesh_ewald(neighbor_matrix=..., 128^3)",
+        lambda: particle_mesh_ewald(pos, q, cell, alpha,
+                                    mesh_dimensions=FULL_MESH,
+                                    neighbor_matrix=nm,
+                                    neighbor_matrix_shifts=sh,
+                                    compute_forces=True),
+        win_keys, forbid=dense_keys)
+    capture.restore()
+    phase(f"{label}: cell list K {k}, max count {int(num.max())}, "
+          f"{int(num.sum())} pairs; peak memory of the cell list and the "
+          f"real space {peak / 2**20:.1f} MiB "
+          "(torch.cuda.max_memory_allocated; the PME drive prints its own)")
+    for name, t in (("real energies", e_r), ("pme energies", e_p)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{label} {name}: non-finite")
+    check_forces(f"{label} real space", f_r)
+    check_forces(f"{label} PME", f_p)
+    check_errors(f"{label} ewald_real_space forces vs window engine",
+                 f_r, full["f_c"], ELEC_BARS["real_vs_grid"])
+    check_errors(f"{label} ewald_real_space energies vs window engine",
+                 e_r, full["e_c"], ELEC_BARS["real_vs_grid"])
+    g = full["grid"]()
+    e_g, f_g = grid_particle_mesh_ewald(g, pos, q, cell, cutoff, alpha,
+                                        mesh_dimensions=FULL_MESH)
+    del g
+    check_errors(f"{label} particle_mesh_ewald forces vs "
+                 "grid_particle_mesh_ewald", f_p, f_g,
+                 ELEC_BARS["pme_vs_grid"])
+    check_errors(f"{label} particle_mesh_ewald energies vs "
+                 "grid_particle_mesh_ewald", e_p, e_g,
+                 ELEC_BARS["pme_vs_grid"])
+    stages = {
+        "cell_list": build,
+        "ewald_real_space": lambda: ewald_real_space(
+            pos, q, cell, alpha, neighbor_matrix=nm,
+            neighbor_matrix_shifts=sh, compute_forces=True),
+        "pme_reciprocal_space": lambda: pme_reciprocal_space(
+            pos, q, cell, alpha, mesh_dimensions=FULL_MESH,
+            compute_forces=True),
+    }
+    steady = {name: cuda_time_ms(fn, reps=3) for name, fn in stages.items()}
+    phase(f"{label} stage ms (CUDA events, median of 3 after a warm-up): "
+          + ", ".join(f"{k_} {v:.3f}" for k_, v in steady.items()))
+    profile_step(f"{label} cell list + real space + PME", lambda: (
+        stages["cell_list"](), stages["ewald_real_space"](),
+        stages["pme_reciprocal_space"]()))
+    compare_kernels(capture.calls, f"{label} particle_mesh_ewald")
+    del nm, sh, e_r, f_r, e_p, f_p, e_g, f_g
+
+    # -- the simple-cubic crystal ------------------------------------------
+    a, rc = CRYSTAL["a"], CRYSTAL["cutoff"]
+
+    def crystal(n_rep):
+        pts = np.stack(np.meshgrid(*([np.arange(n_rep)] * 3), indexing="ij"),
+                       -1).reshape(-1, 3) * a
+        return (torch.as_tensor(pts, dtype=torch.float32, device=dev),
+                torch.eye(3, device=dev) * (n_rep * a))
+
+    pos_x, cell_x = crystal(CRYSTAL["cell_list_n_rep"])
+    nx_ = pos_x.shape[0]
+    kx = 32
+
+    def crystal_cells(half=False):
+        return cell_list(pos_x, rc, cell_x, pbc, max_neighbors=kx,
+                         half_fill=half)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    nm, num, sh = crystal_cells()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not bool((num == 18).all()):
+        raise AssertionError(f"crystal {nx_}: counts {num.min().item()}.."
+                             f"{num.max().item()}, expected 18")
+    _, half, _ = crystal_cells(True)
+    if int(half.sum()) != 9 * nx_:
+        raise AssertionError(f"crystal {nx_}: half_fill gave "
+                             f"{int(half.sum())} pairs, expected {9 * nx_}")
+    ms_cl = cuda_time_ms(crystal_cells, reps=3)
+    phase(f"crystal {nx_} atoms (a = {a} A, {rc} A) cell_list: every atom "
+          f"18 neighbors, half_fill {9 * nx_} pairs; {ms_cl:.3f} ms (CUDA "
+          f"events, median of 3; reference H100 "
+          f"{REFERENCE_MS['cell list 262,144']} ms), peak memory "
+          f"{peak / 2**20:.1f} MiB")
+    del nm, sh
+    pos_x, cell_x = crystal(CRYSTAL["naive_n_rep"])
+    nx_ = pos_x.shape[0]
+    nm_n, num_n, sh_n = naive_neighbor_list(pos_x, rc, pbc=pbc, cell=cell_x,
+                                            max_neighbors=kx)
+    nm_c, num_c, sh_c = cell_list(pos_x, rc, cell_x, pbc, max_neighbors=kx)
+    same = torch.equal(row_keys(nm_n, num_n, sh_n, nx_),
+                       row_keys(nm_c, num_c, sh_c, nx_))
+    lst, ptr, _ = naive_neighbor_list(pos_x, rc, pbc=pbc, cell=cell_x,
+                                      max_neighbors=kx,
+                                      return_neighbor_list=True)
+    if not (same and bool((num_n == 18).all())
+            and lst.shape[1] == int(ptr[-1]) == int(num_n.sum())):
+        raise AssertionError(f"crystal {nx_}: naive and cell list differ "
+                             f"({same}) or the CSR form is off")
+    ms_naive = cuda_time_ms(lambda: naive_neighbor_list(
+        pos_x, rc, pbc=pbc, cell=cell_x, max_neighbors=kx), reps=3)
+    phase(f"crystal {nx_} atoms naive_neighbor_list: rows equal the cell "
+          f"list's as sets, CSR length {lst.shape[1]}; {ms_naive:.3f} ms "
+          f"(CUDA events, median of 3; reference H100 16,384 atoms "
+          f"{REFERENCE_MS['naive 16,384']} ms)")
+    del nm_n, sh_n, nm_c, sh_c, lst
+
+    # -- batched Ewald and PME (the 16 x 2,000 case) -----------------------
+    systems = ewald_batch_systems(dev)
+    nb, na, _ = EWALD_BATCH["cases"][1]
+    pos_b, q_b, cells_b, bidx = systems[(nb, na)]
+    acc = EWALD_BATCH["accuracy"]
+    label = f"batch {nb} x {na:,}"
+    params = estimate_ewald_parameters(pos_b, cells_b, bidx, acc)
+    rc_b = float(params.real_space_cutoff.max())
+
+    def batch_run(dtype):
+        p, qq, cc = pos_b.to(dtype), q_b.to(dtype), cells_b.to(dtype)
+        k_b = density_max_neighbors(na, cc[:1], rc_b)
+        nm, num, sh = neighbor_list(p, rc_b, cell=cc, pbc=pbc,
+                                    batch_idx=bidx, max_neighbors=k_b)
+        assert_max_neighbors(nm, num)
+        ew = ewald_summation(p, qq, cc, batch_idx=bidx, neighbor_matrix=nm,
+                             neighbor_matrix_shifts=sh, compute_forces=True,
+                             accuracy=acc)
+        pm = particle_mesh_ewald(p, qq, cc, batch_idx=bidx,
+                                 neighbor_matrix=nm,
+                                 neighbor_matrix_shifts=sh,
+                                 compute_forces=True, accuracy=acc)
+        return ew, pm, (k_b, int(num.max()), int(num.sum()))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (ew, pm, nl_info), _ = drive(f"{label} neighbor_list + ewald_summation "
+                                 "+ particle_mesh_ewald (f32)",
+                                 lambda: batch_run(torch.float32), [])
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name, (e, f) in (("ewald", ew), ("pme", pm)):
+        if not (torch.isfinite(e).all() and torch.isfinite(f).all()):
+            raise AssertionError(f"{label} {name}: non-finite")
+        check_forces(f"{label} {name}", f.reshape(nb, na, 3))
+    ew64, pm64, _ = batch_run(torch.float64)
+    phase(f"{label}: alpha {float(params.alpha[0]):.4f}, real-space cutoff "
+          f"{rc_b:.3f} A, K {nl_info[0]}, max count {nl_info[1]}, "
+          f"{nl_info[2]} pairs, mesh "
+          f"{pme.estimate_pme_mesh_dimensions(cells_b, params.alpha, acc)};"
+          f" peak memory {peak / 2**20:.1f} MiB")
+    check_errors(f"{label} ewald_summation forces f32 vs f64", ew[1],
+                 ew64[1], ELEC_BARS["batch_ewald_f32_vs_f64"])
+    check_errors(f"{label} particle_mesh_ewald forces f32 vs f64", pm[1],
+                 pm64[1], ELEC_BARS["batch_pme_f32_vs_f64"])
+    check_errors(f"{label} particle_mesh_ewald vs ewald_summation forces "
+                 "(f64)", pm64[1], ew64[1], ELEC_BARS["batch_ewald_vs_pme"])
+    del ew64, pm64
+    alpha_b = float(params.alpha[0])
+    mesh_d = EWALD_BATCH["dense_mesh"]
+    e_i, f_i = pme_reciprocal_space(pos_b, q_b, cells_b, alpha_b,
+                                    mesh_dimensions=mesh_d, batch_idx=bidx,
+                                    compute_forces=True)
+    (e_d, f_d), _ = drive(
+        f"{label} batch_pme_reciprocal at {mesh_d[0]}^3 (dense engine)",
+        lambda: batch_pme_reciprocal(
+            pos_b.reshape(nb, na, 3), q_b.reshape(nb, na), cells_b,
+            alpha_b, mesh_d, compute_forces=True, engine="dense"),
+        dense_keys, forbid=win_keys)
+    check_errors(f"{label} pme_reciprocal_space(batch_idx) vs "
+                 "batch_pme_reciprocal forces", f_i.reshape(nb, na, 3),
+                 f_d, ELEC_BARS["batch_idx_vs_dense"])
+    phase(f"{label} pme_reciprocal_space(batch_idx) vs batch_pme_reciprocal"
+          f" energies: max |diff| "
+          f"{(e_i.reshape(nb, na) - e_d).abs().max().item():.3e}")
+    for (b, n_s), (p, qq, cc, bi) in sorted(systems.items()):
+        prm = estimate_ewald_parameters(p[:n_s], cc[0], None, acc)
+        kv = generate_k_vectors_ewald_summation(
+            cc, float(prm.reciprocal_space_cutoff[0]))
+        a_arr = torch.full((b,), float(prm.alpha[0]), device=dev)
+
+        def recip():
+            return ewald_reciprocal_space(p, qq, cc, kv, a_arr,
+                                          batch_idx=bi)
+
+        ms = cuda_time_ms(recip, reps=3)
+        dev_ms = device_time_ms(recip, reps=3)
+        phase(f"ewald_reciprocal_space energies {b} x {n_s} "
+              f"({kv.shape[1]} k-vectors): {ms:.3f} ms (CUDA events, median"
+              f" of 3), device {dev_ms:.3f} ms (reference H100 "
+              f"{REFERENCE_MS.get(f'ewald recip {b} x {n_s:,}')} ms)")
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -1511,6 +1878,12 @@ def main():
 
     # -- phase 12: the voxel stencil and the hybrid D3 engine ---------------
     rows12 = run_stencil(dev)
+
+    # -- phase 13: neighbor lists and list/matrix electrostatics -----------
+    run_neighbor_electrostatics(dev, {
+        "pos": pos, "q": q, "cell": cell, "e_c": e_c, "f_c": f_c,
+        "grid": lambda: build_atom_grid(pos, cell, pbc, dims, radius, gcap,
+                                        origin=origin)})
 
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),

@@ -1,7 +1,10 @@
 # SPDX-License-Identifier: Apache-2.0
-"""PME reciprocal-space electrostatics (counterpart of
-``nvalchemiops_tpu.interactions.electrostatics.pme``): one system, and
-uniform batches of systems.
+"""Particle mesh Ewald (counterpart of
+``nvalchemiops_tpu.interactions.electrostatics.pme``): the reciprocal space
+for one system, for concatenated systems (``batch_idx``) and for uniform
+batches; the full PME over a neighbor structure
+(:func:`particle_mesh_ewald`) and over the halo grid
+(:func:`grid_particle_mesh_ewald`).
 
 Pipeline: spread the charges (tile-windowed or dense separable spline) ->
 ``torch.fft.rfftn`` -> divide by the B-spline dealiasing factor, multiply
@@ -16,17 +19,18 @@ Two spline engines, each on its CUDA kernels:
   single-system default, and ``batch_pme_reciprocal(engine="windowed")``;
 - dense separable (``spline.py`` dense path, kernels/separable_spline.py):
   ``batch_pme_reciprocal(engine="dense")`` (auto for meshes up to 32^3, a
-  TPU-fit gate kept as the default) and the fallback of
-  :func:`pme_reciprocal_space` when a mesh tile holds more atoms than its
-  capacity.
+  TPU-fit gate kept as the default) and the route of
+  :func:`pme_reciprocal_space` for one system when a mesh tile holds more
+  atoms than its capacity or the mesh does not suit the windows.
+
+Concatenated systems (``batch_idx``) take the scatter spline path of
+``spline.py`` (``index_add_`` and indexing), as the JAX package runs them
+as XLA scatter and gather.
 
 Conventions as in the JAX package: ``G(k) = 2 pi exp(-k^2/(4 alpha^2)) /
 (V k^2)``, dealiasing ``[sinc(mx/nx) sinc(my/ny) sinc(mz/nz)]^order``
 squared, unscaled forward and inverse transforms, and ``E_i -= (alpha /
-sqrt(pi)) q_i^2 + (pi / (2 alpha^2 V)) q_i Q``.  A mesh the windowed path
-does not support raises ``NotImplementedError`` in
-:func:`pme_reciprocal_space` (the JAX package's scatter-add path is a
-ROADMAP item).
+sqrt(pi)) q_i^2 + (pi / (2 alpha^2 V)) q_i Q``.
 """
 
 from __future__ import annotations
@@ -36,8 +40,17 @@ import math
 import torch
 
 from nvalchemiops_torch import spline_windowed as sw
+from nvalchemiops_torch.grid import grid_coulomb_energy_forces
+from nvalchemiops_torch.interactions.electrostatics.ewald import (
+    ewald_real_space, returns,
+)
 from nvalchemiops_torch.interactions.electrostatics.k_vectors import (
     generate_k_vectors_pme,
+)
+from nvalchemiops_torch.interactions.electrostatics.parameters import (
+    estimate_ewald_parameters,
+    estimate_pme_mesh_dimensions,
+    mesh_spacing_to_dimensions,
 )
 from nvalchemiops_torch.kernels.separable_spline import (
     separable_gather,
@@ -46,9 +59,12 @@ from nvalchemiops_torch.kernels.separable_spline import (
 from nvalchemiops_torch.mathops.math import (
     apply_mat3_batched, sinc_normalized,
 )
-from nvalchemiops_torch.spline import _stencil
+from nvalchemiops_torch.spline import (
+    _stencil, spline_gather, spline_gather_gradient, spline_spread,
+)
 
 __all__ = ["pme_green_structure_factor", "pme_reciprocal_space",
+           "particle_mesh_ewald", "grid_particle_mesh_ewald",
            "batch_pme_reciprocal"]
 
 TWOPI = 2.0 * math.pi
@@ -143,17 +159,6 @@ def _finish(charges, raw, grad_frac, inv, alpha, cell, compute_forces,
         # remove it uniformly per system (the standard SPME remedy)
         forces = forces - forces.mean(dim=-2, keepdim=True)
     return energies, forces, charge_grads
-
-
-def _returns(energies, forces, charge_grads):
-    """The four return patterns of the JAX package."""
-    if forces is not None and charge_grads is not None:
-        return energies, forces, charge_grads
-    if forces is not None:
-        return energies, forces
-    if charge_grads is not None:
-        return energies, charge_grads
-    return energies
 
 
 def _windowed_pme(tiles, charges, cell, alpha, spline_order: int,
@@ -258,6 +263,63 @@ def _check_pme_knobs(fft_mode, spread_engine, gather_engine,
                              f"{value!r}")
 
 
+def _mesh_dims(cell_b, alpha, mesh_dimensions, mesh_spacing, accuracy):
+    """The mesh: as given, else from ``mesh_spacing``, else from the
+    accuracy estimate (host side, static FFT shapes)."""
+    if mesh_dimensions is not None:
+        return tuple(int(d) for d in mesh_dimensions)
+    if mesh_spacing is not None:
+        return mesh_spacing_to_dimensions(cell_b, mesh_spacing)
+    return estimate_pme_mesh_dimensions(cell_b, alpha, accuracy)
+
+
+def _batch_idx_pme(positions, charges, cell_b, alpha_b, mesh_dimensions,
+                   spline_order: int, batch_idx, compute_forces: bool,
+                   compute_charge_gradients: bool, k_squared=None):
+    """Concatenated systems through the scatter spline path: per-system
+    ``Q``, ``alpha`` and volume in the corrections, and each system's net
+    force removed."""
+    num_systems = cell_b.shape[0]
+    b_of = torch.as_tensor(batch_idx, device=positions.device).long()
+    mesh = spline_spread(positions, charges, cell_b, mesh_dimensions,
+                         spline_order, batch_idx=b_of)
+    if mesh.dim() == 3:
+        mesh = mesh[None]
+    if k_squared is None:
+        _, k_squared = generate_k_vectors_pme(cell_b, mesh_dimensions)
+    potential = _potential(mesh, cell_b, alpha_b, mesh_dimensions,
+                           spline_order, k_squared.reshape(
+                               (-1,) + tuple(k_squared.shape[-3:])))
+    raw = spline_gather(positions, potential, cell_b, spline_order,
+                        batch_idx=b_of)
+
+    def per_system(v):
+        return torch.zeros((num_systems,) + tuple(v.shape[1:]),
+                           dtype=v.dtype, device=v.device).index_add(0, b_of,
+                                                                     v)
+
+    volume = torch.abs(torch.linalg.det(cell_b))
+    alpha_a, vol_a = alpha_b[b_of], volume[b_of]
+    q_tot_a = per_system(charges)[b_of]
+    energies = (charges * raw - (alpha_a / SQRT_PI) * charges * charges
+                - (math.pi / (2.0 * alpha_a ** 2)) * charges * q_tot_a
+                / vol_a)
+    charge_grads = None
+    if compute_charge_gradients:
+        charge_grads = (2.0 * raw - 2.0 * (alpha_a / SQRT_PI) * charges
+                        - (math.pi / alpha_a ** 2) * q_tot_a / vol_a)
+    forces = None
+    if compute_forces:
+        forces = 2.0 * spline_gather_gradient(
+            positions, charges, potential, cell_b, spline_order,
+            batch_idx=b_of)
+        counts = per_system(torch.ones_like(charges))
+        net = per_system(forces)
+        forces = forces - net[b_of] / torch.clamp(counts[b_of],
+                                                  min=1.0)[:, None]
+    return energies, forces, charge_grads
+
+
 def pme_reciprocal_space(
     positions,
     charges,
@@ -277,57 +339,115 @@ def pme_reciprocal_space(
     gather_engine: str = "xla",
     spread_engine: str = "xla",
 ):
-    """FFT-based reciprocal-space PME for one system.
+    """FFT-based reciprocal-space PME.
 
     Return patterns: ``energies``, ``(energies, forces)``,
     ``(energies, charge_grads)``, ``(energies, forces, charge_grads)``.
-    ``tile_capacity`` overrides the Poisson-safe tile capacity with an
-    observed one (:func:`spline_windowed.observed_tile_capacity`).  When a
-    tile holds more atoms than its capacity, the spread and gathers take
-    the dense separable path (as the JAX package's fallback does).  Raises
-    ``NotImplementedError`` for a mesh the windowed path does not support.
+    The mesh is ``mesh_dimensions``, else chosen from ``mesh_spacing``,
+    else from ``accuracy`` (:mod:`parameters`).
 
-    The parameters are the JAX package's, in its order.  Not ported, each
-    raising ``NotImplementedError`` (ROADMAP.md): ``batch_idx``, a mesh
-    chosen from ``mesh_spacing`` or ``accuracy`` (no ``mesh_dimensions``:
-    both wait for ``parameters.py``) and ``fft_mode="matmul"``.
+    One system takes the tile-windowed pipeline; ``tile_capacity``
+    overrides its Poisson-safe tile capacity with an observed one
+    (:func:`spline_windowed.observed_tile_capacity`).  Where a tile holds
+    more atoms than its capacity, or the mesh does not suit the windows
+    (a dimension not a multiple of 8), the spread and gathers take the
+    dense separable path.  Concatenated systems (``batch_idx``, with
+    ``cell [B, 3, 3]`` and ``alpha`` scalar or ``[B]``) take the scatter
+    path of ``spline.py``.
+
+    The parameters are the JAX package's, in its order.
+    ``fft_mode="matmul"`` is not ported (``NotImplementedError``, ROADMAP);
     ``spread_engine`` / ``gather_engine``: see :func:`_check_pme_knobs`.
     """
     _check_pme_knobs(fft_mode, spread_engine, gather_engine)
+    dtype, device = positions.dtype, positions.device
+    cell_b = torch.as_tensor(cell, dtype=dtype, device=device).reshape(
+        -1, 3, 3)
+    alpha_b = torch.broadcast_to(torch.as_tensor(
+        alpha, dtype=dtype, device=device).reshape(-1), (cell_b.shape[0],))
+    mesh_dimensions = _mesh_dims(cell_b, alpha_b, mesh_dimensions,
+                                 mesh_spacing, accuracy)
     if batch_idx is not None:
-        raise NotImplementedError(
-            "pme_reciprocal_space(batch_idx=...) is not ported (ROADMAP.md, "
-            "queue 1 item 3); batch_pme_reciprocal takes uniform batches")
-    if mesh_dimensions is None:
-        raise NotImplementedError(
-            "pme_reciprocal_space needs mesh_dimensions: a mesh from "
-            f"mesh_spacing={mesh_spacing!r} or accuracy={accuracy!r} waits "
-            "for parameters.py (ROADMAP.md, queue 1 item 3)")
-    dtype = positions.dtype
+        out = _batch_idx_pme(positions, charges, cell_b, alpha_b,
+                             mesh_dimensions, spline_order, batch_idx,
+                             compute_forces, compute_charge_gradients,
+                             k_squared)
+        return returns(*out)
     n = positions.shape[0]
-    mesh_dimensions = tuple(int(d) for d in mesh_dimensions)
-    cell = torch.as_tensor(cell, dtype=dtype,
-                           device=positions.device).reshape(3, 3)
-    if not sw.windowed_applicable(mesh_dimensions, spline_order):
-        raise NotImplementedError(
-            f"mesh {mesh_dimensions} / order {spline_order}: only the "
-            "tile-windowed path (every mesh dim a multiple of 8, order <= 4) "
-            "is ported; the scatter-add spline path is a ROADMAP item")
-    cap = tile_capacity or sw.mesh_tile_capacity(n, mesh_dimensions)
-    tiles = sw.build_mesh_tiles(positions, cell, mesh_dimensions,
-                                spline_order, cap, need_grad=compute_forces)
+    cell = cell_b[0]
+    alpha = alpha_b[0]
     if k_squared is None:
         _, k_squared = generate_k_vectors_pme(cell, mesh_dimensions)
-    if int(tiles.counts_max) <= cap:
-        out = _windowed_pme(tiles, charges, cell, alpha, spline_order,
-                            compute_forces, compute_charge_gradients,
-                            k_squared)
-    else:
-        out = _dense_pme_single(positions, charges, cell, alpha,
-                                mesh_dimensions, spline_order,
-                                compute_forces, compute_charge_gradients,
-                                k_squared)
-    return _returns(*out)
+    k_squared = k_squared.reshape(tuple(k_squared.shape[-3:]))
+    if sw.windowed_applicable(mesh_dimensions, spline_order):
+        cap = tile_capacity or sw.mesh_tile_capacity(n, mesh_dimensions)
+        tiles = sw.build_mesh_tiles(positions, cell, mesh_dimensions,
+                                    spline_order, cap,
+                                    need_grad=compute_forces)
+        if int(tiles.counts_max) <= cap:
+            return returns(*_windowed_pme(
+                tiles, charges, cell, alpha, spline_order, compute_forces,
+                compute_charge_gradients, k_squared))
+    return returns(*_dense_pme_single(
+        positions, charges, cell, alpha, mesh_dimensions, spline_order,
+        compute_forces, compute_charge_gradients, k_squared))
+
+
+def particle_mesh_ewald(
+    positions,
+    charges,
+    cell,
+    alpha=None,
+    mesh_spacing=None,
+    mesh_dimensions=None,
+    spline_order: int = 4,
+    batch_idx=None,
+    k_vectors=None,
+    k_squared=None,
+    neighbor_list=None,
+    neighbor_ptr=None,
+    neighbor_shifts=None,
+    neighbor_matrix=None,
+    neighbor_matrix_shifts=None,
+    mask_value: int | None = None,
+    compute_forces: bool = False,
+    compute_charge_gradients: bool = False,
+    accuracy: float = 1e-6,
+):
+    """Full PME: the real space over the neighbor data
+    (:func:`ewald.ewald_real_space`) plus :func:`pme_reciprocal_space`.
+    ``alpha`` defaults to the Kolafa-Perram estimate; the mesh as in
+    :func:`pme_reciprocal_space`.  Per-atom energies, in the return
+    patterns of :func:`pme_reciprocal_space`."""
+    dtype, device = positions.dtype, positions.device
+    cell_b = torch.as_tensor(cell, dtype=dtype, device=device).reshape(
+        -1, 3, 3)
+    if mask_value is None:
+        mask_value = positions.shape[0]
+    if alpha is None:
+        alpha = estimate_ewald_parameters(positions, cell_b, batch_idx,
+                                          accuracy).alpha
+    alpha_arr = torch.as_tensor(alpha, dtype=dtype, device=device).reshape(
+        -1)
+    mesh_dimensions = _mesh_dims(cell_b, alpha_arr, mesh_dimensions,
+                                 mesh_spacing, accuracy)
+    rs = ewald_real_space(
+        positions, charges, cell_b, alpha_arr,
+        neighbor_list=neighbor_list, neighbor_ptr=neighbor_ptr,
+        neighbor_shifts=neighbor_shifts, neighbor_matrix=neighbor_matrix,
+        neighbor_matrix_shifts=neighbor_matrix_shifts,
+        mask_value=mask_value, batch_idx=batch_idx,
+        compute_forces=compute_forces,
+        compute_charge_gradients=compute_charge_gradients)
+    rec = pme_reciprocal_space(
+        positions, charges, cell_b, alpha_arr,
+        mesh_dimensions=mesh_dimensions, spline_order=spline_order,
+        batch_idx=batch_idx, compute_forces=compute_forces,
+        compute_charge_gradients=compute_charge_gradients,
+        k_vectors=k_vectors, k_squared=k_squared)
+    if compute_forces or compute_charge_gradients:
+        return tuple(a + b for a, b in zip(rs, rec))
+    return rs + rec
 
 
 def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
@@ -397,4 +517,33 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
     else:
         raise ValueError(f"unknown batched PME engine {engine!r}; one of "
                          "'auto', 'dense', 'windowed'")
-    return _returns(*out)
+    return returns(*out)
+
+
+def grid_particle_mesh_ewald(grid, positions, charges, cell, cutoff,
+                             alpha=None, mesh_dimensions=None,
+                             spline_order: int = 4, accuracy: float = 1e-6,
+                             tile_capacity: int | None = None,
+                             fft_mode: str = "xla"):
+    """Full PME at scale: the erfc-damped real space on the halo grid
+    (``grid.grid_coulomb_energy_forces``, the window engine) plus the
+    tile-windowed reciprocal space.  ``grid`` must have been built from
+    ``positions`` with a radius of at least ``cutoff``.  ``alpha``
+    defaults to ``sqrt(-ln(accuracy)) / cutoff``; the mesh to the accuracy
+    estimate.  Returns per-atom ``(energies, forces)``."""
+    dtype = positions.dtype
+    cell_b = torch.as_tensor(cell, dtype=dtype,
+                             device=positions.device).reshape(-1, 3, 3)
+    if alpha is None:
+        alpha = math.sqrt(-math.log(accuracy)) / float(cutoff)
+    alpha_f = float(torch.as_tensor(alpha).reshape(()))
+    if mesh_dimensions is None:
+        mesh_dimensions = estimate_pme_mesh_dimensions(cell_b, [alpha_f],
+                                                       accuracy)
+    e_real, f_real = grid_coulomb_energy_forces(grid, charges, float(cutoff),
+                                                alpha_f)
+    e_rec, f_rec = pme_reciprocal_space(
+        positions, charges, cell_b, alpha_f,
+        mesh_dimensions=mesh_dimensions, spline_order=spline_order,
+        compute_forces=True, tile_capacity=tile_capacity, fft_mode=fft_mode)
+    return e_real + e_rec, f_real + f_rec

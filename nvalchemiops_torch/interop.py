@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from nvalchemiops_torch.grid import AtomGrid
+from nvalchemiops_torch.neighborlist.batch_cell_list import BatchCellList
+from nvalchemiops_torch.neighborlist.cell_list import CellList
 from nvalchemiops_torch.spline_windowed import MeshTiles
 from nvalchemiops_torch.stencil import StencilGrid
 from nvalchemiops_torch.types import INDEX_DTYPE
@@ -23,7 +25,8 @@ from nvalchemiops_torch.types import INDEX_DTYPE
 __all__ = ["ATOM_GRID_FIELDS", "MESH_TILES_FIELDS", "STENCIL_GRID_FIELDS",
            "atom_grid_from_numpy", "batch_atom_grid_from_numpy",
            "stencil_grid_from_numpy", "mesh_tiles_from_numpy",
-           "d3_tables_from_numpy"]
+           "d3_tables_from_numpy", "cell_list_from_numpy",
+           "batch_cell_list_from_numpy"]
 
 #: array fields of an AtomGrid (both packages use these names)
 ATOM_GRID_FIELDS = ("ext_px", "ext_py", "ext_pz", "ext_valid", "ext_aid",
@@ -132,3 +135,19 @@ def d3_tables_from_numpy(rcov, r4r2, c6ab, cn_ref_elem, dtype=torch.float64,
     return {"rcov": t(rcov), "r4r2": t(r4r2), "c6ab": t(c6ab),
             "cn_ref_elem": t(cn_ref_elem)}
 
+
+
+def cell_list_from_numpy(fields: Mapping[str, np.ndarray],
+                         device="cuda") -> CellList:
+    """CellList from the JAX build's fields (numpy, keyed by the field
+    names both packages use); every field becomes int32."""
+    return CellList(**{f: torch.from_numpy(np.array(fields[f])).to(
+        device=device, dtype=INDEX_DTYPE) for f in CellList._fields})
+
+
+def batch_cell_list_from_numpy(fields: Mapping[str, np.ndarray],
+                               device="cuda") -> BatchCellList:
+    """BatchCellList from the JAX batched build's fields (numpy); every
+    field becomes int32."""
+    return BatchCellList(**{f: torch.from_numpy(np.array(fields[f])).to(
+        device=device, dtype=INDEX_DTYPE) for f in BatchCellList._fields})

@@ -1,6 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
 """CUDA kernels of the PyTorch port against their plain versions, on the
-card.  Every test here needs a CUDA device and skips without one.
+card, and the plain-torch entry points (neighbor lists, Coulomb, Ewald,
+PME) on the card against the same calls on CPU tensors.  Every test here
+needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the test helpers that do, so it also
 runs where JAX is not installed:
@@ -984,3 +986,117 @@ def test_stencil_kernel_segments_match_plain(cuda, counts, radius, cutoff):
         second = st.stencil_sweep(body, *args, **kwargs)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+
+def _crystal(n_rep, seed=5, a=3.0, jitter=0.1):
+    """Simple-cubic crystal jittered by +-``jitter``: at a 3.6 A cutoff no
+    pair lies within 0.25 A of it (shells at 3.0 and 4.24 A)."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack(np.meshgrid(*([np.arange(n_rep)] * 3), indexing="ij"),
+                   -1).reshape(-1, 3) * a
+    pos = pts + rng.uniform(-jitter, jitter, pts.shape)
+    return pos, np.eye(3) * n_rep * a
+
+
+def _row_keys(nm, sh, fill):
+    code = ((sh[..., 0] + 1) * 9 + (sh[..., 1] + 1) * 3 + sh[..., 2] + 1)
+    keys = torch.where(nm != fill, nm.long() * 27 + code.long(),
+                       torch.full((), 2 ** 62, device=nm.device))
+    return keys.sort(dim=1).values.cpu()
+
+
+@pytest.mark.parametrize("method", ["naive", "cell_list", "batch_naive",
+                                    "batch_cell_list"])
+@pytest.mark.parametrize("half_fill", [False, True])
+def test_neighbor_lists_on_card_match_cpu(cuda, method, half_fill):
+    """Neighbor rows (as sets) and counts on the card equal the same entry
+    point's on CPU tensors, f64, no pair near the cutoff."""
+    from nvalchemiops_torch.neighborlist import neighbor_list
+
+    pos, cell = _crystal(6)
+    n = pos.shape[0]
+    kw = dict(method=method, half_fill=half_fill, max_neighbors=32,
+              pbc=np.array([True] * 3))
+    if method.startswith("batch"):
+        pos = np.concatenate([pos, pos[::-1] + 0.05])
+        cell = np.stack([cell, cell])
+        kw["batch_idx"] = torch.arange(2).repeat_interleave(n)
+        kw["pbc"] = np.array([[True] * 3] * 2)
+    outs = []
+    for dev in ("cpu", cuda):
+        args = dict(kw)
+        if "batch_idx" in args:
+            args["batch_idx"] = args["batch_idx"].to(dev)
+        nm, num, sh = neighbor_list(
+            torch.as_tensor(pos, device=dev), 3.6,
+            cell=torch.as_tensor(cell, device=dev), **args)
+        assert nm.device.type == torch.device(dev).type
+        outs.append((num.cpu(), _row_keys(nm, sh, pos.shape[0])))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    # 6 neighbors each within 3.6 A; half_fill keeps each pair once
+    assert int(outs[0][0].sum()) == (3 if half_fill else 6) * pos.shape[0]
+
+
+def _elec_inputs(device, dtype=torch.float64):
+    from nvalchemiops_torch.neighborlist import neighbor_list
+
+    rng = np.random.default_rng(8)
+    pos, cell = _crystal(6, seed=8)
+    q = rng.normal(size=pos.shape[0])
+    q -= q.mean()
+    t = [torch.as_tensor(a, dtype=dtype, device=device)
+         for a in (pos, q, cell)]
+    nm, num, sh = neighbor_list(t[0], 6.0, cell=t[2],
+                                pbc=np.array([True] * 3), max_neighbors=128)
+    lst = neighbor_list(t[0], 6.0, cell=t[2], pbc=np.array([True] * 3),
+                        max_neighbors=128, return_neighbor_list=True)
+    return t, dict(neighbor_matrix=nm, neighbor_matrix_shifts=sh), dict(
+        neighbor_list=lst[0], neighbor_ptr=lst[1], neighbor_shifts=lst[2])
+
+
+def _close_cpu(out, ref, rtol=1e-5):
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(out) == len(ref)
+    for a, b in zip(out, ref):
+        assert a.device.type == "cuda"
+        a, b = a.double().cpu(), b.double().cpu()
+        err = (a - b).abs().max().item()
+        assert err <= rtol * b.abs().max().item(), (err, b.abs().max())
+
+
+@pytest.mark.parametrize("entry", ["coulomb_matrix", "coulomb_list",
+                                   "ewald_summation", "particle_mesh_ewald",
+                                   "pme_batch_idx"])
+def test_electrostatics_on_card_match_cpu(cuda, entry):
+    """Coulomb, Ewald and PME energies and forces on the card against the
+    same entry point on CPU tensors, f64, at 1e-5 of scale; the
+    single-system PME runs its f32 kernels on the card (the kernels take
+    f32 only) against f64 on the CPU."""
+    from nvalchemiops_torch.interactions import electrostatics as te
+
+    def run(device, dtype=torch.float64):
+        (pos, q, cell), matrix, listed = _elec_inputs(device, dtype)
+        if entry == "coulomb_matrix":
+            return te.coulomb_energy_forces(pos, q, cell, 6.0, 0.3, **matrix)
+        if entry == "coulomb_list":
+            return te.coulomb_energy_forces(pos, q, cell, 6.0, 0.0, **listed)
+        if entry == "ewald_summation":
+            return te.ewald_summation(pos, q, cell, **matrix,
+                                      compute_forces=True, accuracy=1e-5)
+        if entry == "particle_mesh_ewald":
+            return te.particle_mesh_ewald(pos, q, cell, 0.4,
+                                          mesh_dimensions=(32, 32, 32),
+                                          **matrix, compute_forces=True)
+        n = pos.shape[0]
+        bidx = torch.arange(n, device=device) * 2 // n
+        cells = torch.stack([cell, cell])
+        return te.pme_reciprocal_space(pos, q, cells, 0.4, (32, 32, 32),
+                                       batch_idx=bidx, compute_forces=True)
+
+    ref = run("cpu")
+    if entry == "particle_mesh_ewald":
+        _close_cpu(run(cuda, torch.float32), ref)
+    else:
+        _close_cpu(run(cuda), ref)

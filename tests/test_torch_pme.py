@@ -175,21 +175,19 @@ def test_pme_reciprocal_space_matches_jax(system, compute_forces):
 
 
 def test_pme_raises_where_jax_falls_back(system):
-    """Tile overflow now falls back to the dense path, as in the JAX
-    package; a mesh the windowed path does not support still raises."""
+    """Tile overflow falls back to the dense path, as in the JAX package;
+    so does a mesh the windowed path does not support (15 x 16 x 16),
+    which used to raise."""
     pos, cell, q = system
     args = (torch.as_tensor(pos), torch.as_tensor(q), torch.as_tensor(cell),
             ALPHA)
-    out_t = tpme.pme_reciprocal_space(*args, mesh_dimensions=MESH,
-                                      compute_forces=True, tile_capacity=1)
-    out_j = jpme.pme_reciprocal_space(jnp.asarray(pos), jnp.asarray(q),
-                                      jnp.asarray(cell), ALPHA,
-                                      mesh_dimensions=MESH,
-                                      compute_forces=True, tile_capacity=1)
-    for a, b in zip(out_t, out_j):
-        assert_close(a, b, rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpme.pme_reciprocal_space(*args, mesh_dimensions=(15, 16, 16))
+    jargs = (jnp.asarray(pos), jnp.asarray(q), jnp.asarray(cell), ALPHA)
+    for kw in (dict(mesh_dimensions=MESH, tile_capacity=1),
+               dict(mesh_dimensions=(15, 16, 16))):
+        out_t = tpme.pme_reciprocal_space(*args, compute_forces=True, **kw)
+        out_j = jpme.pme_reciprocal_space(*jargs, compute_forces=True, **kw)
+        for a, b in zip(out_t, out_j):
+            assert_close(a, b, rtol=1e-9)
 
 
 def test_gather_kernel_wrapper_checks(tiles):

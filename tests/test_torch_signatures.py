@@ -302,9 +302,6 @@ def test_grid_dftd3_knobs():
     "grid_dftd3(compute_virial=True)", "grid_dftd3(engine='xla')",
     "grid_dftd3_coulomb(engine='xla')", "batch_grid_dftd3(engine='xla')",
     "dense_dftd3(engine='xla')", "batch_dense_dftd3(engine='xla')",
-    "pme_reciprocal_space(batch_idx=...)",
-    "pme_reciprocal_space(mesh_spacing=...)",
-    "pme_reciprocal_space(accuracy=...)",
     "pme_reciprocal_space(fft_mode='matmul')",
     "batch_pme_reciprocal(fft_mode='matmul')",
 ])
@@ -329,19 +326,6 @@ def test_unported_knobs_raise_naming_roadmap(call):
         "batch_dense_dftd3(engine='xla')": lambda: tdense.batch_dense_dftd3(
             pos_t, np.ones((2, 40), np.int32), torch.as_tensor(pcell), 3.5,
             *tab, A1, A2, S8, engine="xla"),
-        "pme_reciprocal_space(batch_idx=...)":
-            lambda: tpme.pme_reciprocal_space(
-                pos_t.reshape(-1, 3), q_t.reshape(-1),
-                torch.as_tensor(pcell), 0.35, (16, 16, 16),
-                batch_idx=torch.arange(80) // 40),
-        "pme_reciprocal_space(mesh_spacing=...)":
-            lambda: tpme.pme_reciprocal_space(
-                pos_t[0], q_t[0], torch.as_tensor(pcell), 0.35,
-                mesh_spacing=0.5),
-        "pme_reciprocal_space(accuracy=...)":
-            lambda: tpme.pme_reciprocal_space(
-                pos_t[0], q_t[0], torch.as_tensor(pcell), 0.35,
-                accuracy=1e-5),
         "pme_reciprocal_space(fft_mode='matmul')":
             lambda: tpme.pme_reciprocal_space(
                 pos_t[0], q_t[0], torch.as_tensor(pcell), 0.35, (16, 16, 16),
@@ -353,6 +337,35 @@ def test_unported_knobs_raise_naming_roadmap(call):
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calls[call]()
+
+
+@pytest.mark.parametrize("knob", ["batch_idx", "mesh_spacing", "accuracy"])
+def test_pme_mesh_and_batch_knobs_bind_as_in_jax(knob):
+    """``batch_idx`` (argument 8), ``mesh_spacing`` (argument 6, no mesh
+    given) and ``accuracy`` (argument 13, neither given), passed by
+    position, bind as in the JAX package and give its results."""
+    pos, q, pcell = _pme_system(109)
+    if knob == "batch_idx":
+        pos, q = pos.reshape(-1, 3), q.reshape(-1)
+        cell = np.stack([pcell, pcell])
+        bidx = np.repeat(np.arange(2), 40).astype(np.int32)
+        targs = ((16, 16, 16), None, 4, torch.as_tensor(bidx))
+        jargs = ((16, 16, 16), None, 4, jnp.asarray(bidx))
+    else:
+        pos, q, cell = pos[0], q[0], pcell
+        if knob == "mesh_spacing":
+            targs = jargs = (None, 0.5)
+        else:
+            targs = jargs = (None, None, 4, None, None, None, True, False,
+                             1e-5)
+    out = tpme.pme_reciprocal_space(torch.as_tensor(pos), torch.as_tensor(q),
+                                    torch.as_tensor(cell), 0.35, *targs)
+    ref = jpme.pme_reciprocal_space(jnp.asarray(pos), jnp.asarray(q),
+                                    jnp.asarray(cell), 0.35, *jargs)
+    out, ref = ((out,), (ref,)) if knob != "accuracy" else (out, ref)
+    assert len(out) == len(ref)
+    for a, r in zip(out, ref):
+        assert_close(a, r, rtol=1e-9)
 
 
 def test_tpu_only_knobs_are_checked():
