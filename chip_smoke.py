@@ -62,6 +62,24 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     port's plain path in f64 on the card on the same recipe at 13,824
     atoms.
 
+13. the neighbor lists and the list/matrix electrostatics (see
+    ``run_neighbor_electrostatics``);
+14. the spline, PME and electrostatics surface added last
+    (``run_surface``): ``grid.build_atom_grid_auto`` on the 109,744-atom
+    system (every atom slotted; window-engine D3 and Coulomb on it against
+    phase 4's forces); an MD loop of 10 steps of at most 0.01 A in which
+    the mesh-tile detector reads False, ``refresh_mesh_tiles`` and the
+    windowed PME on the refreshed tiles equal a fresh build bit for bit,
+    and a tile crossing reads True; the multi-channel spread and gathers
+    (C = 3) at 128^3 (windowed, kernel 3) and 36^3 (dense, kernels 5 and
+    6), each channel equal to its single-channel call and within
+    ``CHANNEL_F32_RTOL`` of the port's f64 plain path; the 64 x 2,000
+    batched PME with ``fft_mode="matmul"`` against ``"xla"`` and both
+    against f64; the dense Coulomb on the composite against the f64
+    reference and on the 64 x 2,000 batch against the list Coulomb; phase
+    3's PME errors before and after the local B-spline forms; every kernel
+    call of the phase replayed against its plain version.
+
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
 path.  Each replay of kernels 1, 2, 4, 7 and 8 at 109,744 atoms, at 128 x
@@ -169,6 +187,47 @@ ELEC_BARS = {
     "batch_ewald_vs_pme": (6.69e-8, 2.78e-7),
     "batch_idx_vs_dense": (1.21e-5, 5.87e-6),
 }
+# phase 14.  The MD loop of the mesh-tile refresh: steps, the largest
+# displacement of an atom in a step (A) and the seed of its generator; each
+# step moves every atom toward its tile's centre, so no atom leaves its
+# tile and the detector must read False.
+MD_REFRESH = dict(steps=10, max_step=0.01, seed=14)
+# the channel spread/gather meshes: the windowed route and a mesh the
+# windows reject (the dense route, as phase 13's 36^3)
+CHANNEL_MESHES = ((128, 128, 128), (36, 36, 36))
+# f32 channel spread/gather against the port's f64 plain path on the card:
+# max |f32 - f64| <= CHANNEL_F32_RTOL x max |f64| per output (the bar of a
+# kernel against its plain version: ~100 f32 ulps of the output's scale)
+CHANNEL_F32_RTOL = KERNEL_RTOL
+# the dense Coulomb of the 64 x 2,000 batch: 9 A, alpha 0.35
+DENSE_COULOMB = dict(cutoff=9.0, alpha=0.35)
+# phase 14's port-vs-port bars (max rel, RMS rel), both sides in f32
+# unless named, one bar for forces and energies: 1.25x the larger of the
+# readings of sound runs, rounded up (NVIDIA H100 80GB HBM3, 700 W; three
+# runs read the same bits; PERF.md).  Readings: the 64 x 2,000
+# PME batch with fft_mode "matmul" against "xla" 1.708e-6 / 7.022e-7
+# (forces; energies 3.538e-7 / 2.662e-7), each against the f64 plain path
+# 1.470e-6 / 7.865e-7 (matmul) and 9.208e-7 / 6.126e-7 (xla); the dense
+# Coulomb of the 64 x 2,000 batch against the list Coulomb 3.582e-5 /
+# 2.094e-5 (forces; energies 8.234e-6 / 2.629e-6), in f64 9.834e-8 /
+# 1.089e-7 (the erfc polynomial against the exact erfc), and its f32
+# forces against its f64 ones 3.568e-5 / 2.084e-5: uniform random
+# positions hold pairs far closer than a crystal's, and their f32
+# displacements (from fractional coordinates, as in the JAX package) set
+# the max.
+SURFACE_BARS = {
+    "matmul_vs_xla": (2.14e-6, 8.78e-7),
+    "pme_f32_vs_f64": (1.84e-6, 9.84e-7),
+    "dense_vs_list_coulomb": (4.48e-5, 2.62e-5),
+    "dense_vs_list_coulomb_f64": (1.23e-7, 1.37e-7),
+    "dense_coulomb_f32_vs_f64": (4.46e-5, 2.61e-5),
+}
+# phase 3's PME force errors against bench_acc_ref.npz (max rel, RMS rel)
+# on the tree before the local B-spline forms, whose single-system
+# engines took the expanded forms (that tree's chip_smoke.py on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; PERF.md)
+PARENT_PHASE3_PME = (7.533e-05, 9.164e-05)
+
 # the simple-cubic analytic oracle: a = 3.0 A, no
 # jitter, 4.5 A: 6 neighbors at 3.0 A and 12 at 4.24 A
 CRYSTAL = dict(a=3.0, cutoff=4.5, cell_list_n_rep=64, naive_n_rep=25)
@@ -281,7 +340,7 @@ def cuda_time_ms(fn, reps=5):
 LOST_PROFILES = []
 
 
-def device_time_ms(fn, reps=5, tries=3):
+def device_time_ms(fn, reps=5, tries=5):
     """Device time of one call of ``fn``: the CUDA kernels (memsets
     included) that one torch.profiler run of ``reps`` calls records, summed,
     over ``reps``.  Unlike :func:`cuda_time_ms` it leaves out the time the
@@ -290,8 +349,8 @@ def device_time_ms(fn, reps=5, tries=3):
     Every call of ``fn`` launches at least one kernel, so a run that
     records fewer launches than calls has lost device events (one run of
     a probe did, with none at all; PERF.md section 7): it is noted in
-    ``LOST_PROFILES`` and taken again, up to ``tries`` runs, and then this
-    raises.  It never returns None."""
+    ``LOST_PROFILES`` and taken again after a pause of a second, up to
+    ``tries`` runs, and then this raises.  It never returns None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,6 +369,7 @@ def device_time_ms(fn, reps=5, tries=3):
         if busy > 0 and launches >= reps:
             return busy / 1e3 / reps
         LOST_PROFILES.append((busy, launches, reps))
+        time.sleep(1.0)
     raise RuntimeError(f"device_time_ms: {tries} profiler runs of {reps} "
                        f"calls lost their device events: "
                        f"{LOST_PROFILES[-tries:]}")
@@ -1654,6 +1714,373 @@ def run_neighbor_electrostatics(dev, full):
               f"{REFERENCE_MS.get(f'ewald recip {b} x {n_s:,}')} ms)")
 
 
+def install_surface_capture():
+    """:func:`install_capture` plus the dense kernels as ``spline`` imported
+    them (the channel and vector routes)."""
+    from nvalchemiops_torch import spline
+
+    cap = install_capture()
+    cap.wrap(spline, "separable_spread", lambda *a: "separable_spread")
+    cap.wrap(spline, "separable_gather", lambda *a: "separable_gather")
+    return cap
+
+
+def check_equal(label, pairs):
+    """Fail unless each ``(name, a, b)`` holds equal tensors."""
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max().item()
+            raise AssertionError(f"{label}: {name} differ (max {diff:.3e})")
+
+
+def check_rel(label, got, want, rtol):
+    """Fail unless ``max |got - want| <= rtol max |want|``; returns the
+    ratio."""
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    phase(f"{label}: max |diff| / scale {err / scale:.3e} (bar {rtol:g})")
+    if not (np.isfinite(err) and err <= rtol * scale):
+        raise AssertionError(f"{label}: above its bar")
+    return err / scale
+
+
+def run_surface(dev, full):
+    """Phase 14: ``build_atom_grid_auto``, the mesh-tile refresh in an MD
+    loop, the channel and vector spline API on both routes, the
+    matrix-product DFT, the dense Coulomb and the f32 B-spline weights;
+    every kernel call captured is replayed against its plain version."""
+    from nvalchemiops_torch import composite, spline
+    from nvalchemiops_torch import spline_windowed as sw
+    from nvalchemiops_torch.grid import (
+        build_atom_grid_auto, grid_coulomb_energy_forces,
+    )
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import grid_dftd3
+    from nvalchemiops_torch.interactions.electrostatics import (
+        batch_dense_coulomb_energy_forces, batch_pme_reciprocal,
+        coulomb_energy_forces, dense_coulomb_energy_forces, pme,
+    )
+    from nvalchemiops_torch.interactions.electrostatics.dense import (
+        DENSE_PAIR_CHUNK,
+    )
+    from nvalchemiops_torch.kernels import separable_spline as ss
+    from nvalchemiops_torch.kernels import windowed_gather as wg
+    from nvalchemiops_torch.neighborlist import (
+        assert_max_neighbors, neighbor_list,
+    )
+
+    pos, q, cell, alpha = full["pos"], full["q"], full["cell"], full["alpha"]
+    cutoff = full["cutoff"]
+    n = pos.shape[0]
+    pbc = np.array([True] * 3)
+    win_keys = ["windowed_spread", "windowed_gather_grad"]
+    dense_keys = ["separable_spread", "separable_gather"]
+    replays = []
+
+    # -- 14.1: build_atom_grid_auto ----------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = build_atom_grid_auto(pos, cell, pbc, cutoff)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ncells = math.prod(g.dims)
+    slotted = int((g.flat_slot < ncells * g.cap).sum())
+    phase(f"build_atom_grid_auto {n} atoms ({cutoff} A): dims {g.dims} "
+          f"radius {g.radius} cap {g.cap} counts_max {int(g.counts_max)}, "
+          f"{slotted} of {n} atoms slotted; host wall {host_ms:.3f} ms "
+          "(first call, synchronized)")
+    if slotted != n or int(g.counts_max) > g.cap:
+        raise AssertionError("build_atom_grid_auto dropped atoms")
+    sweeps = ["window_sweep_cn", "window_sweep_d3_direct",
+              "window_sweep_chain", "window_sweep_coulomb"]
+    capture = install_surface_capture()
+    ((_, f_d3, _), (_, f_c)), _ = drive(
+        "auto grid: grid_dftd3 + grid_coulomb_energy_forces (window engine)",
+        lambda: (grid_dftd3(g, *full["d3_args"]),
+                 grid_coulomb_energy_forces(g, q, cutoff, alpha)),
+        sweeps, forbid=off_path(sweeps))
+    capture.restore()
+    replays.append(("auto grid", capture.calls))
+    check_errors("auto grid D3 forces vs phase 4", f_d3, full["f_d3"],
+                 ENGINE_BARS["d3"])
+    check_errors("auto grid Coulomb forces vs phase 4", f_c, full["f_c"],
+                 ENGINE_BARS["coulomb"])
+    del g, f_d3, f_c
+
+    # -- 14.2: the MD loop of the mesh-tile refresh ------------------------
+    steps, max_step = MD_REFRESH["steps"], MD_REFRESH["max_step"]
+    if not torch.equal(cell, torch.diag(torch.diagonal(cell))):
+        raise AssertionError("the MD loop moves atoms on an orthorhombic "
+                             "cell")
+    tile_cap = sw.observed_tile_capacity(pos, cell, FULL_MESH)
+    tiles0 = sw.build_mesh_tiles(pos, cell, FULL_MESH, 4, tile_cap)
+    if int(tiles0.counts_max) > tile_cap:
+        raise AssertionError("MD loop: tile overflow at the build")
+    dims_t = torch.tensor(FULL_MESH, dtype=pos.dtype, device=dev)
+    nt = [d // tiles0.tile for d in FULL_MESH]
+    lin = torch.div(tiles0.flat_slot, tile_cap, rounding_mode="floor").long()
+    tile_xyz = torch.stack([lin // (nt[1] * nt[2]), (lin // nt[2]) % nt[1],
+                            lin % nt[2]], dim=-1).to(pos.dtype)
+    centre = (tile_xyz * tiles0.tile + tiles0.tile / 2) / dims_t
+    inv = torch.linalg.inv(cell)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MD_REFRESH["seed"])
+
+    def md_step(p):
+        """Every atom up to ``max_step`` toward its tile's centre (per
+        axis at most max_step / sqrt(3))."""
+        frac = p @ inv
+        toward = torch.sign(centre - (frac - torch.floor(frac)))
+        u = torch.rand(p.shape, generator=gen, device=dev, dtype=p.dtype)
+        return p + toward * u * (max_step / math.sqrt(3.0))
+
+    def md_loop():
+        p, tiles = pos, tiles0
+        for _ in range(steps):
+            p = md_step(p)
+            if bool(sw.mesh_tiles_need_rebuild(tiles, p)):
+                raise AssertionError("MD loop: the detector asked for a "
+                                     "rebuild")
+            tiles = sw.refresh_mesh_tiles(tiles, p)
+            e_r, f_r, _ = pme._windowed_pme(tiles, q, cell, alpha, 4, True,
+                                            False)
+            fresh = sw.build_mesh_tiles(p, cell, FULL_MESH, 4, tile_cap)
+            e_f, f_f, _ = pme._windowed_pme(fresh, q, cell, alpha, 4, True,
+                                            False)
+            check_equal("MD loop refreshed vs fresh tiles", [
+                (k, getattr(tiles, k), getattr(fresh, k))
+                for k in ("smat", "flat_slot", "aid")]
+                + [("energies", e_r, e_f), ("forces", f_r, f_f)])
+        return p, tiles, f_r
+
+    capture = install_surface_capture()
+    (p_md, tiles_md, f_md), _ = drive(
+        f"MD loop {steps} steps of <= {max_step} A at {n} atoms, "
+        f"{FULL_MESH[0]}^3 (refresh, windowed PME, fresh build)", md_loop,
+        win_keys,
+        forbid=dense_keys)
+    capture.restore()
+    replays.append(("MD loop", capture.calls))
+    check_forces("MD loop PME on refreshed tiles", f_md)
+    moved = (p_md - pos).norm(dim=-1).max().item()
+    phase(f"MD loop: every step the detector read False and the refreshed "
+          f"tiles (smat, flat_slot, aid), energies and forces equalled a "
+          f"fresh build's bit for bit; largest total move {moved:.4f} A")
+    ms_refresh = cuda_time_ms(lambda: sw.refresh_mesh_tiles(tiles_md, p_md))
+    ms_build = cuda_time_ms(lambda: sw.build_mesh_tiles(
+        p_md, cell, FULL_MESH, 4, tile_cap))
+    ms_detect = cuda_time_ms(lambda: sw.mesh_tiles_need_rebuild(tiles_md,
+                                                                p_md))
+    phase(f"MD loop at {n} atoms, {FULL_MESH[0]}^3: refresh_mesh_tiles "
+          f"{ms_refresh:.3f}"
+          f" ms, build_mesh_tiles {ms_build:.3f} ms, "
+          f"mesh_tiles_need_rebuild {ms_detect:.3f} ms (CUDA events, median "
+          "of 5 after a warm-up)")
+    p_cross = p_md.clone()
+    p_cross[0, 0] += cell[0, 0] * tiles0.tile / FULL_MESH[0]
+    if not bool(sw.mesh_tiles_need_rebuild(tiles_md, p_cross)):
+        raise AssertionError("MD loop: a tile crossing was not detected")
+    phase("MD loop: atom 0 moved one tile along x; the detector reads True")
+    del tiles0, tiles_md, p_md, p_cross, f_md
+
+    # -- 14.3: channels and vector fields -----------------------------------
+    fields = torch.randn((n, 2), generator=gen, device=dev, dtype=pos.dtype)
+    vals = torch.cat([q[:, None], fields], dim=1)
+    for mesh in CHANNEL_MESHES:
+        route = "windowed" if sw.windowed_applicable(mesh, 4) else "dense"
+        expect, forbid = ((["windowed_spread"], dense_keys)
+                          if route == "windowed" else (dense_keys, win_keys))
+        label = f"channels C = 3 at {mesh[0]}^3 ({route} route)"
+
+        def channel_calls(p, v, qq, cc, m=mesh, meshes=None):
+            out = spline.spline_spread_channels(p, v, cc, m)
+            src = out if meshes is None else meshes
+            vfield = src.permute(1, 2, 3, 0).contiguous()
+            return (out, spline.spline_gather_channels(p, src, cc),
+                    spline.spline_gather_vec3(p, qq, vfield, cc), vfield)
+
+        capture = install_surface_capture()
+        (meshes, chan, vec, vfield), counts = drive(
+            label, lambda: channel_calls(pos, vals, q, cell), expect,
+            forbid=forbid)
+        capture.restore()
+        replays.append((label, capture.calls))
+        if route == "windowed" and counts["windowed_spread"] != 3:
+            raise AssertionError(f"{label}: {counts}")
+        for c in range(3):
+            check_equal(f"{label} channel {c} vs its single-channel call", [
+                ("spread", meshes[c], spline.spline_spread(
+                    pos, vals[:, c].contiguous(), cell, mesh)),
+                ("gather", chan[:, c], spline.spline_gather(
+                    pos, meshes[c], cell)),
+                ("vec3", vec[:, c], q * spline.spline_gather(
+                    pos, vfield[..., c], cell))])
+        with plain_kernels(sw, spread_windows=wg.spread_windows_plain,
+                           gather_grad_planes=wg.gather_grad_planes_plain), \
+                plain_kernels(spline,
+                              separable_spread=ss.separable_spread_plain,
+                              separable_gather=ss.separable_gather_plain):
+            ref = channel_calls(pos.double(), vals.double(), q.double(),
+                                cell.double(), meshes=meshes.double())
+        errs = [check_rel(f"{label} {name} f32 vs f64 plain", a, b,
+                          CHANNEL_F32_RTOL)
+                for name, a, b in zip(("spread", "gather", "vec3"),
+                                      (meshes, chan, vec), ref[:3])]
+        ms = cuda_time_ms(lambda: channel_calls(pos, vals, q, cell))
+        phase(f"{label}: each channel equals its single-channel call bit for "
+              f"bit; f32 vs f64 {', '.join(f'{e:.3e}' for e in errs)}; the "
+              f"three calls {ms:.3f} ms (CUDA events, median of 5)")
+        del meshes, chan, vec, vfield, ref
+
+    # -- 14.4: the matrix-product DFT on the batched PME --------------------
+    cfg = PME_BATCH
+    pos_b, q_b, cell_b = pme_batch_system(dev)
+    label = f"batched PME {cfg['b']} x {cfg['n']} at {cfg['mesh'][0]}^3"
+
+    def batch_pme(mode, p=pos_b, qq=q_b, cc=cell_b):
+        return batch_pme_reciprocal(p, qq, cc, cfg["alpha"], cfg["mesh"],
+                                    compute_forces=True, fft_mode=mode)
+
+    capture = install_surface_capture()
+    (e_m, f_m), _ = drive(f"{label} fft_mode='matmul'",
+                          lambda: batch_pme("matmul"), dense_keys,
+                          forbid=win_keys)
+    capture.restore()
+    replays.append((f"{label} matmul", capture.calls))
+    e_x, f_x = batch_pme("xla")
+    with plain_kernels(pme, separable_spread=ss.separable_spread_plain,
+                       separable_gather=ss.separable_gather_plain):
+        e_64, f_64 = batch_pme("xla", pos_b.double(), q_b.double(),
+                               cell_b.double())
+    check_errors(f"{label} matmul vs xla forces", f_m, f_x,
+                 SURFACE_BARS["matmul_vs_xla"])
+    check_errors(f"{label} matmul vs xla energies", e_m, e_x,
+                 SURFACE_BARS["matmul_vs_xla"])
+    for mode, f in (("matmul", f_m), ("xla", f_x)):
+        check_errors(f"{label} {mode} f32 vs f64 plain forces", f, f_64,
+                     SURFACE_BARS["pme_f32_vs_f64"])
+    times = {mode: cuda_time_ms(lambda m=mode: batch_pme(m))
+             for mode in ("matmul", "xla")}
+    mesh_q = ss.separable_spread_plain(*pme._stencil(
+        pos_b, cell_b.expand(cfg["b"], 3, 3), cfg["mesh"], 4)[:2], q_b,
+        cfg["mesh"])
+    alphas = torch.full((cfg["b"],), cfg["alpha"], device=dev)
+    conv = {mode: device_time_ms(lambda m=mode: pme._potential(
+        mesh_q, cell_b.expand(cfg["b"], 3, 3), alphas, cfg["mesh"], 4,
+        None, m)) for mode in ("matmul", "xla")}
+    phase(f"{label} E+F: fft_mode='matmul' {times['matmul']:.3f} ms, 'xla' "
+          f"{times['xla']:.3f} ms (CUDA events, median of 5); the "
+          f"convolution alone (Green's function included) device "
+          f"{conv['matmul']:.4f} ms vs {conv['xla']:.4f} ms")
+    del e_m, f_m, e_x, e_64, mesh_q
+
+    # -- 14.5: dense Coulomb --------------------------------------------------
+    pos_c, cell_c, _, q_c, *_ = composite.build_system()
+    f32 = dict(dtype=torch.float32, device=dev)
+    (_, f_dc), _ = drive(
+        "composite dense_coulomb_energy_forces (1,024 atoms)",
+        lambda: dense_coulomb_energy_forces(
+            torch.as_tensor(pos_c, **f32), torch.as_tensor(q_c, **f32),
+            torch.as_tensor(cell_c, **f32), composite.CUTOFF,
+            composite.ALPHA), [])
+    ref = composite.load_reference()
+    forces = {"coulomb": f_dc.double().cpu().numpy()}
+    rel = composite.relative_errors(forces, ref)["coulomb"]
+    rms = composite.rms_errors(forces, ref)["coulomb"]
+    bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["coulomb"])
+    phase(f"composite dense Coulomb vs f64 reference: max rel {rel:.3e} (bar "
+          f"{bar[0]:.3e}), rms rel {rms:.3e} (bar {bar[1]:.3e})")
+    if not (rel <= bar[0] and rms <= bar[1]):
+        raise AssertionError("composite dense Coulomb above its bar")
+    rc, a_c = DENSE_COULOMB["cutoff"], DENSE_COULOMB["alpha"]
+    b, nb = cfg["b"], cfg["n"]
+    label = f"batch_dense_coulomb_energy_forces {b} x {nb} ({rc} A)"
+    torch.cuda.reset_peak_memory_stats(dev)
+    (e_dc, f_dc), _ = drive(label, lambda: batch_dense_coulomb_energy_forces(
+        pos_b, q_b, cell_b, rc, a_c), [])
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms_dense = cuda_time_ms(lambda: batch_dense_coulomb_energy_forces(
+        pos_b, q_b, cell_b, rc, a_c), reps=3)
+    check_forces(label, f_dc)
+    bidx = torch.arange(b, device=dev).repeat_interleave(nb)
+    k = density_max_neighbors(nb, cell_b, rc)
+
+    def list_coulomb(p, qq, cc):
+        cells = cc.expand(b, 3, 3).contiguous()
+        nm, num, sh = neighbor_list(p.reshape(-1, 3), rc, cell=cells,
+                                    pbc=pbc, batch_idx=bidx, max_neighbors=k)
+        assert_max_neighbors(nm, num)
+        e, f = coulomb_energy_forces(p.reshape(-1, 3), qq.reshape(-1), cells,
+                                     rc, a_c, neighbor_matrix=nm,
+                                     neighbor_matrix_shifts=sh,
+                                     batch_idx=bidx)
+        return e.reshape(b, nb), f.reshape(b, nb, 3)
+
+    e_l, f_l = list_coulomb(pos_b, q_b, cell_b)
+    check_errors(f"{label} forces vs the list Coulomb", f_dc, f_l,
+                 SURFACE_BARS["dense_vs_list_coulomb"])
+    check_errors(f"{label} energies vs the list Coulomb", e_dc, e_l,
+                 SURFACE_BARS["dense_vs_list_coulomb"])
+    # in f64 the two differ by the erfc polynomial alone
+    f64 = (pos_b.double(), q_b.double(), cell_b.double())
+    _, f_d64 = batch_dense_coulomb_energy_forces(*f64, rc, a_c)
+    _, f_l64 = list_coulomb(*f64)
+    check_errors(f"{label} forces vs the list Coulomb, both f64", f_d64,
+                 f_l64, SURFACE_BARS["dense_vs_list_coulomb_f64"])
+    check_errors(f"{label} f32 forces vs f64", f_dc, f_d64,
+                 SURFACE_BARS["dense_coulomb_f32_vs_f64"])
+    del f_d64, f_l64
+    phase(f"{label}: {ms_dense:.3f} ms (CUDA events, median of 3), peak "
+          f"memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated; "
+          f"passes of {DENSE_PAIR_CHUNK} pair slots), K {k} for the list")
+    del e_dc, f_dc, e_l, f_l
+
+    # -- 14.6: fault A2, phase 3's PME errors --------------------------------
+    rel_p, rms_p = full["pme_err"]
+    phase(f"phase 3 PME vs bench_acc_ref.npz: expanded B-spline forms "
+          f"(parent tree) max rel {PARENT_PHASE3_PME[0]:.3e}, rms rel "
+          f"{PARENT_PHASE3_PME[1]:.3e}; local forms (this tree) max rel "
+          f"{rel_p:.3e}, rms rel {rms_p:.3e}")
+    # where phase 8's dense-vs-windowed reading comes from: each engine's
+    # f32 spread and forces against the f64 plain path, and the two
+    # engines against each other (a reading, no bar)
+    cells_b = cell_b.expand(cfg["b"], 3, 3)
+    g64, w64 = pme._stencil(pos_b.double(), cells_b.double(), cfg["mesh"],
+                            4)[:2]
+    mesh_64 = ss.separable_spread_plain(g64, w64, q_b.double(), cfg["mesh"])
+    g32, w32 = pme._stencil(pos_b, cells_b, cfg["mesh"], 4)[:2]
+    mesh_d = ss.separable_spread(g32, w32, q_b, cfg["mesh"])
+    mesh_w = []
+    for s_ in range(cfg["b"]):
+        cap_s = sw.observed_tile_capacity(pos_b[s_], cell_b, cfg["mesh"])
+        mesh_w.append(sw.windowed_spread(sw.build_mesh_tiles(
+            pos_b[s_], cell_b, cfg["mesh"], 4, cap_s), q_b[s_]))
+    mesh_w = torch.stack(mesh_w)
+    _, f_w = batch_pme_reciprocal(pos_b, q_b, cell_b, cfg["alpha"],
+                                  cfg["mesh"], compute_forces=True,
+                                  engine="windowed")
+
+    def mesh_rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max()).item()
+
+    fd, fw, dw = (force_errors(f_x, f_64), force_errors(f_w, f_64),
+                  force_errors(f_x, f_w))
+    phase(f"batched PME {cfg['b']} x {cfg['n']} at {cfg['mesh'][0]}^3 "
+          f"engines in f32 (max rel, rms rel): spread vs f64 dense "
+          f"{mesh_rel(mesh_d, mesh_64):.3e}, windowed "
+          f"{mesh_rel(mesh_w, mesh_64):.3e}, dense vs windowed "
+          f"{mesh_rel(mesh_d, mesh_w):.3e} (max |diff| / max |mesh|); "
+          f"forces vs f64 dense {fd[0]:.3e} / {fd[1]:.3e}, windowed "
+          f"{fw[0]:.3e} / {fw[1]:.3e}, dense vs windowed {dw[0]:.3e} / "
+          f"{dw[1]:.3e}")
+    del f_x, f_64, f_w, mesh_64, mesh_d, mesh_w
+
+    # -- 14.7: replays ----------------------------------------------------------
+    for label, calls in replays:
+        compare_kernels(calls, f"phase 14 {label}")
+
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -1884,6 +2311,13 @@ def main():
         "pos": pos, "q": q, "cell": cell, "e_c": e_c, "f_c": f_c,
         "grid": lambda: build_atom_grid(pos, cell, pbc, dims, radius, gcap,
                                         origin=origin)})
+
+    # -- phase 14: the spline, PME and electrostatics surface -------------
+    run_surface(dev, {
+        "pos": pos, "q": q, "cell": cell, "alpha": alpha, "cutoff": cutoff,
+        "d3_args": (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
+                    composite.D3_A2, composite.D3_S8),
+        "f_d3": f_d3, "f_c": f_c, "pme_err": (rel["pme"], rms["pme"])})
 
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),

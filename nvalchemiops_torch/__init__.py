@@ -9,7 +9,30 @@ under ``csrc/``, built with ``nvcc`` at their first launch (never at
 import) and bound with ``ctypes`` (``kernels/``).  On CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 
+The package namespace holds the JAX package's subpackages except
+``parallel`` (the multi-device paths, not ported yet).  Importing them
+builds and loads no kernel.
+
 This package imports ``torch`` and never ``jax``.
 """
 
 __version__ = "0.1.0"
+
+from nvalchemiops_torch import (  # noqa: E402
+    grid,
+    interactions,
+    mathops,
+    neighborlist,
+    spline,
+    spline_windowed,
+)
+
+__all__ = [
+    "__version__",
+    "grid",
+    "interactions",
+    "mathops",
+    "neighborlist",
+    "spline",
+    "spline_windowed",
+]

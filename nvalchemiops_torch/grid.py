@@ -50,6 +50,7 @@ __all__ = [
     "system_grid",
     "choose_grid_origin",
     "choose_grid_geometry",
+    "build_atom_grid_auto",
     "scatter_to_grid",
     "gather_from_grid",
     "gather_rows_from_grid",
@@ -458,8 +459,8 @@ def choose_grid_origin(positions, cell, pbc, dims):
 
 # The window-engine cost model below was fit on the TPU (per-block setup
 # cost, 128-lane window rounding, <=2048-lane blocks).  It is kept verbatim
-# so both packages pick the same geometry; refitting it on the H100 is a
-# ROADMAP item.
+# so both packages pick the same geometry; refitting it on the H100 is
+# ROADMAP.md, queue 1 item 10.
 _WINDOW_BLOCK_COST = 16384
 _MAX_BLOCK_LANES = 2048
 
@@ -474,6 +475,13 @@ def _window_x_block(cx: int, lane_w: int) -> int:
         if cx % bx == 0 and bx * lane_w <= _MAX_BLOCK_LANES:
             best = bx
     return best
+
+
+def _capacity_of(observed: int) -> int:
+    """Capacity for an observed occupancy: one slot of headroom, rounded
+    up to a multiple of 8, at least +2%."""
+    return max(int(np.ceil((observed + 1) / 8)) * 8,
+               int(np.ceil(observed * 1.02 / 8)) * 8)
 
 
 def choose_grid_geometry(positions, cell, pbc, cutoff: float,
@@ -541,8 +549,7 @@ def choose_grid_geometry(positions, cell, pbc, cutoff: float,
     best = None
     for _, dims in pre[:8]:
         origin_np, occ = choose_grid_origin(positions, cell, pbc, dims)
-        cap = max(int(np.ceil((occ + 1) / 8)) * 8,
-                  int(np.ceil(occ * 1.02 / 8)) * 8)
+        cap = _capacity_of(occ)
         key, radius = geom_score(dims, cap)
         if key is None:
             continue
@@ -555,3 +562,50 @@ def choose_grid_geometry(positions, cell, pbc, cutoff: float,
             "per dimension on a periodic axis); use the naive path"
         )
     return best[1], best[2], best[3], best[4]
+
+
+def build_atom_grid_auto(positions, cell, pbc, cutoff: float,
+                         target_occupancy: float = 0.66,
+                         bins_per_cutoff: int = 1,
+                         optimize_origin: bool = True,
+                         optimize_geometry: bool = True) -> AtomGrid:
+    """Pick the geometry, origin and a tight capacity, then build.
+
+    ``optimize_geometry`` searches bin counts with
+    :func:`choose_grid_geometry` (its cost constants are the JAX package's,
+    fit on the TPU); ``optimize_geometry=False`` keeps the single
+    :func:`estimate_grid_geometry` partition (where ``target_occupancy``
+    and ``bins_per_cutoff`` apply), with the origin of
+    :func:`choose_grid_origin` when ``optimize_origin``.  The capacity
+    comes from the observed occupancy; the build's own occupancy is read
+    back and a short capacity rebuilt, so no atom is ever dropped.  Host
+    work and a few scalar reads, as in the JAX package.
+    """
+    n = positions.shape[0]
+    if optimize_geometry:
+        dims, radius, cap, origin = choose_grid_geometry(positions, cell,
+                                                         pbc, cutoff)
+    else:
+        dims, radius, cap = estimate_grid_geometry(
+            cell, pbc, cutoff, n, target_occupancy=target_occupancy,
+            bins_per_cutoff=bins_per_cutoff)
+        origin = None
+        if optimize_origin:
+            origin_np, observed = choose_grid_origin(positions, cell, pbc,
+                                                     dims)
+            if np.any(origin_np != 0.0):
+                origin = origin_np
+        else:
+            g = build_atom_grid(positions, cell, pbc, dims, radius, cap)
+            observed = int(g.counts_max)
+        cap = _capacity_of(observed)
+    g = build_atom_grid(positions, cell, pbc, dims, radius, cap,
+                        origin=origin)
+    # estimate, then check: rebuild with the true capacity rather than
+    # drop the atoms of a cell the estimate undercounted
+    true_occ = int(g.counts_max)
+    if true_occ > cap:
+        cap = int(np.ceil((true_occ + 1) / 8)) * 8
+        g = build_atom_grid(positions, cell, pbc, dims, radius, cap,
+                            origin=origin)
+    return g

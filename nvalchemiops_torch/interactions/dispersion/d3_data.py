@@ -2,21 +2,97 @@
 """DFT-D3 parameter tables in the reference data format (numpy only).
 
 A copy of the table construction in
-``nvalchemiops_tpu/interactions/dispersion/d3_data.py``
-(``build_d3_format_tables`` and the committed realistic H/He/C/N/O/Cl/Cs
-slice ``realistic_test_tables``), so the port runs where JAX is not
-installed.  See that module for the format contract and the provenance of
-every constant; ``tests/test_torch_d3.py`` asserts the two copies produce
-identical tables.
+``nvalchemiops_tpu/interactions/dispersion/d3_data.py`` (the parser of
+Grimme's Fortran sources ``parse_dftd3_fortran``, ``build_d3_format_tables``
+and the committed realistic H/He/C/N/O/Cl/Cs slice
+``realistic_test_tables``), so the port runs where JAX is not installed.
+See that module for the format contract and the provenance of every
+constant; ``tests/test_torch_d3.py`` and ``tests/test_torch_package.py``
+assert the two copies produce identical tables.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
-__all__ = ["build_d3_format_tables", "realistic_test_tables"]
+__all__ = ["parse_dftd3_fortran", "build_d3_format_tables",
+           "realistic_test_tables"]
 
 _ZMAX = 94
+
+
+def _fortran_floats(text: str) -> list[float]:
+    """All Fortran float literals in ``text`` (D or E exponents)."""
+    toks = re.findall(r"[-+]?\d+\.\d*(?:[eEdD][-+]?\d+)?", text)
+    return [float(t.lower().replace("d", "e")) for t in toks]
+
+
+def _parse_data_block(source: str, name: str) -> np.ndarray:
+    """Values of a Fortran ``data <name> / ... /`` statement.
+
+    Comment lines (a leading ``!``, or ``c`` / ``C`` / ``*`` in the first
+    column) are dropped and inline ``!`` comments stripped.  Raises
+    ``ValueError`` when the block is absent.
+    """
+    kept = []
+    for ln in source.splitlines():
+        if ln.strip().startswith("!") or re.match(r"^[cC*]\s", ln):
+            continue
+        kept.append(ln.split("!", 1)[0])
+    text = "\n".join(kept)
+    m = re.search(rf"data\s+{name}\s*/(.*?)/", text,
+                  re.IGNORECASE | re.DOTALL)
+    if m is None:
+        raise ValueError(f"no 'data {name} / ... /' block found")
+    return np.asarray(_fortran_floats(m.group(1)), dtype=np.float64)
+
+
+def _decode_pair_index(code: int) -> tuple[int, int]:
+    """Grimme's packed (element, CN-grid index): ``z + 100 * (p - 1)``."""
+    p, z = divmod(code - 1, 100)
+    return z + 1, p + 1
+
+
+def parse_dftd3_fortran(dftd3_f: str, pars_f: str) -> dict[str, np.ndarray]:
+    """The D3 tables from the contents of Grimme's ``dftd3.f`` (its
+    ``rcov`` and ``r2r4`` data blocks) and ``pars.f`` (the C6 reference
+    records ``[c6, code_i, code_j, cn_i, cn_j]``), as text the caller
+    passes: ``{rcov, r4r2, c6ab, cn_ref}`` (float32).  Blocks shorter than
+    94 elements fill a prefix; records outside the element and CN-grid
+    ranges are skipped."""
+    rcov_raw = _parse_data_block(dftd3_f, "rcov")[:_ZMAX]
+    r2r4_raw = _parse_data_block(dftd3_f, "r2r4")[:_ZMAX]
+    if rcov_raw.size == 0 or r2r4_raw.size == 0:
+        raise ValueError("empty rcov/r2r4 data blocks")
+
+    # dftd3.f scales rcov by k2 = 4/3 and Angstrom -> Bohr, and takes
+    # r4r2[z] = sqrt(0.5 * r2r4[z] * sqrt(z))
+    autoang = 0.52917726
+    rcov = np.zeros(_ZMAX + 1, dtype=np.float32)
+    r4r2 = np.zeros(_ZMAX + 1, dtype=np.float32)
+    nr, n4 = rcov_raw.size, r2r4_raw.size
+    rcov[1:nr + 1] = (4.0 / 3.0) * rcov_raw / autoang
+    r4r2[1:n4 + 1] = np.sqrt(
+        0.5 * r2r4_raw * np.sqrt(np.arange(1, n4 + 1, dtype=np.float64)))
+
+    vals = _fortran_floats(
+        "\n".join(ln.split("!", 1)[0] for ln in pars_f.splitlines()
+                  if "pars" not in ln.lower() or "(/" in ln))
+    n_rec = len(vals) // 5
+    rec = np.asarray(vals[: n_rec * 5], dtype=np.float64).reshape(n_rec, 5)
+
+    entries = []
+    for c6, ci, cj, cni, cnj in rec:
+        zi, p = _decode_pair_index(int(round(ci)))
+        zj, q = _decode_pair_index(int(round(cj)))
+        if not (1 <= zi <= _ZMAX and 1 <= zj <= _ZMAX
+                and 1 <= p <= 5 and 1 <= q <= 5):
+            continue
+        entries.append((zi, zj, p - 1, q - 1, float(c6),
+                        float(cni), float(cnj)))
+    return build_d3_format_tables(entries, rcov=rcov, r4r2=r4r2)
 
 
 def build_d3_format_tables(entries, rcov=None, r4r2=None,

@@ -35,15 +35,15 @@ from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
 from nvalchemiops_torch.kernels.dense_pairs import TILE, dense_pairs
 from nvalchemiops_torch.kernels.window_sweep import SweepParams
 from nvalchemiops_torch.mathops.math import apply_mat3_batched
-from nvalchemiops_torch.types import INDEX_DTYPE
+from nvalchemiops_torch.types import INDEX_DTYPE, default_device
 
 __all__ = ["BATCH_DENSE_MAX_ATOMS", "min_perpendicular_width",
-           "dense_dftd3", "batch_dense_dftd3", "batch_dftd3"]
+           "element_rows", "dense_dftd3", "batch_dense_dftd3", "batch_dftd3"]
 
 #: dense <-> grid routing bound of :func:`batch_dftd3`, atoms per system.
 #: Measured on the TPU (the JAX package's crossover probe); kept as the
 #: default so both packages route alike until it is re-measured on the
-#: H100 (ROADMAP item 15).
+#: H100 (ROADMAP.md, queue 1 item 10).
 BATCH_DENSE_MAX_ATOMS = 8192
 
 
@@ -82,6 +82,19 @@ def _image_combos(images: bool, cell_np=None, cutoff: float | None = None):
         if bound < float(cutoff):
             kept.append(bits)
     return kept
+
+
+def element_rows(numbers, table, device="cuda"):
+    """Per-atom element-table rows ``table[numbers]`` (``numbers [..]``
+    integer, ``table [Z, ...]`` -> ``[.., ...]``) by indexing; the JAX
+    package's one-hot contraction is a layout for the TPU's matrix unit.
+    Runs on the device of a tensor input, else on ``device`` (the D3
+    tables are numpy)."""
+    dev = default_device(
+        table if isinstance(table, torch.Tensor) else numbers, device)
+    table = torch.as_tensor(table, device=dev)
+    idx = torch.as_tensor(numbers, device=dev).long()
+    return table[idx]
 
 
 def min_perpendicular_width(cell) -> float:

@@ -1,14 +1,19 @@
 # SPDX-License-Identifier: Apache-2.0
 """Electrostatics of the PyTorch port: Coulomb over neighbor lists and
-matrices, Ewald summation, PME (single, concatenated with ``batch_idx``,
-uniform batches, and over the halo grid) and the parameter estimators
-(the real-space sum on the halo grid is ``grid.grid_coulomb_energy_forces``).
+matrices, dense minimum-image Coulomb for small systems, Ewald summation,
+PME (single, concatenated with ``batch_idx``, uniform batches, and over
+the halo grid) and the parameter estimators (the real-space sum on the
+halo grid is ``grid.grid_coulomb_energy_forces``).
 """
 
 from nvalchemiops_torch.interactions.electrostatics.coulomb import (
     coulomb_energy,
     coulomb_energy_forces,
     coulomb_forces,
+)
+from nvalchemiops_torch.interactions.electrostatics.dense import (
+    batch_dense_coulomb_energy_forces,
+    dense_coulomb_energy_forces,
 )
 from nvalchemiops_torch.interactions.electrostatics.parameters import (
     EwaldParameters,
@@ -36,6 +41,8 @@ from nvalchemiops_torch.interactions.electrostatics.pme import (
 )
 
 __all__ = [
+    "batch_dense_coulomb_energy_forces",
+    "dense_coulomb_energy_forces",
     "coulomb_energy",
     "coulomb_forces",
     "coulomb_energy_forces",

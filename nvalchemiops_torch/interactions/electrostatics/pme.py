@@ -10,6 +10,8 @@ Pipeline: spread the charges (tile-windowed or dense separable spline) ->
 ``torch.fft.rfftn`` -> divide by the B-spline dealiasing factor, multiply
 by the Green's function -> ``irfftn`` -> gather the potential and its
 spline-derivative gradient at the atoms -> self/background corrections.
+With ``fft_mode="matmul"`` the transform, convolution and inverse are the
+matrix products of ``mathops.matmul_dft``.
 Forces are the analytic gradient of the discrete energy (one inverse FFT),
 with the mesh-accuracy net force removed per system.
 
@@ -59,6 +61,7 @@ from nvalchemiops_torch.kernels.separable_spline import (
 from nvalchemiops_torch.mathops.math import (
     apply_mat3_batched, sinc_normalized,
 )
+from nvalchemiops_torch.mathops.matmul_dft import matmul_rfft_convolve
 from nvalchemiops_torch.spline import (
     _stencil, spline_gather, spline_gather_gradient, spline_spread,
 )
@@ -72,7 +75,7 @@ SQRT_PI = math.sqrt(math.pi)
 
 #: per-system mesh points up to which ``batch_pme_reciprocal(engine=
 #: "auto")`` takes the dense engine (fit on the TPU; kept so both packages
-#: route alike, ROADMAP item 15)
+#: route alike, ROADMAP.md, queue 1 item 10)
 DENSE_MESH_MAX_POINTS = 32 * 32 * 32
 
 
@@ -116,13 +119,16 @@ def pme_green_structure_factor(k_squared, mesh_dimensions, alpha, cell,
 
 
 def _potential(mesh, cell, alpha, mesh_dimensions, spline_order: int,
-               k_squared=None):
+               k_squared=None, fft_mode: str = "xla"):
     """Convolve charge meshes ``[.., nx, ny, nz]`` with the Green's
-    function; returns the potential meshes (contiguous)."""
+    function (``torch.fft``, or the matrix-product DFT for ``fft_mode=
+    "matmul"``); returns the potential meshes (contiguous)."""
     if k_squared is None:
         _, k_squared = generate_k_vectors_pme(cell, mesh_dimensions)
     green, sf_sq = pme_green_structure_factor(k_squared, mesh_dimensions,
                                               alpha, cell, spline_order)
+    if fft_mode == "matmul":
+        return matmul_rfft_convolve(mesh, green / sf_sq)
     axes = (-3, -2, -1)
     mesh_fft = torch.fft.rfftn(mesh, dim=axes, norm="backward")
     return torch.fft.irfftn(mesh_fft / sf_sq * green, s=mesh_dimensions,
@@ -163,11 +169,11 @@ def _finish(charges, raw, grad_frac, inv, alpha, cell, compute_forces,
 
 def _windowed_pme(tiles, charges, cell, alpha, spline_order: int,
                   compute_forces: bool, compute_charge_gradients: bool,
-                  k_squared=None):
+                  k_squared=None, fft_mode: str = "xla"):
     """One system through the tile-windowed pipeline on built tiles."""
     mesh = sw.windowed_spread(tiles, charges)
     potential = _potential(mesh, cell, alpha, tiles.mesh_dims, spline_order,
-                           k_squared)
+                           k_squared, fft_mode)
     grad_frac = None
     if compute_forces:
         raw, grad_frac = sw.windowed_gather(tiles, potential,
@@ -181,7 +187,7 @@ def _windowed_pme(tiles, charges, cell, alpha, spline_order: int,
 def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
                          spline_order: int, cap: int, compute_forces: bool,
                          compute_charge_gradients: bool = False,
-                         tile: int = 8):
+                         tile: int = 8, fft_mode: str = "xla"):
     """One system through the tile-windowed pipeline.  Raises when a tile
     holds more than ``cap`` atoms (the JAX package's lean version drops
     them silently)."""
@@ -193,19 +199,21 @@ def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
         raise ValueError(f"PME mesh tile overflow: {counts_max} atoms in one "
                          f"tile, capacity {cap}; pass a larger tile_capacity")
     return _windowed_pme(tiles, charges, cell, alpha, spline_order,
-                         compute_forces, compute_charge_gradients)
+                         compute_forces, compute_charge_gradients,
+                         fft_mode=fft_mode)
 
 
 def _batch_windowed_pme_impl(positions, charges, cells, alphas,
                              mesh_dimensions, spline_order: int, cap: int,
                              compute_forces: bool,
                              compute_charge_gradients: bool = False,
-                             tile: int = 8):
+                             tile: int = 8, fft_mode: str = "xla"):
     """The windowed pipeline per system, stacked (``[B, ..]`` outputs)."""
     outs = [_windowed_pme_single(positions[b], charges[b], cells[b],
                                  alphas[b], mesh_dimensions, spline_order,
                                  cap, compute_forces,
-                                 compute_charge_gradients, tile=tile)
+                                 compute_charge_gradients, tile=tile,
+                                 fft_mode=fft_mode)
             for b in range(positions.shape[0])]
     return tuple(None if o[0] is None else torch.stack(o)
                  for o in zip(*outs))
@@ -214,14 +222,15 @@ def _batch_windowed_pme_impl(positions, charges, cells, alphas,
 def _batch_dense_pme_impl(positions, charges, cells, alphas, mesh_dimensions,
                           spline_order: int, compute_forces: bool,
                           compute_charge_gradients: bool = False,
-                          k_squared=None):
+                          k_squared=None, fft_mode: str = "xla"):
     """Systems ``[B, N, 3]`` through the dense separable pipeline: one
-    stencil, one spread launch, one batched FFT pair, one gather launch."""
+    stencil, one spread launch, one batched convolution, one gather
+    launch."""
     gidx, w, dw, inv = _stencil(positions, cells, mesh_dimensions,
                                 spline_order)
     mesh = separable_spread(gidx, w, charges, mesh_dimensions)
     potential = _potential(mesh, cells, alphas, mesh_dimensions,
-                           spline_order, k_squared)
+                           spline_order, k_squared, fft_mode)
     grad_frac = None
     if compute_forces:
         raw, grad_frac = separable_gather(potential, gidx, w, dw)
@@ -234,28 +243,24 @@ def _batch_dense_pme_impl(positions, charges, cells, alphas, mesh_dimensions,
 def _dense_pme_single(positions, charges, cell, alpha, mesh_dimensions,
                       spline_order: int, compute_forces: bool,
                       compute_charge_gradients: bool = False,
-                      k_squared=None):
+                      k_squared=None, fft_mode: str = "xla"):
     """One system through the dense separable pipeline."""
     out = _batch_dense_pme_impl(
         positions[None], charges[None], cell[None], alpha, mesh_dimensions,
         spline_order, compute_forces, compute_charge_gradients,
-        None if k_squared is None else k_squared[None])
+        None if k_squared is None else k_squared[None], fft_mode)
     return tuple(None if o is None else o[0] for o in out)
 
 
 def _check_pme_knobs(fft_mode, spread_engine, gather_engine,
                      fft_modes=("xla", "matmul")):
-    """``fft_mode="matmul"`` (the matrix-unit DFT) is not ported; the
-    spline engine strings name the JAX package's two implementations of
-    one per-tile contraction, which the port runs on its kernels whichever
-    is named."""
+    """``fft_mode`` is ``"xla"`` (``torch.fft``) or ``"matmul"`` (the
+    matrix-product DFT); the spline engine strings name the JAX package's
+    two implementations of one per-tile contraction, which the port runs on
+    its kernels whichever is named."""
     if fft_mode not in fft_modes:
         raise ValueError(f"fft_mode must be one of {list(fft_modes)}, got "
                          f"{fft_mode!r}")
-    if fft_mode == "matmul":
-        raise NotImplementedError(
-            "fft_mode='matmul' is not ported (ROADMAP.md, queue 1 item 7: "
-            "mathops/matmul_dft.py); the port convolves with torch.fft")
     for name, value in (("spread_engine", spread_engine),
                         ("gather_engine", gather_engine)):
         if value not in ("xla", "pallas"):
@@ -275,7 +280,8 @@ def _mesh_dims(cell_b, alpha, mesh_dimensions, mesh_spacing, accuracy):
 
 def _batch_idx_pme(positions, charges, cell_b, alpha_b, mesh_dimensions,
                    spline_order: int, batch_idx, compute_forces: bool,
-                   compute_charge_gradients: bool, k_squared=None):
+                   compute_charge_gradients: bool, k_squared=None,
+                   fft_mode: str = "xla"):
     """Concatenated systems through the scatter spline path: per-system
     ``Q``, ``alpha`` and volume in the corrections, and each system's net
     force removed."""
@@ -289,7 +295,8 @@ def _batch_idx_pme(positions, charges, cell_b, alpha_b, mesh_dimensions,
         _, k_squared = generate_k_vectors_pme(cell_b, mesh_dimensions)
     potential = _potential(mesh, cell_b, alpha_b, mesh_dimensions,
                            spline_order, k_squared.reshape(
-                               (-1,) + tuple(k_squared.shape[-3:])))
+                               (-1,) + tuple(k_squared.shape[-3:])),
+                           fft_mode)
     raw = spline_gather(positions, potential, cell_b, spline_order,
                         batch_idx=b_of)
 
@@ -355,8 +362,7 @@ def pme_reciprocal_space(
     ``cell [B, 3, 3]`` and ``alpha`` scalar or ``[B]``) take the scatter
     path of ``spline.py``.
 
-    The parameters are the JAX package's, in its order.
-    ``fft_mode="matmul"`` is not ported (``NotImplementedError``, ROADMAP);
+    The parameters are the JAX package's, in its order.  ``fft_mode``,
     ``spread_engine`` / ``gather_engine``: see :func:`_check_pme_knobs`.
     """
     _check_pme_knobs(fft_mode, spread_engine, gather_engine)
@@ -371,7 +377,7 @@ def pme_reciprocal_space(
         out = _batch_idx_pme(positions, charges, cell_b, alpha_b,
                              mesh_dimensions, spline_order, batch_idx,
                              compute_forces, compute_charge_gradients,
-                             k_squared)
+                             k_squared, fft_mode)
         return returns(*out)
     n = positions.shape[0]
     cell = cell_b[0]
@@ -387,10 +393,10 @@ def pme_reciprocal_space(
         if int(tiles.counts_max) <= cap:
             return returns(*_windowed_pme(
                 tiles, charges, cell, alpha, spline_order, compute_forces,
-                compute_charge_gradients, k_squared))
+                compute_charge_gradients, k_squared, fft_mode))
     return returns(*_dense_pme_single(
         positions, charges, cell, alpha, mesh_dimensions, spline_order,
-        compute_forces, compute_charge_gradients, k_squared))
+        compute_forces, compute_charge_gradients, k_squared, fft_mode))
 
 
 def particle_mesh_ewald(
@@ -471,9 +477,10 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
     and/or ``d(sum E)/dq [B, n]``, in the return patterns of
     :func:`pme_reciprocal_space`.  The parameters are the JAX package's,
     in its order: ``fft_mode="auto"`` convolves with ``torch.fft`` (the
-    JAX package picks its matrix-unit DFT for small meshes, which the port
-    does not have: ``"matmul"`` raises ``NotImplementedError``);
-    ``spread_engine`` / ``gather_engine``: see :func:`_check_pme_knobs`.
+    JAX package picks its matrix-unit DFT for meshes up to 32^3, a choice
+    for the TPU); ``"matmul"`` takes the matrix-product DFT, ``"xla"``
+    ``torch.fft``; ``spread_engine`` / ``gather_engine``: see
+    :func:`_check_pme_knobs`.
     """
     _check_pme_knobs(fft_mode, spread_engine, gather_engine,
                      ("auto", "xla", "matmul"))
@@ -499,6 +506,7 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
         alpha, dtype=dtype, device=device).reshape(-1), (b,))
     charges = torch.as_tensor(charges, dtype=dtype,
                               device=device).contiguous()
+    fft_mode = "matmul" if fft_mode == "matmul" else "xla"
     if engine == "auto":
         engine = ("dense" if math.prod(mesh_dimensions)
                   <= DENSE_MESH_MAX_POINTS else "windowed")
@@ -506,14 +514,14 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
         out = _batch_dense_pme_impl(
             positions, charges, cells, alphas, mesh_dimensions,
             int(spline_order), bool(compute_forces),
-            bool(compute_charge_gradients))
+            bool(compute_charge_gradients), fft_mode=fft_mode)
     elif engine == "windowed":
         cap = tile_capacity or sw.mesh_tile_capacity(n, mesh_dimensions,
                                                      tile=tile)
         out = _batch_windowed_pme_impl(
             positions, charges, cells, alphas, mesh_dimensions,
             int(spline_order), int(cap), bool(compute_forces),
-            bool(compute_charge_gradients), tile=tile)
+            bool(compute_charge_gradients), tile=tile, fft_mode=fft_mode)
     else:
         raise ValueError(f"unknown batched PME engine {engine!r}; one of "
                          "'auto', 'dense', 'windowed'")

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from nvalchemiops_torch.types import placed
+
 
 def divmod_floor(a, n):
     """Floor division and remainder with Python's ``divmod`` sign convention.
@@ -21,6 +23,23 @@ def divmod_floor(a, n):
     d = torch.div(a, n, rounding_mode="floor")
     m = a - d * n
     return d, m
+
+
+def safe_divide(num, den, eps=1e-12, device="cuda"):
+    """``num/den`` with denominators smaller than ``eps`` mapped to 0; on
+    the device of a tensor input, else on ``device``."""
+    num, den = placed((num, den), device)
+    small = torch.abs(den) < eps
+    safe_den = torch.where(small, torch.ones_like(den), den)
+    q = num / safe_den
+    return torch.where(small, torch.zeros_like(q), q)
+
+
+def exp_over_x(x, prefactor, device="cuda"):
+    """``exp(-prefactor * x) / x``, the Ewald Green's-function radial
+    factor; on ``x``'s device, else on ``device``."""
+    x, = placed((x,), device)
+    return torch.exp(-prefactor * x) / x
 
 
 def erfc_approx(x):
@@ -66,3 +85,17 @@ def apply_mat3_batched(vecs, m):
     m = m[..., None, :, :]
     return (vecs[..., 0:1] * m[..., 0, :] + vecs[..., 1:2] * m[..., 1, :]
             + vecs[..., 2:3] * m[..., 2, :])
+
+
+def dot_phases(positions, k_vectors, device="cuda"):
+    """``positions [.., n, 3] @ k_vectors [.., k, 3]^T`` as three broadcast
+    outer products, in the JAX package's order (``[.., n, k]``); on the
+    device of a tensor input, else on ``device``."""
+    positions, k_vectors = placed((positions, k_vectors), device)
+    px = positions[..., :, 0:1]
+    py = positions[..., :, 1:2]
+    pz = positions[..., :, 2:3]
+    kx = k_vectors[..., None, :, 0]
+    ky = k_vectors[..., None, :, 1]
+    kz = k_vectors[..., None, :, 2]
+    return px * kx + py * ky + pz * kz

@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from nvalchemiops_torch.types import INDEX_DTYPE
+from nvalchemiops_torch.types import INDEX_DTYPE, default_device
 
 SHIFT_PACK_BIAS = 512
 SHIFT_PACK_MASK = 1023
@@ -47,14 +47,6 @@ __all__ = [
     "shifts_to_aos",
     "shifts_from_aos",
 ]
-
-
-def default_device(x, device=None):
-    """The device an entry point runs on: ``x``'s own for a tensor, else
-    ``device`` (the card unless the caller names another)."""
-    if isinstance(x, torch.Tensor):
-        return x.device
-    return torch.device(device if device is not None else "cuda")
 
 
 def host_array(x, dtype=None):

@@ -15,6 +15,10 @@
 4. **Parity fold**: windows (stride T, width W <= 2T) overlap their
    neighbours; even and odd tiles fold onto the mesh with pure
    reshape/adds, ordered z -> y -> x.
+
+In an MD loop, :func:`mesh_tiles_need_rebuild` tells whether any atom left
+its tile; while none has, :func:`refresh_mesh_tiles` recomputes the axis
+matrices for the new positions and keeps the binning (no bucket sort).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from nvalchemiops_torch.kernels.windowed_gather import (
     spread_windows,
 )
 from nvalchemiops_torch.mathops.math import apply_mat3
-from nvalchemiops_torch.spline import bspline_derivative, bspline_weight
+from nvalchemiops_torch.spline import _local_weights
 from nvalchemiops_torch.types import INDEX_DTYPE
 
 __all__ = [
@@ -38,6 +42,8 @@ __all__ = [
     "observed_tile_capacity",
     "MeshTiles",
     "build_mesh_tiles",
+    "mesh_tiles_need_rebuild",
+    "refresh_mesh_tiles",
     "windowed_spread",
     "windowed_gather",
 ]
@@ -136,8 +142,9 @@ def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
 
     Each axis block holds the ``order`` weights at window-local columns
     ``local0 .. local0 + order - 1``, written by direct indexing (the JAX
-    package routes them with one-hot matmuls for the TPU's matrix unit; the
-    rows are identical).
+    package routes them with one-hot matmuls for the TPU's matrix unit).
+    The weights are the local forms of ``spline._local_weights`` at the
+    stencil offsets of the dense path, so both round alike in f32.
     """
     dtype = positions.dtype
     n = positions.shape[0]
@@ -149,9 +156,7 @@ def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
 
     i = torch.arange(order, dtype=INDEX_DTYPE, device=positions.device)
     offset_start = torch.floor(theta - (order - 2) * 0.5).to(INDEX_DTYPE)
-    u = (order * 0.5 + theta[..., None]
-         - (i[None, None, :] + offset_start[..., None]).to(dtype))
-    w = bspline_weight(u, order)                              # [N, 3, order]
+    w, dw = _local_weights(theta, order)                      # [N, 3, order]
     tile_idx, lin = _tile_lin(base, mesh_dims, tile)
     # window-local index of stencil point 0 (window origin tile*T - 1)
     local0 = base + offset_start - (tile_idx * tile - _HALO_LEFT)  # [N, 3]
@@ -163,7 +168,7 @@ def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
     cols = local0.long()[:, :, None] + i.long()[None, None, :]   # [N, 3, order]
     blocks = [(w, 0)]
     if need_grad:
-        blocks.append((bspline_derivative(u, order) * dims_f[None, :, None], 3))
+        blocks.append((dw * dims_f[None, :, None], 3))
     for vals, first in blocks:
         for d in range(3):
             rows[atom, (first + d) * w_win + cols[:, d]] = vals[:, d]
@@ -201,6 +206,21 @@ def _slot_maps(lin, ntiles: int, cap: int):
     return flat_slot, order_padded[src.reshape(-1)], counts_max
 
 
+def _inverse(tiles: MeshTiles, positions, cell):
+    """The cached inverse cell, or the inverse of ``cell``."""
+    if cell is None:
+        return tiles.inv
+    return torch.linalg.inv(torch.as_tensor(
+        cell, dtype=positions.dtype, device=positions.device).reshape(3, 3))
+
+
+def _slot_rows(rows, aid, ntiles: int, cap: int):
+    """``smat [ntiles, cap, k*W]``: the slot -> atom row gather (empty slots
+    read the zero row)."""
+    rows_padded = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+    return rows_padded[aid.long()].reshape(ntiles, cap, rows.shape[1])
+
+
 def build_mesh_tiles(positions, cell, mesh_dims, order: int, cap: int,
                      tile: int = 8, need_grad: bool = True) -> MeshTiles:
     """Bin atoms by stencil-base mesh tile and build the local axis
@@ -214,11 +234,42 @@ def build_mesh_tiles(positions, cell, mesh_dims, order: int, cap: int,
                               need_grad)
     ntiles = (nx // tile) * (ny // tile) * (nz // tile)
     flat_slot, aid, counts_max = _slot_maps(lin, ntiles, cap)
-    # slot -> atom row gather (empty slots read the zero row)
-    rows_padded = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
-    smat = rows_padded[aid.long()].reshape(ntiles, cap, rows.shape[1])
+    smat = _slot_rows(rows, aid, ntiles, cap)
     return MeshTiles(smat, flat_slot, aid, counts_max, inv, (nx, ny, nz),
                      tile, cap, order, need_grad)
+
+
+def mesh_tiles_need_rebuild(tiles: MeshTiles, positions, cell=None):
+    """True (0-d bool tensor on the tiles' device, no host sync) when any
+    atom left the mesh tile recorded in ``tiles.flat_slot``, or overflowed
+    its tile's capacity at build time.  The MD-loop counterpart of the
+    neighbor list's skin check: while it is False,
+    :func:`refresh_mesh_tiles` may stand in for a build.  ``cell=None``
+    reuses the cached inverse (fixed-cell MD)."""
+    inv = _inverse(tiles, positions, cell)
+    mc, _ = _mesh_coords(positions, inv, tiles.mesh_dims)
+    _, lin = _tile_lin(torch.floor(mc).to(INDEX_DTYPE), tiles.mesh_dims,
+                       tiles.tile)
+    ntiles = tiles.smat.shape[0]
+    slot = tiles.flat_slot
+    overflowed = slot >= ntiles * tiles.cap
+    cached_lin = torch.div(slot, tiles.cap, rounding_mode="floor")
+    return torch.any(overflowed | (lin != cached_lin))
+
+
+def refresh_mesh_tiles(tiles: MeshTiles, positions, cell=None) -> MeshTiles:
+    """The tiles at new positions with the cached binning: the stencil rows
+    recomputed (with the cached inverse for ``cell=None``) and gathered by
+    the cached slot -> atom map, as :func:`build_mesh_tiles` gathers them
+    after its sort.  Valid while :func:`mesh_tiles_need_rebuild` is False;
+    then it equals a fresh build at the same positions."""
+    inv = _inverse(tiles, positions, cell)
+    rows, _ = _stencil_rows(positions, inv, tiles.mesh_dims, tiles.order,
+                            tiles.tile, tiles.has_grad)
+    smat = _slot_rows(rows, tiles.aid, tiles.smat.shape[0], tiles.cap)
+    return MeshTiles(smat, tiles.flat_slot, tiles.aid, tiles.counts_max, inv,
+                     tiles.mesh_dims, tiles.tile, tiles.cap, tiles.order,
+                     tiles.has_grad)
 
 
 def _fold_axis(arr, nt_axis: int, n: int, tile: int):

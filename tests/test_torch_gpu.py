@@ -1100,3 +1100,250 @@ def test_electrostatics_on_card_match_cpu(cuda, entry):
         _close_cpu(run(cuda, torch.float32), ref)
     else:
         _close_cpu(run(cuda), ref)
+
+
+def _route_inputs(route, device, dtype):
+    """One system the windows take, one crowding a tile past its capacity,
+    one on a mesh the windows reject, three concatenated systems; with
+    channel values ``[N, 3]``, charges, channel and vector meshes."""
+    rng = np.random.default_rng(70)
+    cell = np.eye(3) * 10.0
+    cell[0, 1], cell[1, 2] = 0.5, -0.3
+    mesh, bidx, n_sys = (16, 16, 16), None, 1
+    if route == "overflow":
+        pos = rng.uniform(0.5, 4.5, (60, 3))
+        cell = np.eye(3) * 10.0
+    elif route == "batch_idx":
+        cell = np.stack([cell * s for s in (0.9, 1.0, 1.1)])
+        pos = np.concatenate([rng.uniform(0, 1, (30, 3)) @ c for c in cell])
+        bidx = torch.arange(90, device=device) // 30
+        n_sys = 3
+    else:
+        pos = rng.uniform(0, 1, (100, 3)) @ cell
+        if route == "rejected":
+            mesh = (15, 16, 16)
+    n = pos.shape[0]
+    lead = (n_sys,) if bidx is not None else ()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return (t(pos), t(cell), bidx, mesh, t(rng.normal(size=(n, 3))),
+            t(rng.normal(size=n)), t(rng.normal(size=lead + (3,) + mesh)),
+            t(rng.normal(size=lead + mesh + (3,))))
+
+
+@pytest.mark.parametrize("route", ["windowed", "overflow", "rejected",
+                                   "batch_idx"])
+def test_channel_api_on_card_matches_cpu(cuda, route):
+    """Channel spread, channel gather and vector gather in f32 on the card
+    (kernel 3 on the windowed route, kernels 5 and 6 on the dense one)
+    against f64 on CPU tensors at 1e-5 of scale; each channel equals its
+    single-channel call bit for bit where a kernel spreads it (in a fixed
+    order), and within 1e-6 of scale on the ``batch_idx`` route, whose
+    ``index_add_`` adds on the card in a run-dependent order."""
+    from nvalchemiops_torch import spline
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+
+    def run(device, dtype):
+        pos, cell, bidx, mesh, vals, q, cmesh, vmesh = _route_inputs(
+            route, device, dtype)
+        if bidx is not None and device == "cpu":
+            bidx = bidx.cpu()
+        return (spline.spline_spread_channels(pos, vals, cell, mesh, 4, bidx),
+                spline.spline_gather_channels(pos, cmesh, cell, 4, bidx),
+                spline.spline_gather_vec3(pos, q, vmesh, cell, 4, bidx))
+
+    reset_launch_counts()
+    out = run(cuda, torch.float32)
+    torch.cuda.synchronize()
+    want = {"windowed": ["windowed_spread"],
+            "overflow": ["separable_spread", "separable_gather"],
+            "rejected": ["separable_spread", "separable_gather"],
+            "batch_idx": []}[route]
+    assert all(launch_counts[k] >= 3 for k in want), launch_counts
+    _close_cpu(out, run("cpu", torch.float64))
+    pos, cell, bidx, mesh, vals, q, cmesh, vmesh = _route_inputs(
+        route, cuda, torch.float32)
+    cax = 1 if bidx is not None else 0
+    for c in range(3):
+        one = spline.spline_spread(pos, vals[:, c].contiguous(), cell, mesh,
+                                   4, bidx)
+        if bidx is None:
+            assert torch.equal(out[0].select(cax, c), one)
+        else:
+            err = (out[0].select(cax, c) - one).abs().max().item()
+            assert err <= 1e-6 * one.abs().max().item(), err
+        assert torch.equal(out[1][:, c], spline.spline_gather(
+            pos, cmesh.select(cax, c), cell, 4, bidx))
+
+
+def test_refreshed_tiles_equal_a_fresh_build_on_card(cuda):
+    """After a move that keeps every atom in its tile the detector reads
+    False (a 0-d bool on the card), and the refreshed tiles, their spread
+    and their gather equal a fresh build's bit for bit; a tile crossing
+    reads True."""
+    from nvalchemiops_torch import spline_windowed as sw
+
+    rng = np.random.default_rng(71)
+    box, mesh = 12.0, (16, 16, 16)
+    pos = torch.as_tensor(rng.uniform(0, box, (400, 3)), dtype=torch.float32,
+                          device=cuda)
+    cell = torch.eye(3, device=cuda) * box
+    cap = sw.mesh_tile_capacity(400, mesh)
+    tiles = sw.build_mesh_tiles(pos, cell, mesh, 4, cap)
+    inside = (pos * mesh[0] / box) % 8.0
+    safe = ((inside > 0.2) & (inside < 7.3)).all(dim=1, keepdim=True)
+    pos2 = pos + torch.where(safe, 1e-3, 0.0)
+    flag = sw.mesh_tiles_need_rebuild(tiles, pos2)
+    assert flag.device.type == "cuda" and flag.dim() == 0
+    assert not bool(flag)
+    refreshed = sw.refresh_mesh_tiles(tiles, pos2)
+    fresh = sw.build_mesh_tiles(pos2, cell, mesh, 4, cap)
+    for f in ("smat", "flat_slot", "aid"):
+        assert torch.equal(getattr(refreshed, f), getattr(fresh, f)), f
+    q = torch.as_tensor(rng.normal(size=400), dtype=torch.float32,
+                        device=cuda)
+    phi = torch.as_tensor(rng.normal(size=mesh), dtype=torch.float32,
+                          device=cuda)
+    assert torch.equal(sw.windowed_spread(refreshed, q),
+                       sw.windowed_spread(fresh, q))
+    for a, b in zip(sw.windowed_gather(refreshed, phi, True),
+                    sw.windowed_gather(fresh, phi, True)):
+        assert torch.equal(a, b)
+    pos3 = pos.clone()
+    pos3[7] = (pos3[7] + box / 2.0) % box
+    assert bool(sw.mesh_tiles_need_rebuild(tiles, pos3))
+
+
+@pytest.mark.parametrize("engine", ["dense", "windowed"])
+def test_matmul_fft_mode_on_card_matches_torch_fft(cuda, engine):
+    """``batch_pme_reciprocal(fft_mode="matmul")`` against ``"xla"`` on the
+    card in f32 (TF32 off), and against f64 on CPU tensors."""
+    from nvalchemiops_torch.interactions.electrostatics import pme
+
+    rng = np.random.default_rng(72)
+    pos = rng.uniform(0, 16.0, (4, 300, 3))
+    q = rng.normal(size=(4, 300))
+
+    def run(device, dtype, mode):
+        return pme.batch_pme_reciprocal(
+            torch.as_tensor(pos, dtype=dtype, device=device),
+            torch.as_tensor(q, dtype=dtype, device=device),
+            torch.eye(3, dtype=dtype, device=device) * 16.0, 0.35,
+            (32, 32, 32), 4, True, None, mode, engine=engine)
+
+    mm = run(cuda, torch.float32, "matmul")
+    _close_cpu(mm, run(cuda, torch.float32, "xla"))
+    _close_cpu(mm, run("cpu", torch.float64, "xla"))
+
+
+@pytest.mark.parametrize("api", ["global", "per-backend"])
+def test_matmul_dft_keeps_full_f32_with_tf32_on(cuda, api):
+    """TF32 turned on by the caller: ``matmul_rfft_convolve`` and
+    ``fft_mode="matmul"`` still meet the f32 bar against f64, and the
+    caller's setting is back afterwards."""
+    from nvalchemiops_torch.interactions.electrostatics import pme
+    from nvalchemiops_torch.mathops.matmul_dft import matmul_rfft_convolve
+
+    rng = np.random.default_rng(74)
+    mesh = rng.normal(size=(2, 32, 24, 20))
+    kern = rng.uniform(0.5, 1.5, size=(32, 24, 11))
+    pos = rng.uniform(0, 16.0, (2, 300, 3))
+    q = rng.normal(size=(2, 300))
+
+    def conv(device, dtype):
+        return matmul_rfft_convolve(
+            torch.as_tensor(mesh, dtype=dtype, device=device),
+            torch.as_tensor(kern, dtype=dtype, device=device))
+
+    def pme_mm(device, dtype, mode):
+        return pme.batch_pme_reciprocal(
+            torch.as_tensor(pos, dtype=dtype, device=device),
+            torch.as_tensor(q, dtype=dtype, device=device),
+            torch.eye(3, dtype=dtype, device=device) * 16.0, 0.35,
+            (32, 32, 32), 4, True, None, mode, engine="dense")
+
+    matmul = torch.backends.cuda.matmul
+    if api == "per-backend" and not hasattr(matmul, "fp32_precision"):
+        pytest.skip("this torch has no per-backend fp32_precision setting")
+    ref_conv = conv("cpu", torch.float64)
+    ref_pme = pme_mm("cpu", torch.float64, "xla")
+    if api == "global":
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+    else:
+        prev = matmul.fp32_precision
+        matmul.fp32_precision = "tf32"
+    try:
+        _close_cpu(conv(cuda, torch.float32), ref_conv)
+        _close_cpu(pme_mm(cuda, torch.float32, "matmul"), ref_pme)
+        if api == "global":
+            assert torch.get_float32_matmul_precision() == "high"
+        else:
+            assert matmul.fp32_precision == "tf32"
+    finally:
+        if api == "global":
+            torch.set_float32_matmul_precision(prev)
+        else:
+            matmul.fp32_precision = prev
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_host_inputs_run_on_the_card(cuda):
+    """Entry points given numpy inputs only place them on the card (the D3
+    tables are numpy) and agree with the call on CPU tensors."""
+    from nvalchemiops_torch import spline
+    from nvalchemiops_torch.interactions.dispersion.dense_d3 import (
+        element_rows,
+    )
+    from nvalchemiops_torch.mathops import safe_divide
+
+    rng = np.random.default_rng(75)
+    numbers = rng.integers(0, 10, 40).astype(np.int32)
+    table = rng.normal(size=(10, 5, 5, 3))
+    num, den = rng.normal(size=64), rng.normal(size=64)
+    den[:3] = 0.0
+    idx = rng.integers(-40, 40, (20, 3)).astype(np.int32)
+    for got, want in (
+            (element_rows(numbers, table),
+             element_rows(torch.as_tensor(numbers), torch.as_tensor(table))),
+            (safe_divide(num, den),
+             safe_divide(torch.as_tensor(num), torch.as_tensor(den))),
+            (spline.wrap_grid_index(idx, 16),
+             spline.wrap_grid_index(torch.as_tensor(idx), 16))):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.35])
+def test_dense_coulomb_on_card_matches_list_coulomb(cuda, alpha,
+                                                    monkeypatch):
+    """The batched dense Coulomb on the card in f64, in passes of a few
+    rows and in one, against the list Coulomb on the card's neighbor
+    matrix (the erfc polynomial's 1.5e-7 against the exact erfc where
+    damped)."""
+    from nvalchemiops_torch.interactions.electrostatics import (
+        batch_dense_coulomb_energy_forces, coulomb_energy_forces, dense,
+    )
+    from nvalchemiops_torch.neighborlist import neighbor_list
+
+    rng = np.random.default_rng(73)
+    b, n, box, cutoff = 3, 200, 14.0, 6.0
+    pos = torch.as_tensor(rng.uniform(0, box, (b, n, 3)), device=cuda)
+    q = torch.as_tensor(rng.normal(size=(b, n)), device=cuda)
+    cell = torch.eye(3, dtype=torch.float64, device=cuda) * box
+    whole = batch_dense_coulomb_energy_forces(pos, q, cell, cutoff, alpha)
+    monkeypatch.setattr(dense, "DENSE_PAIR_CHUNK", 17 * n)
+    rows = batch_dense_coulomb_energy_forces(pos, q, cell, cutoff, alpha)
+    for a, c in zip(whole, rows):
+        assert torch.equal(a, c)
+    for s in range(b):
+        nm, _, sh = neighbor_list(pos[s], cutoff, cell=cell,
+                                  pbc=torch.tensor([True] * 3),
+                                  max_neighbors=256)
+        ref = coulomb_energy_forces(pos[s], q[s], cell, cutoff, alpha,
+                                    neighbor_matrix=nm,
+                                    neighbor_matrix_shifts=sh)
+        _close_cpu((whole[0][s], whole[1][s]), ref,
+                   rtol=1e-10 if alpha == 0.0 else 2e-6)

@@ -302,8 +302,6 @@ def test_grid_dftd3_knobs():
     "grid_dftd3(compute_virial=True)", "grid_dftd3(engine='xla')",
     "grid_dftd3_coulomb(engine='xla')", "batch_grid_dftd3(engine='xla')",
     "dense_dftd3(engine='xla')", "batch_dense_dftd3(engine='xla')",
-    "pme_reciprocal_space(fft_mode='matmul')",
-    "batch_pme_reciprocal(fft_mode='matmul')",
 ])
 def test_unported_knobs_raise_naming_roadmap(call):
     g, numbers, tab, cutoff, cell = _grid_system(108, n=80, box=10.0)
@@ -326,17 +324,32 @@ def test_unported_knobs_raise_naming_roadmap(call):
         "batch_dense_dftd3(engine='xla')": lambda: tdense.batch_dense_dftd3(
             pos_t, np.ones((2, 40), np.int32), torch.as_tensor(pcell), 3.5,
             *tab, A1, A2, S8, engine="xla"),
-        "pme_reciprocal_space(fft_mode='matmul')":
-            lambda: tpme.pme_reciprocal_space(
-                pos_t[0], q_t[0], torch.as_tensor(pcell), 0.35, (16, 16, 16),
-                fft_mode="matmul"),
-        "batch_pme_reciprocal(fft_mode='matmul')":
-            lambda: tpme.batch_pme_reciprocal(
-                pos_t, q_t, torch.as_tensor(pcell), 0.35, (16, 16, 16),
-                fft_mode="matmul"),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calls[call]()
+
+
+@pytest.mark.parametrize("entry", ["pme_reciprocal_space",
+                                   "batch_pme_reciprocal"])
+def test_matmul_fft_mode_binds_by_position_as_in_jax(entry):
+    """``fft_mode`` given by position (argument 15 of
+    ``pme_reciprocal_space``, 9 of ``batch_pme_reciprocal``) takes the
+    matrix-product DFT, as in the JAX package, and agrees with it."""
+    pos, q, pcell = _pme_system(109)
+    mesh = (16, 16, 16)
+    if entry == "pme_reciprocal_space":
+        pos, q = pos[0], q[0]
+        rest = (mesh, None, 4, None, None, None, True, False, 1e-6, None,
+                "matmul")
+    else:
+        rest = (mesh, 4, True, None, "matmul")
+    out = getattr(tpme, entry)(torch.as_tensor(pos), torch.as_tensor(q),
+                               torch.as_tensor(pcell), 0.35, *rest)
+    ref = getattr(jpme, entry)(jnp.asarray(pos), jnp.asarray(q),
+                               jnp.asarray(pcell), 0.35, *rest)
+    assert len(out) == len(ref) == 2
+    for a, r in zip(out, ref):
+        assert_close(a, r, rtol=1e-9)
 
 
 @pytest.mark.parametrize("knob", ["batch_idx", "mesh_spacing", "accuracy"])
