@@ -78,7 +78,19 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     against f64; the dense Coulomb on the composite against the f64
     reference and on the 64 x 2,000 batch against the list Coulomb; phase
     3's PME errors before and after the local B-spline forms; every kernel
-    call of the phase replayed against its plain version.
+    call of the phase replayed against its plain version;
+15. ``dftd3`` over neighbour matrices and pair lists, and the window
+    engine's virial (``run_dftd3``): on the composite after
+    ``neighbor_list(method="cell_list")``, its f32 D3 forces against the
+    f64 reference, the COO list against the matrix and the energy against
+    ``grid_dftd3``'s; ``grid_dftd3(compute_virial=True)`` at 109,744
+    atoms on kernel 1 (its three D3 bodies and no other pair sweep, each
+    call replayed) against the f64 ``dftd3`` virial on the port's cell
+    list, and the window engine's plain path in f64 against it; the
+    reference's flagship D3 row (85,750-atom CsCl at 21.2 A, f32 against
+    f64, list against matrix) and its batched row (128 x 2,000 at 21.2 A
+    with ``batch_idx``, per-system cells and the virial, against phase
+    6's ``batch_dftd3``), timed beside the reference's H100 times.
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
@@ -247,6 +259,50 @@ REFERENCE_MS = {"naive 16,384": 4.530, "cell list 262,144": 9.815,
 # runs the same recipe at witness_n_rep
 HYBRID = dict(n_rep=48, a=3.0, jitter=0.2, cutoff=9.0, alpha=0.35, zmax=16,
               witness_n_rep=24)
+
+# phase 15: dftd3 on the port's neighbour matrices and lists.  The
+# reference's H100 D3 rows (BASELINE.md:29 and :32, neighbour list
+# excluded), ms and peak GB: the 85,750-atom CsCl (n_rep 35) and the
+# 128 x 2,000 batch, both at 21.2 A.
+REFERENCE_D3 = {"flagship": (16.454, 1.58), "batch": (46.049, 4.71)}
+FLAGSHIP_D3 = dict(n_rep=35, cutoff=21.2)
+# phase 15's bars, both sides on the card: (max rel, RMS rel) of forces,
+# max |diff| / max |ref| over systems of energies, the Frobenius relative
+# error of the virial.  1.25x the larger of two readings of sound runs,
+# rounded up (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): list vs
+# matrix 9.408e-6 / 4.916e-6 (composite), 5.427e-5 / 2.414e-5 (85,750
+# atoms); the composite's energy vs grid_dftd3 7.210e-8; f32 vs f64 at
+# 85,750 atoms 2.419e-5 / 8.796e-6, energy 9.913e-8; the batch vs
+# batch_dftd3 1.680e-5 / 7.766e-6 (1.668e-5 / 7.765e-6 in the other run:
+# kernel 4's atomics), energies 1.829e-7; the window virial in f32 vs
+# dftd3's in f64, one call, 7.028e-8 (7.013e-8).  List and matrix
+# energies read the same f32 bits in both runs (0.0): their bar is one f32
+# unit roundoff, 2^-23, where 1.25x of 0 would ask two summation orders
+# for equal bits.  The virial's reading moves with the order of kernel 1's
+# j-side atomics (a third run read 1.043e-7 in its one call): over
+# VIRIAL_CALLS calls its median read 7.023e-8 in two runs and is held to
+# the one-call bar, its largest 1.041e-7 and 7.046e-8, held to
+# "virial_f32_vs_f64_largest".
+DFTD3_BARS = {
+    "composite_list_vs_matrix": (1.18e-5, 6.15e-6),
+    "flagship_list_vs_matrix": (6.79e-5, 3.02e-5),
+    "list_vs_matrix_energy": 1.20e-7,
+    "composite_energy_vs_grid": 9.02e-8,
+    "flagship_f32_vs_f64": (3.03e-5, 1.10e-5),
+    "flagship_energy_f32_vs_f64": 1.24e-7,
+    "batch_vs_dense": (2.10e-5, 9.71e-6),
+    "batch_energy_vs_dense": 2.29e-7,
+    "virial_f32_vs_f64": 8.79e-8,
+    "virial_f32_vs_f64_largest": 1.31e-7,
+}
+# the window engine's plain path in f64 against dftd3's f64 virial
+VIRIAL_F64_RTOL = 1e-9
+# the f32 window virial moves from call to call with the order of kernel
+# 1's j-side atomics: the phase reads it over this many calls and holds
+# their median and their largest to their bars (DFTD3_BARS)
+VIRIAL_CALLS = 20
+# a dftd3 call slower than this (s) is timed once, not three times
+DFTD3_SLOW_S = 5.0
 
 # device ms per call of every body of kernels 1 and 4 before their
 # distance-first redesign (the parent tree's kernels), measured with
@@ -867,7 +923,7 @@ def d3_batch_system(dev):
 
 def run_batched_d3(dev):
     """Phases 6 and 7; returns the dense capture, counts and bound
-    context."""
+    context, and the 21.2 A batch's energies and forces."""
     from nvalchemiops_torch.interactions.dispersion import dense_d3
     from nvalchemiops_torch.interactions.dispersion.dense_d3 import (
         _image_combos, batch_dense_dftd3, batch_dftd3, batch_route,
@@ -994,7 +1050,7 @@ def run_batched_d3(dev):
     ctx = {"systems": cfg["b"], "n": cfg["n"], "volume": box ** 3,
            "cutoff": cut, "combos": len(combos), "mesh": tables[3].shape[1],
            "parent": True}
-    return capture.calls, counts_m, ctx
+    return capture.calls, counts_m, ctx, (e_m, f_m)
 
 
 def pme_batch_system(dev):
@@ -2081,6 +2137,284 @@ def run_surface(dev, full):
 
 
 
+def energy_error(e, ref):
+    """max |e - ref| / max |ref| over systems."""
+    e, ref = e.double().reshape(-1), ref.double().reshape(-1)
+    return ((e - ref).abs().max() / ref.abs().max()).item()
+
+
+def frobenius_error(v, ref):
+    """||v - ref||_F / ||ref||_F."""
+    v, ref = v.double(), ref.double()
+    return (torch.linalg.norm(v - ref) / torch.linalg.norm(ref)).item()
+
+
+def check_bar(name, err, bar):
+    phase(f"{name}: {err:.3e} (bar {bar:.3e})")
+    if not err <= bar:
+        raise AssertionError(f"{name}: above its bar")
+    return err
+
+
+def dftd3_timing(label, fn, reference=None, profile=False):
+    """Steady time of ``fn`` (CUDA events, median of 3 after a warm-up, or
+    one repeat where the warm-up took more than ``DFTD3_SLOW_S``), its peak
+    memory (statistics reset just before one call; also above what was
+    allocated before it) and with ``profile`` the idle share."""
+    from nvalchemiops_torch.interactions.dispersion import _kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if first > DFTD3_SLOW_S:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms, how = a.elapsed_time(b), (f"one repeat: the warm-up took "
+                                      f"{first:.1f} s")
+    else:
+        ms, how = cuda_time_ms(fn, reps=3), "median of 3 after a warm-up"
+    ref = ("" if reference is None else
+           f"; the reference's H100 row {reference[0]} ms, "
+           f"{reference[1]} GB")
+    phase(f"{label}: {ms:.3f} ms (CUDA events, {how}), peak memory "
+          f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above "
+          f"the inputs), D3_PAIR_CHUNK {_kernels.D3_PAIR_CHUNK}{ref}")
+    if profile:
+        profile_step(label, fn)
+    return ms, peak
+
+
+def run_dftd3(dev, full):
+    """Phase 15: ``dftd3`` on the port's neighbour matrices and pair lists
+    and the window engine's virial; ``full`` holds phase 4's inputs, grid
+    builders and D3 time and phase 6's 21.2 A ``batch_dftd3`` output."""
+    from nvalchemiops_torch import composite
+    from nvalchemiops_torch.interactions.dispersion import (
+        D3Parameters, dftd3, grid_d3,
+    )
+    from nvalchemiops_torch.interactions.dispersion.d3_data import (
+        realistic_test_tables,
+    )
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels.window_sweep import window_sweep_plain
+    from nvalchemiops_torch.neighborlist import (
+        assert_max_neighbors, get_neighbor_list_from_neighbor_matrix,
+        neighbor_list,
+    )
+
+    pbc = np.array([True] * 3)
+    no_kernel = list(launch_counts)
+    d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
+    a1, a2, s8 = composite.D3_A1, composite.D3_A2, composite.D3_S8
+    real = realistic_test_tables(np.float64)
+
+    def matrix(pos, cell, cut, **kw):
+        k = density_max_neighbors(pos.shape[0], cell, cut)
+        nm, num, sh = neighbor_list(pos, cut, cell=cell, pbc=pbc,
+                                    max_neighbors=k, **kw)
+        assert_max_neighbors(nm, num)
+        return nm, num, sh, k
+
+    def as_list(nm, num, sh):
+        nl, ptr, us = get_neighbor_list_from_neighbor_matrix(
+            nm, num, sh, fill_value=nm.shape[0])
+        return dict(neighbor_list=nl, neighbor_ptr=ptr, unit_shifts=us)
+
+    # -- 15.1: the 1,024-atom composite --------------------------------------
+    pos_np, cell_np, numbers, _, rcov, r4r2, cna, c6 = \
+        composite.build_system()
+    params = D3Parameters(rcov, r4r2, c6, real["cn_ref"], device=dev)
+    pos = torch.as_tensor(pos_np, dtype=torch.float32, device=dev)
+    cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
+    cutoff = composite.CUTOFF
+    nm, num, sh, k = matrix(pos, cell, cutoff, method="cell_list")
+
+    def run_c(**fmt):
+        return dftd3(pos, numbers, a1, a2, s8, d3_params=params, cell=cell,
+                     **fmt)
+
+    fmt_m = dict(neighbor_matrix=nm, neighbor_matrix_shifts=sh)
+    (e_m, f_m, _), _ = drive(f"composite dftd3 matrix (K {k}, "
+                             f"{int(num.sum())} pairs)", lambda: run_c(
+                                 **fmt_m), [], forbid=no_kernel)
+    ref = composite.load_reference()
+    got = {"d3": f_m.double().cpu().numpy()}
+    rel = composite.relative_errors(got, ref)["d3"]
+    rms = composite.rms_errors(got, ref)["d3"]
+    phase(f"composite dftd3 matrix forces vs f64 reference: max rel "
+          f"{rel:.3e} (bar {d3_bar[0]:.3e}), rms rel {rms:.3e} (bar "
+          f"{d3_bar[1]:.3e})")
+    if not (rel <= d3_bar[0] and rms <= d3_bar[1]):
+        raise AssertionError("composite dftd3 above the D3 bar")
+    e_l, f_l, _ = run_c(**as_list(nm, num, sh))
+    check_errors("composite dftd3 list vs matrix forces", f_l, f_m,
+                 DFTD3_BARS["composite_list_vs_matrix"])
+    check_bar("composite dftd3 list vs matrix energy", energy_error(e_l, e_m),
+              DFTD3_BARS["list_vs_matrix_energy"])
+    # phase 3's grid_dftd3 call on the same system
+    g_c = composite.build_grid(pos, cell)
+    e_g, _, _ = grid_d3.grid_dftd3(
+        g_c, *grid_d3.compact_d3_elements(numbers, rcov, r4r2, c6, cna),
+        cutoff, a1, a2, s8)
+    check_bar(f"composite dftd3 energy {e_m.item():.9e} vs grid_dftd3 "
+              f"{e_g.item():.9e}", energy_error(e_m, e_g),
+              DFTD3_BARS["composite_energy_vs_grid"])
+    del g_c
+
+    # -- 15.2: the window engine's virial at 109,744 atoms -----------------
+    pos, cell = full["pos"], full["cell"]
+    n = pos.shape[0]
+    d3_args = full["d3_args"]
+    num_c, rcov_c, r4r2_c, c6_c, cna_c = d3_args[:5]
+    zm1, mesh = cna_c.shape
+    cn_full = np.broadcast_to(cna_c[:, None, :, None],
+                              (zm1, zm1, mesh, mesh)).copy()
+    g = full["grid"]()
+    expect = ["window_sweep_cn", "window_sweep_d3_direct",
+              "window_sweep_chain"]
+
+    def run_v():
+        e, f, _, v = grid_d3.grid_dftd3(g, *d3_args, compute_virial=True,
+                                        cell=cell)
+        return {"d3": f, "energy": e.reshape(1), "virial": v}
+
+    label = f"grid_dftd3(compute_virial=True) {n} atoms"
+    out, counts, _ = drive_and_replay(label, run_v, expect)
+    with_v = cuda_time_ms(run_v, reps=3)
+    without = cuda_time_ms(lambda: grid_d3.grid_dftd3(g, *d3_args), reps=3)
+    phase(f"{label}: steady {with_v:.3f} ms; on the same grid without the "
+          f"virial {without:.3f} ms, phase 4's D3 stage {full['d3_ms']:.3f}"
+          f" ms (CUDA events, median of 3 after a warm-up); launches "
+          f"{ {k: counts[k] for k in expect} }")
+    pos64, cell64 = pos.double(), cell.double()
+    nm, num, sh, k = matrix(pos64, cell64, d3_args[5], method="cell_list")
+    _, f64, _, v64 = dftd3(
+        pos64, num_c, a1, a2, s8, covalent_radii=rcov_c, r4r2=r4r2_c,
+        c6_reference=c6_c, coord_num_ref=cn_full, cell=cell64,
+        neighbor_matrix=nm, neighbor_matrix_shifts=sh, compute_virial=True,
+        output_dtype=None)
+    del nm, sh
+    errs = [frobenius_error(out["virial"], v64[0])] + [
+        frobenius_error(run_v()["virial"], v64[0])
+        for _ in range(VIRIAL_CALLS - 1)]
+    phase(f"window virial over {VIRIAL_CALLS} calls: smallest "
+          f"{min(errs):.3e} ({k} neighbours a row; virial diagonal "
+          f"{[round(x, 9) for x in v64[0].diagonal().tolist()]})")
+    check_bar("window virial f32 vs dftd3 f64 virial, median",
+              statistics.median(errs), DFTD3_BARS["virial_f32_vs_f64"])
+    check_bar("window virial f32 vs dftd3 f64 virial, largest", max(errs),
+              DFTD3_BARS["virial_f32_vs_f64_largest"])
+    check_errors("window f32 D3 forces vs dftd3 f64", out["d3"], f64,
+                 d3_bar)
+    del g
+    g64 = full["grid64"]()
+    with plain_kernels(grid_d3, window_sweep=window_sweep_plain):
+        v_plain = grid_d3.grid_dftd3(g64, *d3_args, compute_virial=True,
+                                     cell=cell64)[3]
+    check_bar("window plain path f64 virial vs dftd3 f64 virial "
+              "(Frobenius)", frobenius_error(v_plain, v64[0]),
+              VIRIAL_F64_RTOL)
+    del g64, f64
+
+    # -- 15.3: the reference's flagship row, 85,750 atoms at 21.2 A ---------
+    cut = FLAGSHIP_D3["cutoff"]
+    pos_np, cell_np, numbers, _, rcov, r4r2, _, c6 = composite.build_system(
+        n_rep=FLAGSHIP_D3["n_rep"])
+    params = D3Parameters(rcov, r4r2, c6, real["cn_ref"], device=dev)
+    pos = torch.as_tensor(pos_np, dtype=torch.float32, device=dev)
+    cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
+    n = pos.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nm, num, sh, k = matrix(pos, cell, cut, method="cell_list")
+    torch.cuda.synchronize()
+    label = f"dftd3 {n} atoms at {cut} A"
+    phase(f"{label}: cell list {(time.perf_counter() - t0) * 1e3:.3f} ms "
+          f"(host wall, first call), K {k}, max count {int(num.max())}, "
+          f"{int(num.sum())} pairs")
+
+    def run_f(p=pos, c=cell, **fmt):
+        return dftd3(p, numbers, a1, a2, s8, d3_params=params, cell=c,
+                     **(fmt or dict(neighbor_matrix=nm,
+                                    neighbor_matrix_shifts=sh)))
+
+    (e32, f32, _), _ = drive(f"{label} matrix", run_f, [], forbid=no_kernel)
+    check_forces(label, f32)
+    dftd3_timing(f"{label} matrix f32", run_f, REFERENCE_D3["flagship"],
+                 profile=True)
+    e64, f64, _ = run_f(pos.double(), cell.double(), neighbor_matrix=nm,
+                        neighbor_matrix_shifts=sh)
+    check_errors(f"{label} f32 vs f64 forces", f32, f64,
+                 DFTD3_BARS["flagship_f32_vs_f64"])
+    check_bar(f"{label} f32 vs f64 energy ({e64.item():.9e})",
+              energy_error(e32, e64), DFTD3_BARS["flagship_energy_f32_vs_f64"])
+    del f64
+    fmt_l = as_list(nm, num, sh)
+    del nm, sh
+    e_l, f_l, _ = run_f(**fmt_l)
+    check_errors(f"{label} list vs matrix forces", f_l, f32,
+                 DFTD3_BARS["flagship_list_vs_matrix"])
+    check_bar(f"{label} list vs matrix energy", energy_error(e_l, e32),
+              DFTD3_BARS["list_vs_matrix_energy"])
+    dftd3_timing(f"{label} list f32", lambda: run_f(**fmt_l))
+    del fmt_l, f_l, f32
+
+    # -- 15.4: the reference's batched row, 128 x 2,000 at 21.2 A -----------
+    cfg = D3_BATCH
+    tables, _, numbers, pos_m, _, _ = d3_batch_system(dev)
+    rcov, r4r2, c6, cna = tables
+    zm1, mesh = cna.shape
+    cn_full = np.broadcast_to(cna[:, None, :, None],
+                              (zm1, zm1, mesh, mesh)).copy()
+    b, n = numbers.shape
+    box, cut = cfg["matched_box"], cfg["matched_cutoff"]
+    cells = torch.eye(3, device=dev).expand(b, 3, 3).contiguous() * box
+    bidx = torch.arange(b, device=dev).repeat_interleave(n).int()
+    pos = pos_m.reshape(-1, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k = density_max_neighbors(n, cells[0], cut)
+    nm, num, sh = neighbor_list(pos, cut, cell=cells, pbc=pbc,
+                                batch_idx=bidx, max_neighbors=k)
+    assert_max_neighbors(nm, num)
+    torch.cuda.synchronize()
+    label = f"dftd3 {b} x {n} at {cut} A"
+    nl_ms = (time.perf_counter() - t0) * 1e3
+    phase(f"{label}: batched neighbour list {nl_ms:.3f} ms (host wall, "
+          f"first call), K {k}, max count "
+          f"{int(num.max())}, {int(num.sum())} pairs")
+
+    def run_b():
+        return dftd3(pos, numbers.reshape(-1), *D3_PARAMS,
+                     covalent_radii=rcov, r4r2=r4r2, c6_reference=c6,
+                     coord_num_ref=cn_full, batch_idx=bidx, cell=cells,
+                     neighbor_matrix=nm, neighbor_matrix_shifts=sh,
+                     compute_virial=True)
+
+    (e_b, f_b, _, v_b), _ = drive(f"{label} matrix", run_b, [],
+                                  forbid=no_kernel)
+    if not (torch.isfinite(e_b).all() and torch.isfinite(v_b).all()):
+        raise AssertionError(f"{label}: non-finite energy or virial")
+    e_d, f_d = full["batch_21"]
+    check_errors(f"{label} forces vs batch_dftd3 (kernel 4)",
+                 f_b.reshape(b, n, 3), f_d, DFTD3_BARS["batch_vs_dense"])
+    check_bar(f"{label} per-system energies vs batch_dftd3",
+              energy_error(e_b, e_d), DFTD3_BARS["batch_energy_vs_dense"])
+    phase(f"{label}: virial[0] diagonal "
+          f"{[round(x, 9) for x in v_b[0].diagonal().tolist()]}")
+    dftd3_timing(f"{label} matrix f32 (virial on)", run_b,
+                 REFERENCE_D3["batch"])
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -2246,7 +2580,7 @@ def main():
     del full_calls, small_calls
 
     # -- phases 6 and 7: batched D3, dense and grid branch -----------------
-    d3_calls, d3_counts, d3_ctx = run_batched_d3(dev)
+    d3_calls, d3_counts, d3_ctx, batch_21 = run_batched_d3(dev)
 
     # -- phase 8: PME, dense and batched -------------------------------------
     (pme_calls, pme_counts, pme_ctx, fb_calls, fb_ctx,
@@ -2318,6 +2652,17 @@ def main():
         "d3_args": (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
                     composite.D3_A2, composite.D3_S8),
         "f_d3": f_d3, "f_c": f_c, "pme_err": (rel["pme"], rms["pme"])})
+
+    # -- phase 15: dftd3 and the window engine's virial --------------------
+    run_dftd3(dev, {
+        "pos": pos, "cell": cell, "d3_ms": steady["d3"],
+        "d3_args": (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
+                    composite.D3_A2, composite.D3_S8),
+        "grid": lambda: build_atom_grid(pos, cell, pbc, dims, radius, gcap,
+                                        origin=origin),
+        "grid64": lambda: build_atom_grid(pos.double(), cell.double(), pbc,
+                                          dims, radius, gcap, origin=origin),
+        "batch_21": batch_21})
 
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),

@@ -57,6 +57,7 @@ from nvalchemiops_torch.kernels.chunk_sweep import (
 )
 from nvalchemiops_torch.kernels.row_sweep import row_sweep
 from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
+from nvalchemiops_torch.neighborlist.neighbor_utils import unpack_shifts
 from nvalchemiops_torch.stencil import (
     extend_stencil, scatter_to_stencil, stencil_cn_chain_forces,
     stencil_coordination_numbers,
@@ -276,12 +277,13 @@ def _wide_rows(e_ext, edc_ext, z_ext, zm):
 
 def _d3_pass2_direct(grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl,
                      edc_pl, lf, params, q=None, engine="window",
-                     block_g=None):
+                     block_g=None, raw_j=None):
     """Pass 2: per-slot energy, direct forces and dE/dCN planes ``(e, fx,
     fy, fz, decn)``.  With ``q = (q_plane, q_ext)`` the Coulomb pair rides
     the same sweep (body ``d3_direct_coulomb``) and the Coulomb planes
     follow: ``(ec, fcx, fcy, fcz)``, or only ``ec`` with
-    ``params.combine_forces`` (the force planes then carry both)."""
+    ``params.combine_forces`` (the force planes then carry both).  A list
+    ``raw_j`` receives the j-side force accumulators before the fold."""
     w_ext = _extend_like(grid, w_plane, 0.0)
     e_ext = _extend_like(grid, e_pl, 0.0)
     edc_ext = _extend_like(grid, edc_pl, 0.0)
@@ -306,19 +308,24 @@ def _d3_pass2_direct(grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl,
         cf = _wide_rows(e_ext, edc_ext, z_ext, lf.shape[-1] // 2)
     acc, jacc = _sweep(grid, engine, block_g, body, torch.stack(own_cols),
                        cand, params, lf=lf, cf=cf)
+    if raw_j is not None:
+        raw_j.append(jacc[:3])
     # e: pairs counted once, own side only
     return (acc[0],) + tuple(acc[k] + fold_halo(grid, jacc[k - 1])
                              for k in range(1, acc.shape[0]))
 
 
 def _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn_pl, params,
-                    engine="window", block_g=None):
-    """Pass 3: CN chain-rule force planes (fx, fy, fz)."""
+                    engine="window", block_g=None, raw_j=None):
+    """Pass 3: CN chain-rule force planes (fx, fy, fz); a list ``raw_j``
+    receives the j-side accumulators before the fold."""
     decn_ext = _extend_like(grid, decn_pl, 0.0)
     own = torch.stack([_interior(grid, px_d), _interior(grid, grid.ext_py),
                        _interior(grid, grid.ext_pz), rcov_plane, decn_pl])
     cand = torch.stack([px_d, grid.ext_py, grid.ext_pz, rcov_ext, decn_ext])
     acc, jacc = _sweep(grid, engine, block_g, "chain", own, cand, params)
+    if raw_j is not None:
+        raw_j.append(jacc)
     return tuple(acc[k] + fold_halo(grid, jacc[k]) for k in range(3))
 
 
@@ -338,7 +345,8 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
                   r4r2_plane, r4r2_ext, cna_elem, mask_elem, c6p_elem,
                   params: SweepParams, engine: str = "window", block_g=None,
                   q=None, cn_plane=None, skip_chain: bool = False,
-                  feature_dtype=None):
+                  feature_dtype=None, compute_virial: bool = False,
+                  cell=None):
     """D3 passes 1-3 on one engine's pair sweep (``"window"``, ``"pallas"``
     or ``"block"``: the JAX ``_grid_d3_window_impl``,
     ``_grid_d3_pallas_impl`` and ``_grid_d3_block_impl``); returns the
@@ -350,7 +358,9 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
     dE/dCN plane instead of adding the chain forces (the hybrid engine's
     hooks, as ``cn_a_override`` / ``skip_chain`` of the JAX row sweep).
     ``feature_dtype`` rounds the pass-2 feature planes to that dtype (the
-    JAX window engine's storage cast).
+    JAX window engine's storage cast).  ``compute_virial`` (window engine,
+    D3 only, needs ``cell``) appends the ``[3, 3]`` virial
+    (:func:`_window_virial`).
     """
     px_d = _parked_px(grid, z_ext)
     if cn_plane is None:
@@ -363,14 +373,46 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
                             for a in (lf, e_pl, edc_pl))
     si_plane = torch.sqrt(r4r2_plane * _SQRT3)
     si_ext = torch.sqrt(r4r2_ext * _SQRT3)
+    raw_j = [] if compute_virial else None
     e_pl, fx, fy, fz, decn, *coul = _d3_pass2_direct(
         grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl, edc_pl, lf,
-        params, q=q, engine=engine, block_g=block_g)
+        params, q=q, engine=engine, block_g=block_g, raw_j=raw_j)
     if skip_chain:
         return (e_pl, fx, fy, fz, cn_plane, decn, *coul)
     fx3, fy3, fz3 = _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn,
-                                    params, engine, block_g)
-    return (e_pl, fx + fx3, fy + fy3, fz + fz3, cn_plane, *coul)
+                                    params, engine, block_g, raw_j=raw_j)
+    out = (e_pl, fx + fx3, fy + fy3, fz + fz3, cn_plane, *coul)
+    if compute_virial:
+        out += (_window_virial(grid, out[1:4], raw_j[0] + raw_j[1], cell),)
+    return out
+
+
+def _window_virial(grid, forces, j_forces, cell):
+    """The ``[3, 3]`` virial from the engine's planes (the JAX window
+    engine's plane identity, grid_d3.py:1644-1666):
+
+        ``V[a, b] = sum_int F_a r_b + sum_ext jF_a S_b``
+
+    ``forces`` are the folded per-slot force planes, ``r`` the interior
+    positions, ``j_forces [3, ez, ey, ex, cap]`` the raw j-side force
+    accumulators of passes 2 and 3 before the fold, and ``S`` each extended
+    cell's Cartesian ghost shift from ``grid.ext_shift_code`` and ``cell``.
+    Each pair's displacement is ``(r_j + S) - r_i``, so the sum over the
+    halo's raw accumulators books every pair's shift once."""
+    dtype, device = forces[0].dtype, forces[0].device
+    ez, ey, ex = j_forces.shape[1:4]
+    codes = grid.ext_shift_code.reshape(ez, ey, ex)
+    cellm = torch.as_tensor(cell, device=device).to(dtype).reshape(3, 3)
+    s = [c.to(dtype) for c in unpack_shifts(codes)]
+    shift = [s[0] * cellm[0, b] + s[1] * cellm[1, b] + s[2] * cellm[2, b]
+             for b in range(3)]
+    r_int = [_interior(grid, p) for p in (grid.ext_px, grid.ext_py,
+                                          grid.ext_pz)]
+    return torch.stack([
+        torch.stack([(forces[a] * r_int[b]).sum()
+                     + (j_forces[a] * shift[b][..., None]).sum()
+                     for b in range(3)])
+        for a in range(3)])
 
 
 def _snap_block_g(block_g, cx):
@@ -458,8 +500,15 @@ def grid_dftd3(
       (an engine the port does not have).  The stencil's chain forces are
       added per atom.
 
-    The JAX package's ``"xla"`` engine and ``compute_virial=True`` raise
-    ``NotImplementedError`` (ROADMAP.md); ``cell`` only feeds the virial.
+    ``compute_virial=True`` appends the ``[3, 3]`` virial (the JAX
+    contract: the matrix path's per-system virial, one system).  The window
+    engine forms it from its force planes and the raw halo j-side
+    accumulators of passes 2 and 3 (kernel 1 unchanged), and needs
+    ``cell``, the grid's cell, for the ghost shifts; ``cell`` feeds only
+    the virial.  Where the JAX package takes its XLA engine's virial
+    instead (no ``cell``, another engine, a stencil), and for its
+    ``"xla"`` engine, the port raises ``NotImplementedError`` (ROADMAP.md,
+    queue 1 item 6).
     ``precision`` (the TPU matrix unit's passes) and ``bilinear`` (the XLA
     engine's einsum grouping) are checked and change nothing: every port
     engine computes its C6 dots in full f32.  ``feature_dtype`` rounds the
@@ -472,10 +521,6 @@ def grid_dftd3(
         raise ValueError(f"bilinear must be 'stack', 'split' or 'quad', got "
                          f"{bilinear!r}")
     feature_dtype = _feature_dtype(feature_dtype)
-    if compute_virial:
-        raise NotImplementedError(
-            "grid_dftd3(compute_virial=True) is not ported (ROADMAP.md, "
-            "queue 1 item 2: the window engine's virial)")
     if engine is None and stencil is not None:
         engine = "hybrid"
     if engine == "hybrid" and stencil is None:
@@ -485,6 +530,14 @@ def grid_dftd3(
     if hybrid_cn not in ("stencil", "row"):
         raise ValueError(f"hybrid_cn must be 'stencil' or 'row', got "
                          f"{hybrid_cn!r}")
+    if compute_virial and (cell is None or engine not in (None, "window")
+                           or stencil is not None):
+        # where the JAX package falls back to its XLA engine's virial
+        raise NotImplementedError(
+            "grid_dftd3(compute_virial=True) runs on the window engine with "
+            "a cell and no stencil; the XLA engine's virial that the JAX "
+            "package takes otherwise is not ported (ROADMAP.md, queue 1 "
+            "item 6: the XLA engines)")
     numbers, rcov_t, planes, _ = _d3_inputs(grid, numbers, rcov, r4r2, c6ab,
                                             cn_ref_elem)
     params = SweepParams(cutoff=float(cutoff), a1=float(a1), a2=float(a2),
@@ -512,13 +565,14 @@ def grid_dftd3(
         forces = torch.stack([f1, f2, f3], dim=-1) + chain_a
         return e_pl.sum(), forces, cn_g if cn_a is None else cn_a
     engine = engine or "window"
-    e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(
+    e_pl, fx_pl, fy_pl, fz_pl, cn_pl, *virial = _grid_d3_impl(
         grid, *planes, params, engine, block_g=block_g,
-        feature_dtype=feature_dtype if engine == "window" else None)
+        feature_dtype=feature_dtype if engine == "window" else None,
+        compute_virial=compute_virial, cell=cell)
     energy = e_pl.sum()
     f1, f2, f3, coord_num = gather_rows_from_grid(
         grid, (fx_pl, fy_pl, fz_pl, cn_pl))
-    return energy, torch.stack([f1, f2, f3], dim=-1), coord_num
+    return (energy, torch.stack([f1, f2, f3], dim=-1), coord_num, *virial)
 
 
 def grid_dftd3_coulomb(

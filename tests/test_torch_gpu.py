@@ -1347,3 +1347,102 @@ def test_dense_coulomb_on_card_matches_list_coulomb(cuda, alpha,
                                     neighbor_matrix_shifts=sh)
         _close_cpu((whole[0][s], whole[1][s]), ref,
                    rtol=1e-10 if alpha == 0.0 else 2e-6)
+
+
+def _dftd3_inputs(device, fmt):
+    """Two triclinic systems (one padding atom) with per-system cells, the
+    port's batched naive neighbour list built on the CPU in f64, in
+    ``fmt``."""
+    from nvalchemiops_torch.neighborlist import (
+        get_neighbor_list_from_neighbor_matrix, neighbor_list,
+    )
+
+    rng = np.random.default_rng(77)
+    cells = np.stack([np.eye(3) * 8.0 + rng.uniform(-0.5, 0.5, (3, 3))
+                      for _ in range(2)])
+    pos = np.concatenate([rng.uniform(0, 1, (40, 3)) @ c for c in cells])
+    numbers = rng.integers(1, 5, 80).astype(np.int32)
+    numbers[5] = 0
+    bidx = np.repeat(np.arange(2), 40).astype(np.int32)
+    nm, num, sh = neighbor_list(
+        torch.as_tensor(pos), 6.0, cell=torch.as_tensor(cells),
+        pbc=np.array([[True] * 3] * 2), batch_idx=torch.as_tensor(bidx),
+        max_neighbors=128, method="batch_naive")
+    kw = dict(neighbor_matrix=nm, neighbor_matrix_shifts=sh)
+    if fmt == "list":
+        nl, ptr, us = get_neighbor_list_from_neighbor_matrix(
+            nm, num, sh, fill_value=80)
+        kw = dict(neighbor_list=nl, neighbor_ptr=ptr, unit_shifts=us)
+    kw = {k: v.to(device) for k, v in kw.items()}
+    t = {k: torch.as_tensor(v, device=device) for k, v in
+         (("positions", pos), ("numbers", numbers), ("batch_idx", bidx),
+          ("cell", cells))}
+    rcov, r4r2, c6, cna = _d3_tables(rng)
+    cn_ref = np.broadcast_to(cna[:, None, :, None],
+                             c6.shape[:2] + (5, 5)).copy()
+    return t, kw, (rcov, r4r2, c6, cn_ref)
+
+
+@pytest.mark.parametrize("fmt", ["matrix", "list"])
+def test_dftd3_on_card_matches_cpu(cuda, fmt):
+    """``dftd3`` (plain torch) on the card against the same call on CPU
+    tensors, f64, with ``batch_idx``, per-system cells and the virial, at
+    1e-10 of scale."""
+    from nvalchemiops_torch.interactions.dispersion import dftd3
+
+    def run(device):
+        t, kw, (rcov, r4r2, c6, cn_ref) = _dftd3_inputs(device, fmt)
+        return dftd3(t["positions"], t["numbers"], 0.42, 4.1, 1.7,
+                     covalent_radii=rcov, r4r2=r4r2, c6_reference=c6,
+                     coord_num_ref=cn_ref, batch_idx=t["batch_idx"],
+                     cell=t["cell"], compute_virial=True, output_dtype=None,
+                     **kw)
+
+    _close_cpu(run(cuda), run("cpu"), rtol=1e-10)
+
+
+def test_window_virial_on_card_matches_cpu(cuda):
+    """``grid_dftd3(compute_virial=True)``: kernel 1 on the card against
+    the plain path on the CPU, both f32 (energy, forces, virial), at the
+    bar of a kernel against its plain version, 1e-5 of scale."""
+    from nvalchemiops_torch.grid import build_atom_grid, estimate_grid_geometry
+    from nvalchemiops_torch.interactions.dispersion import grid_dftd3
+
+    rng = np.random.default_rng(78)
+    cell = np.array([[11.0, 0.0, 0.0], [2.0, 10.5, 0.0], [1.0, -1.5, 11.5]])
+    pos = rng.uniform(0, 1, (150, 3)) @ cell
+    numbers = rng.integers(1, 5, 150).astype(np.int32)
+    rcov, r4r2, c6, cna = _d3_tables(rng)
+    pbc = np.array([True] * 3)
+    dims, radius, cap = estimate_grid_geometry(cell, pbc, 3.4, 150, 0.4)
+
+    def run(device, dtype):
+        g = build_atom_grid(torch.as_tensor(pos, dtype=dtype, device=device),
+                            torch.as_tensor(cell, dtype=dtype, device=device),
+                            pbc, dims, radius, cap)
+        return grid_dftd3(g, numbers, rcov, r4r2, c6, cna, 3.4, 0.42, 4.1,
+                          1.7, compute_virial=True, cell=cell)
+
+    out = run(cuda, torch.float32)
+    ref = run("cpu", torch.float32)
+    for i in (0, 1, 3):
+        _close_cpu((out[i],), (ref[i],), rtol=1e-5)
+
+
+def test_dftd3_host_inputs_run_on_the_card(cuda):
+    """``dftd3`` and ``D3Parameters`` given numpy inputs only place them on
+    the card and agree with the call on CPU tensors."""
+    from nvalchemiops_torch.interactions.dispersion import D3Parameters, dftd3
+
+    t, kw, tables = _dftd3_inputs("cpu", "matrix")
+    params = D3Parameters(*tables)
+    assert params.c6ab.device.type == "cuda"
+    got = dftd3(t["positions"].numpy(), t["numbers"].numpy(), 0.42, 4.1, 1.7,
+                d3_params=params, batch_idx=t["batch_idx"].numpy(),
+                cell=t["cell"].numpy(), output_dtype=None,
+                **{k: v.numpy() for k, v in kw.items()})
+    want = dftd3(t["positions"], t["numbers"], 0.42, 4.1, 1.7,
+                 d3_params=D3Parameters(*tables, device="cpu"),
+                 batch_idx=t["batch_idx"], cell=t["cell"], output_dtype=None,
+                 **kw)
+    _close_cpu(got, want, rtol=1e-10)

@@ -63,6 +63,14 @@ def test_namespace_holds_the_jax_subpackages_but_parallel():
         nvalchemiops_torch.interactions.__all__)
     for n in nvalchemiops_tpu.interactions.__all__:
         assert hasattr(nvalchemiops_torch.interactions, n)
+    # every name of the JAX dispersion namespace (D3Parameters, dftd3 and
+    # the grid and dense engines)
+    jdisp = nvalchemiops_tpu.interactions.dispersion
+    tdisp = nvalchemiops_torch.interactions.dispersion
+    assert set(jdisp.__all__) <= set(tdisp.__all__)
+    for n in jdisp.__all__:
+        assert hasattr(tdisp, n)
+    assert tdisp.dftd3 is tdisp.dftd3.__globals__["dftd3"]
     assert nvalchemiops_torch.grid.build_atom_grid_auto is \
         tgrid.build_atom_grid_auto
 
@@ -171,7 +179,27 @@ def _host_input_calls():
         "batch_dense_coulomb_energy_forces": lambda **kw:
             tdc.batch_dense_coulomb_energy_forces(pos[None], q[None], cell,
                                                   3.9, 0.3, **kw),
+        "dftd3": lambda **kw: _dftd3_host_call(pos, cell, rng, **kw),
     }
+
+
+def _dftd3_host_call(pos, cell, rng, **kw):
+    """``dftd3`` on numpy positions, numbers, cell, tables and a
+    neighbour matrix of every other atom (no shift)."""
+    from nvalchemiops_torch.interactions.dispersion import dftd3
+
+    n = pos.shape[0]
+    nm = np.array([[j for j in range(n) if j != i] for i in range(n)],
+                  np.int32)
+    c6 = rng.uniform(5.0, 40.0, (3, 3, 5, 5))
+    c6 = 0.5 * (c6 + np.swapaxes(np.swapaxes(c6, 0, 1), 2, 3))
+    cn_ref = np.broadcast_to(np.arange(5.0)[:, None], (3, 3, 5, 5)).copy()
+    return dftd3(pos, np.r_[[1, 2] * (n // 2)].astype(np.int32), 0.4, 4.2,
+                 1.8, covalent_radii=np.r_[0.0, 0.8, 1.1],
+                 r4r2=np.r_[0.0, 3.0, 4.0], c6_reference=c6,
+                 coord_num_ref=cn_ref, cell=cell, neighbor_matrix=nm,
+                 neighbor_matrix_shifts=np.zeros(nm.shape + (3,), np.int32),
+                 **kw)
 
 
 def _leaves(out):

@@ -95,10 +95,41 @@ def test_jax_parameters_are_an_ordered_prefix_of_the_port_s():
     assert sorted(differ) == sorted(EXEMPT)
 
 
+def _dtype_name(x):
+    """The name of a torch, numpy or JAX dtype (or dtype type), else
+    None."""
+    if isinstance(x, torch.dtype):
+        return str(x).replace("torch.", "")
+    if isinstance(x, np.dtype) or (isinstance(x, type)
+                                   and issubclass(x, np.generic)):
+        return np.dtype(x).name
+    dt = getattr(x, "dtype", None)          # jnp.float32 and its kin
+    return dt.name if isinstance(dt, np.dtype) else None
+
+
+def _same_default(port, ref):
+    """Equal defaults; a dtype equals its namesake in the other library
+    (the port's ``torch.float32`` is the JAX package's ``jnp.float32``)."""
+    names = _dtype_name(port), _dtype_name(ref)
+    if names[0] is not None or names[1] is not None:
+        return names[0] == names[1]
+    return port == ref
+
+
+def test_same_default_equates_a_dtype_with_its_namesake():
+    assert _same_default(torch.float32, jnp.float32)
+    assert _same_default(torch.float64, np.float64)
+    assert not _same_default(torch.float32, jnp.float64)
+    assert not _same_default(torch.float32, "float32")
+    assert not _same_default(torch.float32, None)
+    assert _same_default(None, None) and _same_default("window", "window")
+
+
 def test_defaults_of_the_shared_parameters_are_the_jax_defaults():
-    """Shared parameters take the JAX defaults; the one exception is
-    ``batch_grid_dftd3``'s engine, which names the JAX XLA engine (not
-    ported) and is the window engine in the port."""
+    """Shared parameters take the JAX defaults (a dtype counts as its
+    namesake); the one exception is ``batch_grid_dftd3``'s engine, which
+    names the JAX XLA engine (not ported) and is the window engine in the
+    port."""
     allowed = {("batch_grid_dftd3", "engine")}
     for mod, name, fn, jfn in _namesakes():
         if f"{mod}.{name}" in EXEMPT:
@@ -108,7 +139,8 @@ def test_defaults_of_the_shared_parameters_are_the_jax_defaults():
             if (name, pname) in allowed:
                 assert port[pname].default == "window"
                 continue
-            assert port[pname].default == jpar.default, (name, pname)
+            assert _same_default(port[pname].default, jpar.default), (
+                name, pname)
 
 
 def _pme_system(seed, b=2, n=40, box=8.0):
@@ -299,7 +331,9 @@ def test_grid_dftd3_knobs():
 
 
 @pytest.mark.parametrize("call", [
-    "grid_dftd3(compute_virial=True)", "grid_dftd3(engine='xla')",
+    "grid_dftd3(compute_virial=True) without cell",
+    "grid_dftd3(compute_virial=True, engine='block')",
+    "grid_dftd3(engine='xla')",
     "grid_dftd3_coulomb(engine='xla')", "batch_grid_dftd3(engine='xla')",
     "dense_dftd3(engine='xla')", "batch_dense_dftd3(engine='xla')",
 ])
@@ -309,8 +343,11 @@ def test_unported_knobs_raise_naming_roadmap(call):
     pos_t, q_t = torch.as_tensor(pos), torch.as_tensor(q)
     d3 = (*tab, cutoff, A1, A2, S8)
     calls = {
-        "grid_dftd3(compute_virial=True)": lambda: td3.grid_dftd3(
-            g, numbers, *d3, compute_virial=True, cell=cell),
+        "grid_dftd3(compute_virial=True) without cell": lambda:
+            td3.grid_dftd3(g, numbers, *d3, compute_virial=True),
+        "grid_dftd3(compute_virial=True, engine='block')": lambda:
+            td3.grid_dftd3(g, numbers, *d3, compute_virial=True, cell=cell,
+                           engine="block"),
         "grid_dftd3(engine='xla')": lambda: td3.grid_dftd3(
             g, numbers, *d3, engine="xla"),
         "grid_dftd3_coulomb(engine='xla')": lambda: td3.grid_dftd3_coulomb(
