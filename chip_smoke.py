@@ -90,7 +90,21 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     reference's flagship D3 row (85,750-atom CsCl at 21.2 A, f32 against
     f64, list against matrix) and its batched row (128 x 2,000 at 21.2 A
     with ``batch_idx``, per-system cells and the virial, against phase
-    6's ``batch_dftd3``), timed beside the reference's H100 times.
+    6's ``batch_dftd3``), timed beside the reference's H100 times;
+16. ``engine="xla"`` (the JAX package's XLA engines) on the kernels'
+    routes (``run_xla_routes``): at 109,744 atoms ``grid_dftd3``, the grid
+    Coulomb and the fused D3 + Coulomb with ``engine="xla"`` launch what
+    the window engine launches and agree with it; ``compute_virial=True``
+    on ``"xla"``, ``"block"`` and ``"pallas"`` with the cell, and with no
+    cell (the ghost shifts then from the ghost positions), runs the window
+    engine and meets phase 15's f64 ``dftd3`` virial;
+    ``grid_neighbor_count`` equals ``cell_list``'s counts and
+    ``grid_coordination_numbers`` (plain sweeps, timed with their idle
+    share) meets the D3 CNs.  ``engine="xla"`` launches what the default
+    launches on the 128 x 2,000 dense batch at 21.2 A (kernel 4), the 4 x
+    16,000 grid branch (kernel 1) and the stencil's three sweeps on the
+    110,592-atom crystal (kernel 9, the same bits).  The GTO and harmonic
+    functions in f32 on the card against f64 on the CPU.
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
@@ -303,6 +317,40 @@ VIRIAL_F64_RTOL = 1e-9
 VIRIAL_CALLS = 20
 # a dftd3 call slower than this (s) is timed once, not three times
 DFTD3_SLOW_S = 5.0
+
+# phase 16: ``engine="xla"`` against the default route's call at 109,744
+# atoms, both on the card in f32 and both on kernel 1, so the readings are
+# those of its j-side atomics' order: (max rel, RMS rel) of forces,
+# energies and CNs as max |diff| / max |ref|; the virial with no cell as
+# the Frobenius relative error against phase 15's f64 dftd3 virial (with a
+# cell it is phase 15's virial and takes its bar);
+# grid_coordination_numbers (a plain sweep, no atomics) against
+# grid_dftd3's CNs; the math extras as max |f32 - f64| / max |f64| per
+# function, the worst.  Readings of two sound runs (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md): D3 forces 4.335e-6, 3.468e-6 / 1.546e-6,
+# 1.539e-6, energy 0.0 both, CN 2.105e-7 both; Coulomb forces 1.658e-6,
+# 1.289e-6 / 5.602e-7, 5.562e-7, energies 3.405e-7 both; fused D3 forces
+# 3.468e-6 both / 1.332e-6, 1.335e-6, fused Coulomb forces 1.473e-6,
+# 1.289e-6 / 4.266e-7, 4.257e-7, fused energy 0.0 both; the virial with no
+# cell 7.037e-8, 7.023e-8; CN of the plain sweep 1.684e-6 both; math
+# extras 2.718e-7 both.  Bars: 2x the larger reading where kernel 1's
+# atomics move it (every reading against a kernel-1 call), 1.25x for the
+# math extras (the same bits every call); a reading of 0.0 (the energies:
+# the own-side sums gave equal bits) takes one f32 unit roundoff, 1.2e-7,
+# as phase 15's list-vs-matrix energy does.
+XLA_BARS = {
+    "d3_forces": (8.67e-6, 3.09e-6),
+    "d3_energy": 1.2e-7,
+    "d3_cn": 4.21e-7,
+    "coulomb_forces": (3.32e-6, 1.12e-6),
+    "coulomb_energies": 6.81e-7,
+    "fused_d3_forces": (6.94e-6, 2.67e-6),
+    "fused_coulomb_forces": (2.95e-6, 8.53e-7),
+    "fused_energy": 1.2e-7,
+    "virial_no_cell": 1.41e-7,
+    "cn_full_sweep": 3.37e-6,
+    "math_f32": 3.40e-7,
+}
 
 # device ms per call of every body of kernels 1 and 4 before their
 # distance-first redesign (the parent tree's kernels), measured with
@@ -2323,6 +2371,7 @@ def run_dftd3(dev, full):
     check_bar("window plain path f64 virial vs dftd3 f64 virial "
               "(Frobenius)", frobenius_error(v_plain, v64[0]),
               VIRIAL_F64_RTOL)
+    virial64 = v64[0]
     del g64, f64
 
     # -- 15.3: the reference's flagship row, 85,750 atoms at 21.2 A ---------
@@ -2413,6 +2462,237 @@ def run_dftd3(dev, full):
           f"{[round(x, 9) for x in v_b[0].diagonal().tolist()]}")
     dftd3_timing(f"{label} matrix f32 (virial on)", run_b,
                  REFERENCE_D3["batch"])
+    return virial64
+
+
+def run_xla_routes(dev, full):
+    """Phase 16: ``engine="xla"`` on the kernels' routes, the virial where
+    the JAX package takes its XLA engine's, the grid's plain offset sweeps
+    and the math extras; ``full`` holds phase 4's inputs and outputs, a
+    call that rebuilds its grid and phase 15's f64 virial."""
+    from nvalchemiops_torch import mathops, stencil
+    from nvalchemiops_torch.grid import (
+        grid_coordination_numbers, grid_coulomb_energy_forces,
+        grid_neighbor_count,
+    )
+    from nvalchemiops_torch.interactions.dispersion.dense_d3 import (
+        batch_dense_dftd3,
+    )
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
+        batch_grid_dftd3, grid_dftd3, grid_dftd3_coulomb,
+    )
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.neighborlist import (
+        assert_max_neighbors, neighbor_list,
+    )
+
+    bars = XLA_BARS
+    pbc = np.array([True] * 3)
+
+    def same_route(label, default, xla):
+        """Drive the default call, then the ``engine="xla"`` one: the same
+        kernels launched the same number of times, none other."""
+        ref, counts = drive(f"{label} (default engine)", default, [])
+        ran = [k for k, v in counts.items() if v]
+        out, xla_counts = drive(f"{label} engine='xla'", xla, ran,
+                                [k for k in launch_counts if k not in ran])
+        if xla_counts != counts:
+            raise AssertionError(f"{label}: engine='xla' launched "
+                                 f"{xla_counts}, the default {counts}")
+        return out, ref, ran
+
+    def check_energy(name, e, ref, bar):
+        return check_bar(f"{name} (max |diff| / max |ref|)",
+                         energy_error(e, ref), bar)
+
+    # -- 16.1: the main path at full width ---------------------------------
+    g = full["grid"]()
+    n = full["pos"].shape[0]
+    d3_args, q, cutoff, alpha = (full["d3_args"], full["q"], full["cutoff"],
+                                 full["alpha"])
+    label = f"full width {n} atoms"
+    window = ["window_sweep_cn", "window_sweep_d3_direct",
+              "window_sweep_chain"]
+    (e_x, f_x, cn_x), (e_w, f_w, cn_w), ran = same_route(
+        f"{label} grid_dftd3", lambda: grid_dftd3(g, *d3_args),
+        lambda: grid_dftd3(g, *d3_args, engine="xla"))
+    if sorted(ran) != sorted(window):
+        raise AssertionError(f"{label} grid_dftd3 ran {ran}, not {window}")
+    check_forces(f"{label} xla D3", f_x)
+    check_errors(f"{label} xla D3 forces vs the default call", f_x, f_w,
+                 bars["d3_forces"])
+    check_energy(f"{label} xla D3 energy vs the default call", e_x, e_w,
+                 bars["d3_energy"])
+    check_energy(f"{label} xla CN vs the default call", cn_x, cn_w,
+                 bars["d3_cn"])
+    v64 = full["virial64"]
+    for how, kw in (("engine='xla', cell", dict(engine="xla",
+                                                  cell=full["cell"])),
+                    ("engine='block', cell", dict(engine="block",
+                                                  cell=full["cell"])),
+                    ("engine='pallas', cell", dict(engine="pallas",
+                                                   cell=full["cell"])),
+                    ("no cell", {})):
+        name = f"{label} grid_dftd3(compute_virial=True) [{how}]"
+        (_, _, _, v), _ = drive(name, lambda: grid_dftd3(
+            g, *d3_args, compute_virial=True, **kw), window,
+            [k for k in launch_counts if k not in window])
+        bar = (bars["virial_no_cell"] if how == "no cell"
+               else DFTD3_BARS["virial_f32_vs_f64_largest"])
+        check_bar(f"{name} virial vs dftd3 f64 (Frobenius)",
+                  frobenius_error(v, v64), bar)
+
+    (e_cx, f_cx), (e_cw, f_cw), _ = same_route(
+        f"{label} grid_coulomb_energy_forces",
+        lambda: grid_coulomb_energy_forces(g, q, cutoff, alpha),
+        lambda: grid_coulomb_energy_forces(g, q, cutoff, alpha,
+                                           engine="xla"))
+    check_errors(f"{label} xla Coulomb forces vs the default call", f_cx,
+                 f_cw, bars["coulomb_forces"])
+    check_energy(f"{label} xla Coulomb energies vs the default call", e_cx,
+                 e_cw, bars["coulomb_energies"])
+
+    def fused(**kw):
+        return lambda: grid_dftd3_coulomb(
+            g, d3_args[0], q, *d3_args[1:], coulomb_cutoff=cutoff,
+            alpha=alpha, **kw)
+
+    fx, fw, _ = same_route(f"{label} grid_dftd3_coulomb",
+                           fused(engine="window"), fused(engine="xla"))
+    check_errors(f"{label} xla fused D3 forces vs the window call", fx[1],
+                 fw[1], bars["fused_d3_forces"])
+    check_errors(f"{label} xla fused Coulomb forces vs the window call",
+                 fx[4], fw[4], bars["fused_coulomb_forces"])
+    check_energy(f"{label} xla fused D3 energy vs the window call", fx[0],
+                 fw[0], bars["fused_energy"])
+
+    k = density_max_neighbors(n, full["cell"], cutoff)
+    nm, num, _ = neighbor_list(full["pos"], cutoff, cell=full["cell"],
+                               pbc=pbc, max_neighbors=k, method="cell_list")
+    assert_max_neighbors(nm, num)
+    del nm
+    counts, _ = drive(f"{label} grid_neighbor_count",
+                      lambda: grid_neighbor_count(g, cutoff, n), [],
+                      list(launch_counts))
+    if not torch.equal(counts.to(num.dtype), num):
+        raise AssertionError(
+            f"{label}: grid_neighbor_count differs from cell_list on "
+            f"{int((counts.to(num.dtype) != num).sum())} atoms")
+    phase(f"{label}: grid_neighbor_count equals cell_list's counts on every "
+          f"atom ({int(num.sum())} pairs, {num.min().item()}-"
+          f"{num.max().item()} a row)")
+    numbers_c, rcov_c = d3_args[0], d3_args[1]
+    rcov_a = torch.as_tensor(np.asarray(rcov_c)[numbers_c],
+                             dtype=torch.float32, device=dev)
+    cn_g, _ = drive(f"{label} grid_coordination_numbers",
+                    lambda: grid_coordination_numbers(g, rcov_a, cutoff),
+                    [], list(launch_counts))
+    check_energy(f"{label} grid_coordination_numbers vs grid_dftd3 CN",
+                 cn_g, cn_w, bars["cn_full_sweep"])
+    for name, fn in (("grid_neighbor_count",
+                      lambda: grid_neighbor_count(g, cutoff, n)),
+                     ("grid_coordination_numbers",
+                      lambda: grid_coordination_numbers(g, rcov_a, cutoff))):
+        ms = cuda_time_ms(fn, reps=3)
+        phase(f"{label} {name}: steady {ms:.3f} ms (CUDA events, median of "
+              "3 after a warm-up)")
+        profile_step(f"{label} {name}", fn)
+    del g
+
+    # -- 16.2: engine="xla" on the batched and stencil routes ---------------
+    cfg = D3_BATCH
+    tables, _, numbers, pos_m, pos_g, numbers_g = d3_batch_system(dev)
+    a1, a2, s8 = D3_PARAMS
+    box, cut = cfg["matched_box"], cfg["matched_cutoff"]
+    cell_m = torch.eye(3, device=dev) * box
+
+    def dense(**kw):
+        return lambda: batch_dense_dftd3(pos_m, numbers, cell_m, cut,
+                                         *tables, a1, a2, s8, **kw)
+
+    out, _, _ = same_route(
+        f"batch_dense_dftd3 {cfg['b']} x {cfg['n']} at {cut} A", dense(),
+        dense(engine="xla"))
+    check_forces("batch_dense_dftd3 engine='xla'", out[1])
+    gb = D3_GRID
+    cell_g = torch.eye(3, device=dev) * gb["box"]
+
+    def grid_branch(**kw):
+        return lambda: batch_grid_dftd3(pos_g, numbers_g, cell_g, pbc,
+                                        gb["cutoff"], *tables, a1, a2, s8,
+                                        **kw)
+
+    out, _, _ = same_route(
+        f"batch_grid_dftd3 {gb['b']} x {gb['n']} at {gb['cutoff']} A",
+        grid_branch(), grid_branch(engine="xla"))
+    check_forces("batch_grid_dftd3 engine='xla'", out[1])
+    del pos_m, pos_g
+
+    cfg = HYBRID
+    pos_h, cell_h, _, charges, _ = hybrid_system(cfg["n_rep"])
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    pos_h, cell_h, q_h = on_card(pos_h), on_card(cell_h), on_card(charges)
+    sg = stencil.build_stencil_auto(pos_h, cell_h, pbc, cfg["cutoff"])
+    rcov_h = on_card(np.random.default_rng(16).uniform(0.8, 1.4,
+                                                       pos_h.shape[0]))
+    decn_h = on_card(np.random.default_rng(17).normal(size=pos_h.shape[0]))
+    sweeps = {
+        "coulomb": lambda engine: stencil.stencil_coulomb_energy_forces(
+            sg, q_h, cfg["cutoff"], cfg["alpha"], engine=engine),
+        "cn": lambda engine: (stencil.stencil_coordination_numbers(
+            sg, rcov_h, cfg["cutoff"], engine=engine),),
+        "chain": lambda engine: (stencil.stencil_cn_chain_forces(
+            sg, rcov_h, decn_h, cfg["cutoff"], engine=engine),),
+    }
+    for body, fn in sweeps.items():
+        out, ref, _ = same_route(
+            f"crystal {pos_h.shape[0]} atoms stencil {body}",
+            lambda: fn(None), lambda: fn("xla"))
+        if not all(torch.equal(a, r) for a, r in zip(out, ref)):
+            raise AssertionError(f"stencil {body}: engine='xla' differs "
+                                 "from the default call's bits")
+    phase(f"crystal {pos_h.shape[0]} atoms stencil: engine='xla' gives the "
+          "default call's bits in every sweep")
+    del sg
+
+    # -- 16.3: the math extras on the card against f64 on the CPU ----------
+    pts = np.random.default_rng(18).normal(size=(4096, 3)) * 2.0
+    errs = {}
+    for name in mathops.__all__:
+        if not (name.startswith(("gto", "eval_gto"))
+                or "harmonic" in name):
+            continue
+        fn = getattr(mathops, name)
+
+        def call(p, device):
+            if name == "gto_self_overlap":
+                return fn(1, 0.7, device=device)
+            if name in ("gto_normalization", "gto_integral_l0"):
+                return fn(0.7, device=device)
+            if name == "gto_gaussian_factor":
+                return fn((p * p).sum(-1), 0.7)
+            if name.startswith(("gto", "eval_gto")):
+                return fn(p, 0.7)
+            return fn(p)
+
+        out = call(torch.as_tensor(pts, dtype=torch.float32, device=dev),
+                   dev)
+        ref = call(torch.as_tensor(pts), "cpu")
+        out, ref = ((out, ref) if isinstance(out, tuple)
+                    else ((out,), (ref,)))
+        for a, r in zip(out, ref):
+            if a.device.type != dev.type:
+                raise AssertionError(f"{name}: result not on the card")
+            scale = r.abs().max().item()
+            errs[name] = max(errs.get(name, 0.0), (
+                (a.double().cpu() - r).abs().max().item() / scale)
+                if scale else 0.0)
+    worst = max(errs, key=errs.get)
+    check_bar(f"math extras ({len(errs)} functions) f32 on the card vs f64 "
+              f"on the CPU, worst {worst}", errs[worst], bars["math_f32"])
 
 
 def main():
@@ -2654,7 +2934,7 @@ def main():
         "f_d3": f_d3, "f_c": f_c, "pme_err": (rel["pme"], rms["pme"])})
 
     # -- phase 15: dftd3 and the window engine's virial --------------------
-    run_dftd3(dev, {
+    virial64 = run_dftd3(dev, {
         "pos": pos, "cell": cell, "d3_ms": steady["d3"],
         "d3_args": (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
                     composite.D3_A2, composite.D3_S8),
@@ -2663,6 +2943,15 @@ def main():
         "grid64": lambda: build_atom_grid(pos.double(), cell.double(), pbc,
                                           dims, radius, gcap, origin=origin),
         "batch_21": batch_21})
+
+    # -- phase 16: engine="xla", the grid's offset sweeps, the math extras -
+    run_xla_routes(dev, {
+        "pos": pos, "cell": cell, "q": q, "alpha": alpha, "cutoff": cutoff,
+        "d3_args": (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
+                    composite.D3_A2, composite.D3_S8),
+        "grid": lambda: build_atom_grid(pos, cell, pbc, dims, radius, gcap,
+                                        origin=origin),
+        "virial64": virial64})
 
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),

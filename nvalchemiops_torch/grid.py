@@ -7,7 +7,14 @@ periodic ghost cells whose positions carry their image shift.  Pairing
 "every atom of cell c with every atom of cell c + d" is then a read of a
 contiguous candidate window, which the pair-sweep kernels
 (kernels/window_sweep.py, kernels/row_sweep.py, kernels/chunk_sweep.py) walk
-in the half-space, pair-once order.
+in the half-space, pair-once order.  The JAX package's XLA-engine sweeps
+that its ``__all__`` exports, :func:`grid_pair_reduce` (the full
+``(2R+1)^3`` offset sweep) and :func:`grid_row_reduce_sym` (the half-space
+row sweep with x-merged candidate windows), are plain PyTorch here: a
+Python loop over offsets with static slices of the extended planes.  Of the
+package, only :func:`grid_neighbor_count` and
+:func:`grid_coordination_numbers` run on them; every engine name, ``"xla"``
+included, runs a kernel's sweep.
 
 Port contracts kept from the JAX package:
 
@@ -56,6 +63,11 @@ __all__ = [
     "gather_rows_from_grid",
     "scatter_rows_to_grid",
     "fold_halo",
+    "grid_pair_reduce",
+    "grid_row_reduce_sym",
+    "row_home_mask",
+    "grid_neighbor_count",
+    "grid_coordination_numbers",
     "grid_coulomb_energy_forces",
 ]
 
@@ -307,6 +319,13 @@ def system_grid(grid: AtomGrid, b: int) -> AtomGrid:
         dims=grid.dims, radius=grid.radius, cap=grid.cap)
 
 
+def _window(grid: AtomGrid, z0: int, y0: int, x0: int):
+    """Index of the interior-sized block of an extended plane that starts at
+    extended cell ``(z0, y0, x0)``."""
+    cz, cy, cx = grid.dims
+    return (slice(z0, z0 + cz), slice(y0, y0 + cy), slice(x0, x0 + cx))
+
+
 def scatter_to_grid(grid: AtomGrid, values, fill=0.0):
     """Scatter a per-atom array into interior layout ``[Cz, Cy, Cx, cap]``."""
     cz, cy, cx = grid.dims
@@ -381,6 +400,154 @@ def fold_halo(grid: AtomGrid, ext_acc):
     return a
 
 
+# ---------------------------------------------------------------------------
+# The offset sweeps of the JAX package's XLA engine, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _sweep_planes(grid: AtomGrid, extra_ext_planes, extra_own_planes):
+    """The ``own`` (interior) and ``ext`` (extended) plane dicts of a sweep:
+    px, py, pz, valid, aid, then the extra planes (which may replace
+    them)."""
+    ext = {"px": grid.ext_px, "py": grid.ext_py, "pz": grid.ext_pz,
+           "valid": grid.ext_valid, "aid": grid.ext_aid}
+    own = {name: _interior(grid, plane) for name, plane in ext.items()}
+    own.update(extra_own_planes)
+    ext.update(extra_ext_planes)
+    return own, ext
+
+
+def grid_pair_reduce(grid: AtomGrid, kernel, init, extra_ext_planes=(),
+                     extra_own_planes=()):
+    """The full ``(2R+1)^3`` offset sweep, reducing per-own-slot quantities.
+
+    ``kernel(carry, own, cand, offset_index)`` receives ``own``: px, py, pz,
+    valid, aid and the extra own planes, interior ``[Cz, Cy, Cx, cap]``;
+    ``cand``: the same names and the extra extended planes, sliced at the
+    offset, plus ``code [Cz, Cy, Cx, 1]`` (the packed ghost shift); it
+    returns the new carry.  A pair block (own slot a, candidate slot b) is
+    ``own[..., :, None]`` against ``cand[..., None, :]``.
+    """
+    rz, ry, rx = grid.radius
+    own, ext = _sweep_planes(grid, extra_ext_planes, extra_own_planes)
+    offsets = [(dz, dy, dx) for dz in range(-rz, rz + 1)
+               for dy in range(-ry, ry + 1) for dx in range(-rx, rx + 1)]
+    carry = init
+    for oi, (dz, dy, dx) in enumerate(offsets):
+        at = _window(grid, rz + dz, ry + dy, rx + dx)
+        cand = {name: plane[at] for name, plane in ext.items()}
+        cand["code"] = grid.ext_shift_code[at][..., None]
+        carry = kernel(carry, own, cand, oi)
+    return carry
+
+
+def row_home_mask(cap: int, rx: int, device="cuda"):
+    """Pair-once mask of the home row window ``[1, 1, 1, cap, (rx+1)*cap]``:
+    the window holds x chunks 0..rx; chunk 0 is the cell with itself (keep
+    slot pairs i < j), the others are distinct cells seen only from the
+    left (keep all).  ``device``: where the mask is made."""
+    slot_i = torch.arange(cap, device=device)[:, None]
+    slot_j = torch.arange((rx + 1) * cap, device=device)[None, :]
+    keep = (slot_j >= cap) | (slot_i < slot_j)
+    return keep.reshape(1, 1, 1, cap, (rx + 1) * cap)
+
+
+def grid_row_reduce_sym(grid: AtomGrid, kernel, init, num_ext_acc: int,
+                        extra_ext_planes=(), extra_own_planes=()):
+    """Half-space ``(dz, dy)`` sweep with x-merged candidate windows.
+
+    ``kernel(carry, own, cand, home)`` sees candidate planes of trailing
+    width ``W = (2*Rx+1)*cap`` (home row: ``(Rx+1)*cap``; apply
+    :func:`row_home_mask` when ``home``) and returns ``(carry, deltas)``:
+    ``num_ext_acc`` j-side delta planes ``[Cz, Cy, Cx, W]``.  Each window's
+    deltas are added back chunk by chunk onto extended accumulators by
+    in-place slice adds (no atomics: equal bits run to run), which
+    :func:`fold_halo` folds onto the interior.  Returns ``(carry,
+    folded)``.
+    """
+    rz, ry, rx = grid.radius
+    cap = grid.cap
+    own, ext = _sweep_planes(grid, extra_ext_planes, extra_own_planes)
+    ext_acc = [torch.zeros_like(grid.ext_px) for _ in range(num_ext_acc)]
+
+    def run_offset(carry, z0, y0, chunks, home):
+        # windows concatenate along the slot axis, so a plane may carry a
+        # trailing feature axis [.., cap, F]
+        cand = {name: torch.cat([plane[_window(grid, z0, y0, c)]
+                                 for c in chunks], dim=3)
+                for name, plane in ext.items()}
+        code = torch.stack([grid.ext_shift_code[_window(grid, z0, y0, c)]
+                            for c in chunks], dim=-1)
+        cand["code"] = code.repeat_interleave(cap, dim=-1)
+        carry, deltas = kernel(carry, own, cand, home)
+        for acc, delta in zip(ext_acc, deltas):
+            d = delta.reshape(delta.shape[:-1] + (len(chunks), cap))
+            for ci, c in enumerate(chunks):
+                acc[_window(grid, z0, y0, c)] += d[..., ci, :]
+        return carry
+
+    # home row: dz = dy = 0, x chunks 0..rx to the right
+    carry = run_offset(init, rz, ry, list(range(rx, 2 * rx + 1)), True)
+    full = list(range(2 * rx + 1))
+    for dz in range(-rz, rz + 1):
+        for dy in range(-ry, ry + 1):
+            if dz > 0 or (dz == 0 and dy > 0):
+                carry = run_offset(carry, dz + rz, dy + ry, full, False)
+    return carry, tuple(fold_halo(grid, acc) for acc in ext_acc)
+
+
+def _distances(own, cand):
+    dx = cand["px"][..., None, :] - own["px"][..., :, None]
+    dy = cand["py"][..., None, :] - own["py"][..., :, None]
+    dz = cand["pz"][..., None, :] - own["pz"][..., :, None]
+    return dx * dx + dy * dy + dz * dz
+
+
+def grid_neighbor_count(grid: AtomGrid, cutoff, num_atoms: int):
+    """Per-atom neighbour counts within ``cutoff`` straight from the grid
+    (the full sweep; a validation helper).  Counts are ``INDEX_DTYPE``."""
+    dtype, device = grid.ext_px.dtype, grid.ext_px.device
+    cutoff_sq = torch.tensor(float(cutoff), dtype=dtype, device=device) ** 2
+    zero = torch.zeros((), dtype=INDEX_DTYPE, device=device)
+    zero_code = pack_shifts(zero, zero, zero)
+
+    def kern(counts, own, cand, oi):
+        d2 = _distances(own, cand)
+        # parked empty slots fail the distance test on their own
+        ok = (d2 < cutoff_sq) & (d2 > 1e-24)
+        self_pair = own["aid"][..., :, None] == cand["aid"][..., None, :]
+        ok &= ~(self_pair & (cand["code"][..., None] == zero_code))
+        return counts + ok.sum(-1).to(INDEX_DTYPE)
+
+    init = torch.zeros(grid.dims + (grid.cap,), dtype=INDEX_DTYPE,
+                       device=device)
+    return gather_from_grid(grid, grid_pair_reduce(grid, kern, init))
+
+
+def grid_coordination_numbers(grid: AtomGrid, rcov_per_atom, cutoff,
+                              k1=16.0):
+    """DFT-D3 coordination numbers on the grid (the full sweep)."""
+    dtype, device = grid.ext_px.dtype, grid.ext_px.device
+    cutoff_sq = torch.tensor(float(cutoff), dtype=dtype, device=device) ** 2
+    k1 = torch.tensor(float(k1), dtype=dtype, device=device)
+    rcov_plane = scatter_to_grid(grid, torch.as_tensor(rcov_per_atom).to(
+        device=device, dtype=dtype))
+    rcov_ext = _extend_like(grid, rcov_plane, 0.0)
+
+    def kern(cn, own, cand, oi):
+        d2 = _distances(own, cand)
+        ok = (d2 < cutoff_sq) & (d2 > 1e-24)
+        inv_r = torch.rsqrt(torch.where(ok, d2, torch.ones_like(d2)))
+        rc = own["rcov"][..., :, None] + cand["rcov"][..., None, :]
+        f = 1.0 / (1.0 + torch.exp(-k1 * (rc * inv_r - 1.0)))
+        return cn + torch.where(ok, f, torch.zeros_like(f)).sum(-1)
+
+    cn = grid_pair_reduce(grid, kern, torch.zeros_like(rcov_plane),
+                          extra_ext_planes=(("rcov", rcov_ext),),
+                          extra_own_planes=(("rcov", rcov_plane),))
+    return gather_from_grid(grid, cn)
+
+
 def _coulomb_window_impl(grid: AtomGrid, q_plane, q_ext, cutoff: float,
                          alpha: float):
     """Coulomb pair sweep -> interior planes ``(e, fx, fy, fz)``."""
@@ -418,13 +585,13 @@ def grid_coulomb_energy_forces(grid: AtomGrid, charges, cutoff, alpha=0.0,
     pairs (r -> 0) are excluded by the r^2 > 0 guard.  Returns
     ``(energies [N], forces [N, 3])``.  ``engine``: ``None`` or
     ``"window"`` (the per-cell pair sweep, kernels/window_sweep.py) or
-    ``"block"`` (the super-chunk sweep, kernels/chunk_sweep.py); the JAX
-    package's ``"xla"`` engine is listed in ROADMAP.md.
+    ``"block"`` (the super-chunk sweep, kernels/chunk_sweep.py); ``"xla"``,
+    the JAX package's XLA engine (its default off the TPU), runs the window
+    engine, which gives its results to rounding.
     """
-    if engine not in (None, "window", "block"):
-        raise NotImplementedError(
-            f"grid_coulomb_energy_forces engine={engine!r} is not ported "
-            "(ROADMAP.md, 'Engines off the default path')")
+    if engine not in (None, "window", "block", "xla"):
+        raise ValueError(f"grid_coulomb_energy_forces: unknown engine "
+                         f"{engine!r}")
     q_plane = scatter_to_grid(grid, charges)
     q_ext = _extend_like(grid, q_plane, 0.0)
     impl = _coulomb_block_impl if engine == "block" else _coulomb_window_impl

@@ -204,16 +204,13 @@ def _params(cutoff, a1, a2, s6, s8, k1, k3):
 
 
 def _check_dense_knobs(engine, block, interpret):
-    """The JAX dense engines' knobs: ``engine`` ``"auto"`` or ``"pallas"``
-    run the port's triangle sweep (kernel 4, the Pallas sweep's
-    counterpart); ``"xla"`` is not ported; ``block`` (the Pallas tile) and
-    ``interpret`` are checked and change nothing (kernel 4 has its own
+    """The JAX dense engines' knobs, checked; none changes the route.
+    ``engine`` ``"auto"``, ``"pallas"`` or ``"xla"`` runs the port's
+    triangle sweep (kernel 4, the Pallas sweep's counterpart; the JAX XLA
+    engine's pair planes give its results to rounding); ``block`` (the
+    Pallas tile) and ``interpret`` change nothing (kernel 4 has its own
     tiles, and the wrappers take the plain version on CPU tensors)."""
-    if engine == "xla":
-        raise NotImplementedError(
-            "dense D3 engine='xla' is not ported (ROADMAP.md, queue 1 item "
-            "6: the XLA engines)")
-    if engine not in ("auto", "pallas"):
+    if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown dense engine {engine!r}")
     if block is not None and (isinstance(block, bool)
                               or not isinstance(block, (int, np.integer))

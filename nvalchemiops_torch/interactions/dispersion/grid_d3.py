@@ -1,7 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
 """DFT-D3(BJ) on the halo atom grid (counterpart of
 ``nvalchemiops_tpu.interactions.dispersion.grid_d3``: the window, block,
-pallas and hybrid engines, and the fused D3 + Coulomb sweep).
+pallas and hybrid engines, and the fused D3 + Coulomb sweep; the JAX
+package's ``"xla"`` engine runs the window engine, which gives its results
+to rounding).
 
 Three pair sweeps over the grid, on the engine's kernel (window: kernel 1,
 kernels/window_sweep.py; block: kernel 8, kernels/chunk_sweep.py; pallas:
@@ -179,17 +181,11 @@ def _feature_dtype(feature_dtype):
     return dt
 
 
-def _check_engine(name, engine, ported):
-    """``NotImplementedError`` naming ROADMAP for the JAX package's
-    ``"xla"`` engine, ``ValueError`` for a name neither package has."""
-    if engine in ported:
-        return
-    if engine == "xla":
-        raise NotImplementedError(
-            f"{name} engine='xla' is not ported (ROADMAP.md, queue 1 item 6:"
-            " the XLA engines)")
-    raise ValueError(f"{name}: unknown engine {engine!r}; the port has "
-                     f"{[e for e in ported if e]}")
+def _check_engine(name, engine, engines):
+    """``ValueError`` for an engine name neither package has."""
+    if engine not in engines:
+        raise ValueError(f"{name}: unknown engine {engine!r}; one of "
+                         f"{[e for e in engines if e]}")
 
 
 def _sweep(grid, engine, block_g, body, own, cand, params, lf=None,
@@ -359,8 +355,7 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
     hooks, as ``cn_a_override`` / ``skip_chain`` of the JAX row sweep).
     ``feature_dtype`` rounds the pass-2 feature planes to that dtype (the
     JAX window engine's storage cast).  ``compute_virial`` (window engine,
-    D3 only, needs ``cell``) appends the ``[3, 3]`` virial
-    (:func:`_window_virial`).
+    D3 only) appends the ``[3, 3]`` virial (:func:`_window_virial`).
     """
     px_d = _parked_px(grid, z_ext)
     if cn_plane is None:
@@ -396,23 +391,35 @@ def _window_virial(grid, forces, j_forces, cell):
     ``forces`` are the folded per-slot force planes, ``r`` the interior
     positions, ``j_forces [3, ez, ey, ex, cap]`` the raw j-side force
     accumulators of passes 2 and 3 before the fold, and ``S`` each extended
-    cell's Cartesian ghost shift from ``grid.ext_shift_code`` and ``cell``.
-    Each pair's displacement is ``(r_j + S) - r_i``, so the sum over the
-    halo's raw accumulators books every pair's shift once."""
+    cell's Cartesian ghost shift from ``grid.ext_shift_code`` and ``cell``;
+    with no ``cell``, each extended slot's ghost position less its home
+    copy's (what the JAX XLA engine's pair displacements carry).  Each
+    pair's displacement is ``(r_j + S) - r_i``, so the sum over the halo's
+    raw accumulators books every pair's shift once."""
     dtype, device = forces[0].dtype, forces[0].device
     ez, ey, ex = j_forces.shape[1:4]
-    codes = grid.ext_shift_code.reshape(ez, ey, ex)
-    cellm = torch.as_tensor(cell, device=device).to(dtype).reshape(3, 3)
-    s = [c.to(dtype) for c in unpack_shifts(codes)]
-    shift = [s[0] * cellm[0, b] + s[1] * cellm[1, b] + s[2] * cellm[2, b]
-             for b in range(3)]
-    r_int = [_interior(grid, p) for p in (grid.ext_px, grid.ext_py,
-                                          grid.ext_pz)]
+    ext_p = (grid.ext_px, grid.ext_py, grid.ext_pz)
+    r_int = [_interior(grid, p) for p in ext_p]
+    if cell is None:
+        shift = [_ghost_shift(grid, p) for p in ext_p]
+    else:
+        codes = grid.ext_shift_code.reshape(ez, ey, ex)
+        cellm = torch.as_tensor(cell, device=device).to(dtype).reshape(3, 3)
+        s = [c.to(dtype) for c in unpack_shifts(codes)]
+        shift = [(s[0] * cellm[0, b] + s[1] * cellm[1, b]
+                  + s[2] * cellm[2, b])[..., None] for b in range(3)]
     return torch.stack([
         torch.stack([(forces[a] * r_int[b]).sum()
-                     + (j_forces[a] * shift[b][..., None]).sum()
+                     + (j_forces[a] * shift[b]).sum()
                      for b in range(3)])
         for a in range(3)])
+
+
+def _ghost_shift(grid, ext_p):
+    """One Cartesian component of every extended slot's ghost shift, its
+    position less its home copy's (0 where the slot holds no atom)."""
+    home = _extend_like(grid, _interior(grid, ext_p), 0.0)
+    return torch.where(grid.ext_valid, ext_p - home, torch.zeros_like(home))
 
 
 def _snap_block_g(block_g, cx):
@@ -496,19 +503,20 @@ def grid_dftd3(
       and with ``hybrid_cn="stencil"`` the CN pass, run on the voxel
       stencil (kernel 9); ``hybrid_cn="row"`` keeps pass 1 on the grid.
       Pass 2 runs on kernel 1's D3 direct body with the CNs as given: the
-      same pass as the JAX hybrid's, which runs it on its XLA row sweep
-      (an engine the port does not have).  The stencil's chain forces are
-      added per atom.
+      same pass as the JAX hybrid's, which runs it on its XLA row sweep.
+      The stencil's chain forces are added per atom;
+    - ``"xla"``: the JAX package's XLA engine (its default off the TPU);
+      the port runs the window engine for it, which gives its results to
+      rounding (both packages' tests hold the two to each other at f64).
 
     ``compute_virial=True`` appends the ``[3, 3]`` virial (the JAX
     contract: the matrix path's per-system virial, one system).  The window
     engine forms it from its force planes and the raw halo j-side
-    accumulators of passes 2 and 3 (kernel 1 unchanged), and needs
-    ``cell``, the grid's cell, for the ghost shifts; ``cell`` feeds only
-    the virial.  Where the JAX package takes its XLA engine's virial
-    instead (no ``cell``, another engine, a stencil), and for its
-    ``"xla"`` engine, the port raises ``NotImplementedError`` (ROADMAP.md,
-    queue 1 item 6).
+    accumulators of passes 2 and 3 (kernel 1 unchanged), with the ghost
+    shifts from ``cell``, the grid's cell (``cell`` feeds only the
+    virial), or with no ``cell`` from the ghost positions.  Where the JAX
+    package takes its XLA engine's virial (no ``cell``, another engine, a
+    stencil), the port takes the window engine's, with no stencil.
     ``precision`` (the TPU matrix unit's passes) and ``bilinear`` (the XLA
     engine's einsum grouping) are checked and change nothing: every port
     engine computes its C6 dots in full f32.  ``feature_dtype`` rounds the
@@ -521,23 +529,19 @@ def grid_dftd3(
         raise ValueError(f"bilinear must be 'stack', 'split' or 'quad', got "
                          f"{bilinear!r}")
     feature_dtype = _feature_dtype(feature_dtype)
+    if compute_virial and (cell is None or engine not in (None, "window")
+                           or stencil is not None):
+        # where the JAX package falls back to its XLA engine's virial
+        engine, stencil = "xla", None
     if engine is None and stencil is not None:
         engine = "hybrid"
     if engine == "hybrid" and stencil is None:
         raise ValueError("engine='hybrid' requires a StencilGrid (stencil=...)")
     _check_engine("grid_dftd3", engine,
-                  (None, "window", "block", "pallas", "hybrid"))
+                  (None, "window", "block", "pallas", "hybrid", "xla"))
     if hybrid_cn not in ("stencil", "row"):
         raise ValueError(f"hybrid_cn must be 'stencil' or 'row', got "
                          f"{hybrid_cn!r}")
-    if compute_virial and (cell is None or engine not in (None, "window")
-                           or stencil is not None):
-        # where the JAX package falls back to its XLA engine's virial
-        raise NotImplementedError(
-            "grid_dftd3(compute_virial=True) runs on the window engine with "
-            "a cell and no stencil; the XLA engine's virial that the JAX "
-            "package takes otherwise is not ported (ROADMAP.md, queue 1 "
-            "item 6: the XLA engines)")
     numbers, rcov_t, planes, _ = _d3_inputs(grid, numbers, rcov, r4r2, c6ab,
                                             cn_ref_elem)
     params = SweepParams(cutoff=float(cutoff), a1=float(a1), a2=float(a2),
@@ -564,7 +568,7 @@ def grid_dftd3(
                                                         cn_pl))
         forces = torch.stack([f1, f2, f3], dim=-1) + chain_a
         return e_pl.sum(), forces, cn_g if cn_a is None else cn_a
-    engine = engine or "window"
+    engine = "window" if engine in (None, "xla") else engine
     e_pl, fx_pl, fy_pl, fz_pl, cn_pl, *virial = _grid_d3_impl(
         grid, *planes, params, engine, block_g=block_g,
         feature_dtype=feature_dtype if engine == "window" else None,
@@ -595,7 +599,8 @@ def grid_dftd3_coulomb(
 
     The Coulomb pair terms ride the D3 direct pass's geometry: on the
     super-chunk sweep (``engine="block"``, kernel 8) or the per-cell sweep
-    (``engine="window"``, kernel 1), with the Coulomb pair's own cutoff
+    (``engine="window"``, kernel 1; the JAX package's ``"xla"`` engine runs
+    it too), with the Coulomb pair's own cutoff
     (default: ``cutoff``) and ``alpha``.  Both cutoffs must be <= the
     cutoff the grid was built for.  ``combine_forces=True`` is the MD-step
     configuration: the window engine folds the Coulomb forces into the D3
@@ -604,10 +609,10 @@ def grid_dftd3_coulomb(
 
     Returns ``(e_d3_total, f_d3 [N, 3], coord_num [N], e_coulomb [N],
     f_coulomb [N, 3])``; with ``combine_forces`` the force entry carries
-    D3 + Coulomb and the trailing entry is ``None``.  The JAX package's
-    ``"xla"`` engine is listed in ROADMAP.md.
+    D3 + Coulomb and the trailing entry is ``None``.
     """
-    _check_engine("grid_dftd3_coulomb", engine, ("block", "window"))
+    _check_engine("grid_dftd3_coulomb", engine, ("block", "window", "xla"))
+    engine = "window" if engine == "xla" else engine
     if coulomb_cutoff is None:
         coulomb_cutoff = cutoff
     _, _, planes, (q_plane,) = _d3_inputs(grid, numbers, rcov, r4r2, c6ab,
@@ -648,7 +653,7 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
     overrides it, as in the JAX package.  Returns ``(energy [B], forces [B,
     n, 3], cn [B, n])``.  The default engine is the window engine (the JAX
     package defaults to its xla engine here, which agrees with the window
-    engine to f64 rounding).
+    engine to f64 rounding; ``engine="xla"`` runs the window engine).
     """
     b, n = positions.shape[0], positions.shape[1]
     cells_np = np.asarray(_np(cells), dtype=np.float64)

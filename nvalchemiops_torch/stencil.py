@@ -22,9 +22,9 @@ Engines of the three sweeps (:func:`stencil_coulomb_energy_forces`,
   each own voxel against all ``(2R+1)^3 - 1`` offsets, no scatter; on a
   CPU tensor the kernel's wrapper runs its plain version;
 - ``"xla"`` (the default on the CPU, as the JAX package picks it off the
-  TPU): the half-space sweep :func:`stencil_reduce_sym`, each pair once,
-  with the j side folded back through the halo.  CPU tensors only: on a
-  CUDA tensor it raises ``NotImplementedError`` (ROADMAP.md).
+  TPU): on a CPU tensor the half-space sweep :func:`stencil_reduce_sym`,
+  each pair once, with the j side folded back through the halo; on a CUDA
+  tensor kernel 9, which gives the same function to rounding.
 
 Geometry search and build keep the JAX package's rules, so both packages
 bin the same atoms into the same voxels.
@@ -364,23 +364,17 @@ def stencil_reduce_sym(sg: StencilGrid, body, params: SweepParams,
 
 
 def _resolve_engine(engine, device):
-    if engine is None:
-        return "pallas" if device.type == "cuda" else "xla"
-    if engine not in ("pallas", "xla", "stack", "fuse"):
+    if engine not in (None, "pallas", "xla", "stack", "fuse"):
         raise ValueError(f"unknown stencil engine {engine!r}")
-    return engine
+    if device.type == "cuda":
+        return "pallas" if engine in (None, "xla") else engine
+    return engine or "xla"
 
 
 def _sweep(sg, body, params, engine, ext_named, own_named):
     """Own-side planes of one body on the engine's sweep, interior
     [Cz, Cy, Cx] each."""
-    device = sg.ext_px.device
-    if _resolve_engine(engine, device) == "xla":
-        if device.type != "cpu":
-            raise NotImplementedError(
-                "stencil engine 'xla' runs on the CPU only; on the card the "
-                "half-space sweep is not ported (ROADMAP.md, 'Engines off "
-                "the default path')")
+    if _resolve_engine(engine, sg.ext_px.device) == "xla":
         own_acc, folded = stencil_reduce_sym(sg, body, params, ext_named,
                                              own_named)
         return tuple(own_interior(sg, a) + f for a, f in zip(own_acc, folded))

@@ -122,10 +122,13 @@ def test_grid_dftd3_padding_atoms_are_parked():
 
 
 def test_grid_dftd3_engine_other_than_window_raises():
+    """An engine name neither package has raises ``ValueError`` (the JAX
+    package's ``"xla"`` runs the window engine; tests/test_torch_xla_engines.py
+    holds it to JAX)."""
     g = port_grid(jgrid.build_atom_grid(
         jnp.zeros((4, 3)), jnp.eye(3) * 9.0, np.array([True] * 3),
         (2, 2, 2), (1, 1, 1), 8))
     tab = synthetic_tables()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown engine"):
         td3.grid_dftd3(g, np.ones(4, np.int32), *tab, 3.0, A1, A2, S8,
-                       engine="xla")
+                       engine="mosaic")

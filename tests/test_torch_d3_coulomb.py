@@ -70,10 +70,14 @@ def test_grid_dftd3_coulomb_matches_jax_xla(fused_case, engine, alpha, ccut,
 
 
 def test_grid_dftd3_coulomb_xla_engine_raises(fused_case):
+    """``engine="xla"`` (which raised ``NotImplementedError`` before; the
+    name is kept) runs the window engine and gives the JAX xla engine's
+    result."""
     c = fused_case
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td3.grid_dftd3_coulomb(c["gt"], c["numbers"], c["q"], *c["tab"],
-                               3.2, A1, A2, S8, engine="xla")
+    out = td3.grid_dftd3_coulomb(c["gt"], c["numbers"], c["q"], *c["tab"],
+                                 3.2, A1, A2, S8, engine="xla")
+    for a, r in zip(out, c["refs"][0.0, 3.2]):
+        assert_close(a, r, rtol=1e-9)
 
 
 @pytest.mark.parametrize("engine", ["block", "window"])

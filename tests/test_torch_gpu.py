@@ -1446,3 +1446,198 @@ def test_dftd3_host_inputs_run_on_the_card(cuda):
                  batch_idx=t["batch_idx"], cell=t["cell"], output_dtype=None,
                  **kw)
     _close_cpu(got, want, rtol=1e-10)
+
+
+def _xla_case(device, dtype):
+    """150 atoms (every ninth a padding atom) in an 11 A cube with charges,
+    on a grid for 3.4 A, and a 6^3 jittered crystal on its voxel stencil
+    for 4.5 A: the inputs of the ``engine="xla"`` calls."""
+    from nvalchemiops_torch import grid, stencil
+
+    rng = np.random.default_rng(79)
+    cell = np.eye(3) * 11.0
+    pos = rng.uniform(0, 11.0, (150, 3))
+    numbers = rng.integers(1, 5, 150).astype(np.int32)
+    numbers[::9] = 0
+    q = rng.normal(size=150)
+    tab = _d3_tables(rng)
+    pbc = np.array([True] * 3)
+    dims, radius, cap = grid.estimate_grid_geometry(cell, pbc, 3.4, 150, 0.4)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    g = grid.build_atom_grid(t(pos), t(cell), pbc, dims, radius, cap)
+    lat = np.stack(np.meshgrid(*([np.arange(6)] * 3), indexing="ij"),
+                   -1).reshape(-1, 3) * 3.0
+    sg = stencil.build_stencil_auto(
+        t(lat + rng.uniform(-0.2, 0.2, lat.shape)), t(np.eye(3) * 18.0),
+        [True] * 3, 4.5)
+    return dict(g=g, sg=sg, numbers=numbers, q=t(q), tab=tab, cell=cell,
+                pos=t(pos), q_s=t(rng.normal(size=216)),
+                rcov=t(rng.uniform(0.8, 1.4, 216)),
+                decn=t(rng.normal(size=216)))
+
+
+def _xla_calls(c):
+    """Every ``engine="xla"`` entry point once, the virial with no cell,
+    and the grid's neighbour counts: name -> zero-argument call."""
+    from nvalchemiops_torch import grid, stencil
+    from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+
+    d3 = (*c["tab"], 3.4, 0.42, 4.1, 1.7)
+    pos_b = c["pos"][:144].reshape(4, 36, 3) * (8.0 / 11.0)
+    num_b = c["numbers"][:144].reshape(4, 36)
+    return {
+        "grid_dftd3 virial": lambda: grid_d3.grid_dftd3(
+            c["g"], c["numbers"], *d3, engine="xla", compute_virial=True),
+        "grid coulomb": lambda: grid.grid_coulomb_energy_forces(
+            c["g"], c["q"], 3.4, 0.35, engine="xla"),
+        "fused": lambda: grid_d3.grid_dftd3_coulomb(
+            c["g"], c["numbers"], c["q"], *d3, coulomb_cutoff=2.9,
+            alpha=0.3, engine="xla")[:4],
+        "batch grid": lambda: grid_d3.batch_grid_dftd3(
+            pos_b, num_b, np.eye(3) * 8.0, [True] * 3, 3.4, *c["tab"], 0.42,
+            4.1, 1.7, engine="xla"),
+        "batch dense": lambda: dense_d3.batch_dense_dftd3(
+            pos_b, num_b, np.eye(3) * 8.0, 5.0, *c["tab"], 0.42, 4.1, 1.7,
+            system_chunk=2, engine="xla"),
+        "neighbor count": lambda: grid.grid_neighbor_count(c["g"], 3.4, 150),
+        "stencil": lambda: (
+            stencil.stencil_coulomb_energy_forces(c["sg"], c["q_s"], 4.5,
+                                                  0.35, engine="xla")
+            + (stencil.stencil_coordination_numbers(
+                c["sg"], c["rcov"], 4.5, engine="xla"),
+               stencil.stencil_cn_chain_forces(
+                   c["sg"], c["rcov"], c["decn"], 4.5, engine="xla"))),
+    }
+
+
+#: the kernels each ``engine="xla"`` call launches on the card
+XLA_ROUTES = {
+    "grid_dftd3 virial": ("window_sweep_cn", "window_sweep_d3_direct",
+                          "window_sweep_chain"),
+    "grid coulomb": ("window_sweep_coulomb",),
+    "fused": ("window_sweep_cn", "window_sweep_d3_direct_coulomb",
+              "window_sweep_chain"),
+    "batch grid": ("window_sweep_cn", "window_sweep_d3_direct",
+                   "window_sweep_chain"),
+    "batch dense": ("dense_pairs_cn", "dense_pairs_direct",
+                    "dense_pairs_chain"),
+    "neighbor count": (),
+    "stencil": ("stencil_sweep_coulomb", "stencil_sweep_cn",
+                "stencil_sweep_chain"),
+}
+
+
+@pytest.mark.parametrize("name", list(XLA_ROUTES))
+def test_xla_routes_on_card_match_cpu(cuda, name):
+    """``engine="xla"`` on the card runs the kernels' routes (the window
+    engine, kernel 4, kernel 9) and launches exactly their kernels; in f32
+    it meets the f32 bar against the f64 call on CPU tensors.  The grid's
+    neighbour counts (a plain sweep, no kernel) run in f64 and match
+    exactly."""
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+
+    ref = _xla_calls(_xla_case("cpu", torch.float64))[name]()
+    dtype = torch.float64 if name == "neighbor count" else torch.float32
+    calls = _xla_calls(_xla_case(cuda, dtype))
+    reset_launch_counts()
+    out = calls[name]()
+    launched = {k for k, v in launch_counts.items() if v}
+    assert launched == set(XLA_ROUTES[name]), launch_counts
+    if name == "neighbor count":
+        assert torch.equal(out.cpu(), ref)
+    else:
+        _close_cpu(tuple(out), tuple(ref))
+
+
+@pytest.mark.parametrize("api", ["global", "per-backend"])
+def test_xla_routes_meet_the_f32_bar_with_tf32_on(cuda, api):
+    """TF32 turned on by the caller: ``engine="xla"`` of the grid and dense
+    D3 in f32 on the card still meets the f32 bar, 1e-5 of scale against
+    the f64 call on the CPU, and the caller's setting is back
+    afterwards."""
+    from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+
+    def run(device, dtype):
+        c = _xla_case(device, dtype)
+        d3 = (*c["tab"], 3.4, 0.42, 4.1, 1.7)
+        pos_b = c["pos"][:144].reshape(4, 36, 3) * (8.0 / 11.0)
+        return (grid_d3.grid_dftd3(c["g"], c["numbers"], *d3,
+                                   engine="xla")[1],
+                dense_d3.batch_dense_dftd3(
+                    pos_b, c["numbers"][:144].reshape(4, 36),
+                    np.eye(3) * 8.0, 5.0, *c["tab"], 0.42, 4.1, 1.7,
+                    engine="xla")[1])
+
+    matmul = torch.backends.cuda.matmul
+    if api == "per-backend" and not hasattr(matmul, "fp32_precision"):
+        pytest.skip("this torch has no per-backend fp32_precision setting")
+    ref = run("cpu", torch.float64)
+    if api == "global":
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+    else:
+        prev = matmul.fp32_precision
+        matmul.fp32_precision = "tf32"
+    try:
+        _close_cpu(run(cuda, torch.float32), ref)
+        if api == "global":
+            assert torch.get_float32_matmul_precision() == "high"
+        else:
+            assert matmul.fp32_precision == "tf32"
+    finally:
+        if api == "global":
+            torch.set_float32_matmul_precision(prev)
+        else:
+            matmul.fp32_precision = prev
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_default_engines_launch_the_kernels(cuda):
+    """On a CUDA tensor the default engines run the kernels: ``grid_dftd3``
+    kernel 1 (with its virial too), the grid Coulomb kernel 1, the stencil
+    sweeps kernel 9 and the dense D3 kernel 4, each launch counted."""
+    from nvalchemiops_torch import grid, stencil
+    from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+
+    c = _xla_case(cuda, torch.float32)
+    d3 = (*c["tab"], 3.4, 0.42, 4.1, 1.7)
+    pos_b = c["pos"][:144].reshape(4, 36, 3) * (8.0 / 11.0)
+    reset_launch_counts()
+    grid_d3.grid_dftd3(c["g"], c["numbers"], *d3)
+    grid_d3.grid_dftd3(c["g"], c["numbers"], *d3, compute_virial=True,
+                       cell=c["cell"])
+    grid.grid_coulomb_energy_forces(c["g"], c["q"], 3.4, 0.35)
+    stencil.stencil_coordination_numbers(c["sg"], c["rcov"], 4.5)
+    stencil.stencil_cn_chain_forces(c["sg"], c["rcov"], c["decn"], 4.5)
+    dense_d3.batch_dense_dftd3(pos_b, c["numbers"][:144].reshape(4, 36),
+                               np.eye(3) * 8.0, 5.0, *c["tab"], 0.42, 4.1,
+                               1.7)
+    for key, n in (("window_sweep_cn", 2), ("window_sweep_d3_direct", 2),
+                   ("window_sweep_chain", 2), ("window_sweep_coulomb", 1),
+                   ("stencil_sweep_cn", 1), ("stencil_sweep_chain", 1),
+                   ("dense_pairs_cn", 1), ("dense_pairs_direct", 1),
+                   ("dense_pairs_chain", 1)):
+        assert launch_counts[key] == n, (key, launch_counts)
+
+
+def test_math_extras_take_numpy_input_to_the_card(cuda):
+    """The GTO and harmonic functions given numpy inputs (and a Python
+    ``sigma``) place them on the card and agree with the call on CPU
+    tensors in f64."""
+    from nvalchemiops_torch import mathops
+
+    pts = np.random.default_rng(80).normal(size=(6, 3))
+    for name in ("gto_density_all", "eval_gto_fourier",
+                 "spherical_harmonics_gradient", "gto_normalization"):
+        fn = getattr(mathops, name)
+        if name == "gto_normalization":
+            got, want = fn(0.7), fn(0.7, device="cpu")
+        elif name.startswith(("gto", "eval_gto")):
+            got, want = fn(pts, 0.7), fn(torch.as_tensor(pts), 0.7)
+        else:
+            got, want = fn(pts), fn(torch.as_tensor(pts))
+        _close_cpu(got, want, rtol=1e-12)

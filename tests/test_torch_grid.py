@@ -168,11 +168,14 @@ def test_shift_codes_round_trip():
 
 
 def test_coulomb_engine_other_than_window_raises():
+    """An engine name neither package has raises ``ValueError`` (the JAX
+    package's ``"xla"`` runs the window engine; tests/test_torch_xla_engines.py
+    holds it to JAX)."""
     gt = tgrid.AtomGrid(*([None] * 8), dims=(1, 1, 1), radius=(1, 1, 1),
                         cap=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown engine"):
         tgrid.grid_coulomb_energy_forces(gt, torch.zeros(3), 3.0,
-                                         engine="xla")
+                                         engine="mosaic")
 
 
 def test_import_leaves_jax_out():

@@ -75,6 +75,19 @@ def test_namespace_holds_the_jax_subpackages_but_parallel():
         tgrid.build_atom_grid_auto
 
 
+def test_mathops_and_grid_export_the_jax_lists():
+    """``mathops`` exports exactly the JAX list plus the port's
+    ``apply_mat3_batched``; ``grid`` every JAX name but the TPU layout
+    choice ``use_slot_gather``, each name bound in the namespace."""
+    tm, jm = nvalchemiops_torch.mathops, nvalchemiops_tpu.mathops
+    assert sorted(tm.__all__) == sorted(jm.__all__ + ["apply_mat3_batched"])
+    for n in tm.__all__:
+        assert callable(getattr(tm, n)), n
+    assert set(jgrid.__all__) - set(tgrid.__all__) == {"use_slot_gather"}
+    for n in tgrid.__all__:
+        assert hasattr(tgrid, n), n
+
+
 def test_import_builds_no_kernel_and_imports_no_jax():
     """In a fresh interpreter, importing the package and its subpackages
     neither builds nor loads the kernel library, and imports no JAX."""

@@ -10,8 +10,9 @@ parameters come after them.  One function is exempt (``EXEMPT``).
 Then a few positional calls that bound to other parameters before bind as
 JAX binds them, the knobs with a port meaning are honoured, the TPU-only
 knobs are checked (``ValueError`` on a value the JAX package has no
-meaning for) and the unported ones raise ``NotImplementedError`` naming
-ROADMAP.
+meaning for) and the calls that raised ``NotImplementedError`` before
+(``engine="xla"``, the virial where the JAX package takes its XLA engine's)
+give the JAX package's results.
 """
 
 import importlib
@@ -31,6 +32,7 @@ from nvalchemiops_torch.interactions.dispersion import dense_d3 as tdense
 from nvalchemiops_torch.interactions.dispersion import grid_d3 as td3
 from nvalchemiops_torch.interactions.electrostatics import k_vectors as tkv
 from nvalchemiops_torch.interactions.electrostatics import pme as tpme
+from nvalchemiops_tpu import grid as jgrid
 from nvalchemiops_tpu.interactions.dispersion import dense_d3 as jdense
 from nvalchemiops_tpu.interactions.dispersion import grid_d3 as jd3
 from nvalchemiops_tpu.interactions.electrostatics import k_vectors as jkv
@@ -95,6 +97,25 @@ def test_jax_parameters_are_an_ordered_prefix_of_the_port_s():
     assert sorted(differ) == sorted(EXEMPT)
 
 
+def test_walk_covers_the_jax_grid_and_mathops_lists():
+    """The walk above reaches every function of the JAX ``grid`` and
+    ``mathops`` lists (``use_slot_gather``, a TPU layout choice, is not
+    ported), the generated harmonic accessors and both math modules
+    included."""
+    walked = {}
+    for mod, name, _, _ in _namesakes():
+        walked.setdefault(mod, set()).add(name)
+    for sub in ("grid", "mathops"):
+        jmod = importlib.import_module(f"nvalchemiops_tpu.{sub}")
+        want = {n for n in jmod.__all__ if inspect.isfunction(
+            inspect.unwrap(getattr(jmod, n)))} - {"use_slot_gather"}
+        assert want and want <= walked[f"nvalchemiops_torch.{sub}"], sub
+    # the JAX math modules list no __all__: every port name has a namesake
+    for sub in ("gto", "spherical_harmonics"):
+        mod = f"nvalchemiops_torch.mathops.{sub}"
+        assert set(importlib.import_module(mod).__all__) == walked[mod], sub
+
+
 def _dtype_name(x):
     """The name of a torch, numpy or JAX dtype (or dtype type), else
     None."""
@@ -128,8 +149,8 @@ def test_same_default_equates_a_dtype_with_its_namesake():
 def test_defaults_of_the_shared_parameters_are_the_jax_defaults():
     """Shared parameters take the JAX defaults (a dtype counts as its
     namesake); the one exception is ``batch_grid_dftd3``'s engine, which
-    names the JAX XLA engine (not ported) and is the window engine in the
-    port."""
+    is the JAX XLA engine (a TPU fit) and the window engine (kernel 1) in
+    the port."""
     allowed = {("batch_grid_dftd3", "engine")}
     for mod, name, fn, jfn in _namesakes():
         if f"{mod}.{name}" in EXEMPT:
@@ -300,14 +321,14 @@ def _grid_system(seed, n=160, box=12.0, cutoff=4.5):
         torch.as_tensor(cell), pbc, cutoff, n, 0.6)
     g = tgrid.build_atom_grid(torch.as_tensor(pos), torch.as_tensor(cell),
                               pbc, dims, radius, cap)
-    return g, numbers, tab, cutoff, cell
+    return g, numbers, tab, cutoff, cell, pos
 
 
 def test_grid_dftd3_knobs():
     """``precision`` and ``bilinear`` are checked and change nothing;
     ``cell`` is carried; ``feature_dtype`` rounds the window engine's
     pass-2 features."""
-    g, numbers, tab, cutoff, cell = _grid_system(107)
+    g, numbers, tab, cutoff, cell, _ = _grid_system(107)
     args = (g, numbers, *tab, cutoff, A1, A2, S8)
     base = td3.grid_dftd3(*args)
     for kw in (dict(precision=jax.lax.Precision.HIGHEST),
@@ -338,32 +359,68 @@ def test_grid_dftd3_knobs():
     "dense_dftd3(engine='xla')", "batch_dense_dftd3(engine='xla')",
 ])
 def test_unported_knobs_raise_naming_roadmap(call):
-    g, numbers, tab, cutoff, cell = _grid_system(108, n=80, box=10.0)
-    pos, q, pcell = _pme_system(109)
-    pos_t, q_t = torch.as_tensor(pos), torch.as_tensor(q)
+    """The calls that raised ``NotImplementedError`` naming ROADMAP before
+    (the name is kept): each now runs a kernel's route (the window engine,
+    kernel 4) and gives the JAX package's result on the same inputs (rtol
+    1e-9, f64)."""
+    g, numbers, tab, cutoff, cell, gpos = _grid_system(108, n=80, box=10.0)
+    gj = jgrid.build_atom_grid(jnp.asarray(gpos), jnp.asarray(cell),
+                               np.array([True] * 3), g.dims, g.radius, g.cap)
+    pos, _, pcell = _pme_system(109)
+    pos_t = torch.as_tensor(pos)
+    q = np.random.default_rng(108).normal(size=80)
     d3 = (*tab, cutoff, A1, A2, S8)
+    jd3_args = (*_jax_tabs(tab), cutoff, A1, A2, S8)
+    ones = np.ones((2, 40), np.int32)
     calls = {
-        "grid_dftd3(compute_virial=True) without cell": lambda:
-            td3.grid_dftd3(g, numbers, *d3, compute_virial=True),
-        "grid_dftd3(compute_virial=True, engine='block')": lambda:
-            td3.grid_dftd3(g, numbers, *d3, compute_virial=True, cell=cell,
-                           engine="block"),
-        "grid_dftd3(engine='xla')": lambda: td3.grid_dftd3(
-            g, numbers, *d3, engine="xla"),
-        "grid_dftd3_coulomb(engine='xla')": lambda: td3.grid_dftd3_coulomb(
-            g, numbers, np.zeros(80), *d3, engine="xla"),
-        "batch_grid_dftd3(engine='xla')": lambda: td3.batch_grid_dftd3(
-            pos_t, np.ones((2, 40), np.int32), torch.as_tensor(pcell),
-            [True] * 3, 3.5, *tab, A1, A2, S8, engine="xla"),
-        "dense_dftd3(engine='xla')": lambda: tdense.dense_dftd3(
-            pos_t[0], np.ones(40, np.int32), torch.as_tensor(pcell), 3.5,
-            *tab, A1, A2, S8, engine="xla"),
-        "batch_dense_dftd3(engine='xla')": lambda: tdense.batch_dense_dftd3(
-            pos_t, np.ones((2, 40), np.int32), torch.as_tensor(pcell), 3.5,
-            *tab, A1, A2, S8, engine="xla"),
+        "grid_dftd3(compute_virial=True) without cell": (
+            lambda: td3.grid_dftd3(g, numbers, *d3, compute_virial=True),
+            lambda: jd3.grid_dftd3(gj, jnp.asarray(numbers), *jd3_args,
+                                   compute_virial=True)),
+        "grid_dftd3(compute_virial=True, engine='block')": (
+            lambda: td3.grid_dftd3(g, numbers, *d3, compute_virial=True,
+                                   cell=cell, engine="block"),
+            lambda: jd3.grid_dftd3(gj, jnp.asarray(numbers), *jd3_args,
+                                   compute_virial=True, engine="xla")),
+        "grid_dftd3(engine='xla')": (
+            lambda: td3.grid_dftd3(g, numbers, *d3, engine="xla"),
+            lambda: jd3.grid_dftd3(gj, jnp.asarray(numbers), *jd3_args,
+                                   engine="xla")),
+        "grid_dftd3_coulomb(engine='xla')": (
+            lambda: td3.grid_dftd3_coulomb(g, numbers, q, *d3,
+                                           engine="xla"),
+            lambda: jd3.grid_dftd3_coulomb(gj, jnp.asarray(numbers),
+                                           jnp.asarray(q), *jd3_args,
+                                           engine="xla")),
+        "batch_grid_dftd3(engine='xla')": (
+            lambda: td3.batch_grid_dftd3(
+                pos_t, ones, torch.as_tensor(pcell), [True] * 3, 3.5, *tab,
+                A1, A2, S8, engine="xla"),
+            lambda: jd3.batch_grid_dftd3(
+                jnp.asarray(pos), jnp.asarray(ones), jnp.asarray(pcell),
+                np.array([True] * 3), 3.5, *_jax_tabs(tab), A1, A2, S8,
+                engine="xla")),
+        "dense_dftd3(engine='xla')": (
+            lambda: tdense.dense_dftd3(
+                pos_t[0], ones[0], torch.as_tensor(pcell), 3.5, *tab, A1,
+                A2, S8, engine="xla"),
+            lambda: jdense.dense_dftd3(
+                jnp.asarray(pos[0]), jnp.asarray(ones[0]),
+                jnp.asarray(pcell), 3.5, *_jax_tabs(tab), A1, A2, S8,
+                engine="xla")),
+        "batch_dense_dftd3(engine='xla')": (
+            lambda: tdense.batch_dense_dftd3(
+                pos_t, ones, torch.as_tensor(pcell), 3.5, *tab, A1, A2, S8,
+                engine="xla"),
+            lambda: jdense.batch_dense_dftd3(
+                jnp.asarray(pos), jnp.asarray(ones), jnp.asarray(pcell), 3.5,
+                *_jax_tabs(tab), A1, A2, S8, engine="xla")),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calls[call]()
+    port, ref = calls[call]
+    out, want = port(), ref()
+    assert len(out) == len(want)
+    for a, r in zip(out, want):
+        assert_close(a, r, rtol=1e-9)
 
 
 @pytest.mark.parametrize("entry", ["pme_reciprocal_space",

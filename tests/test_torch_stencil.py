@@ -11,8 +11,6 @@ the JAX Pallas kernel (interpret mode) at the JAX tests' tolerances; and
 the hybrid D3 engine meets ``grid_dftd3(stencil=...)`` at rtol 1e-9.
 """
 
-from types import SimpleNamespace
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -291,8 +289,9 @@ def test_stencil_wrapper_runs_plain_version_on_cpu(sweep_case):
     c = sweep_case
     st = c["st"]
     rcov_int = tst.scatter_to_stencil(st, torch.as_tensor(c["rcov"]))
-    ext, own = tst._planes(st, (tst.extend_stencil(st, rcov_int, 0.0),),
-                           (tst.own_flat_from_interior(st, rcov_int),))
+    ext_named = (tst.extend_stencil(st, rcov_int, 0.0),)
+    own_named = (tst.own_flat_from_interior(st, rcov_int),)
+    ext, own = tst._planes(st, ext_named, own_named)
     params = SweepParams(cutoff=c["cutoff"])
     before = dict(launch_counts)
     a = ss.stencil_sweep("cn", st.dims, st.radius, ext, own, params)
@@ -305,10 +304,15 @@ def test_stencil_wrapper_runs_plain_version_on_cpu(sweep_case):
     assert tst._resolve_engine(None, torch.device("cuda")) == "pallas"
     with pytest.raises(ValueError, match="unknown stencil engine"):
         tst._resolve_engine("mosaic", torch.device("cpu"))
-    # off the CPU the half-space sweep is refused, never run as plain torch
-    off_cpu = SimpleNamespace(ext_px=torch.empty(0, device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst._sweep(off_cpu, "cn", params, "xla", (), ())
+    # a named "xla" engine takes the half-space sweep on a CPU tensor (no
+    # kernel launch) and kernel 9 on a CUDA tensor
+    assert tst._resolve_engine("xla", torch.device("cuda")) == "pallas"
+    assert tst._resolve_engine("stack", torch.device("cuda")) == "stack"
+    own_acc, folded = tst.stencil_reduce_sym(st, "cn", params, ext_named,
+                                             own_named)
+    (cn_x,) = tst._sweep(st, "cn", params, "xla", ext_named, own_named)
+    assert launch_counts == before
+    assert torch.equal(cn_x, tst.own_interior(st, own_acc[0]) + folded[0])
     with pytest.raises(ValueError, match="expected 5 features"):
         ss.stencil_sweep("chain", st.dims, st.radius, ext, own, params)
     with pytest.raises(ValueError, match="unsupported device"):
