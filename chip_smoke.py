@@ -104,7 +104,24 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     launches on the 128 x 2,000 dense batch at 21.2 A (kernel 4), the 4 x
     16,000 grid branch (kernel 1) and the stencil's three sweeps on the
     110,592-atom crystal (kernel 9, the same bits).  The GTO and harmonic
-    functions in f32 on the card against f64 on the CPU.
+    functions in f32 on the card against f64 on the CPU;
+17. the multi-rank paths (``nvalchemiops_torch.parallel``,
+    ``run_parallel``) in two spawned runs (``PARALLEL_RUNS``): two ranks
+    sharing the card over gloo (the exchanged rows staged through host
+    memory) and one rank on NCCL.  On phase 4's 109,744-atom grid (slabs
+    of 8 cells at two ranks) each rank calls ``domain_dftd3_cn``,
+    ``domain_coulomb_energy_forces``, ``domain_dftd3`` (phase 4's tables),
+    ``domain_dftd3_coulomb`` and ``domain_pme_reciprocal`` (128^3, 2,048
+    tiles a rank at two ranks), and ``sharded_batch_pme_reciprocal`` on
+    phase 8's 64 x 2,000 batch: each f32 output within ``PARALLEL_RTOL``
+    of the single-device call's scale, the D3 energy within
+    ``PARALLEL_ENERGY_RTOL``; over gloo also the 1,024-atom composite in
+    f64 on the CPU against the single-process calls (``PARALLEL_F64_RTOL``).
+    Every rank must launch kernel 1's bodies, kernels 3 and 2 and kernels 5
+    and 6 where its calls need them and no other pair sweep; each rank's
+    stage times, ring traffic, transport and peak memory are printed.
+    Then the MLIP forward at ``entry()``'s shapes in f32 on the card
+    against f64 on the CPU (``MLIP_BARS``).
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
@@ -383,6 +400,26 @@ PARENT_DEVICE_MS = {
     "separable_gather 1 x 109744, mesh 128x128x128": 0.0300,
     "separable_gather 1 x 1024, mesh 32x32x32": 0.01138,
 }
+
+# phase 17: the multi-rank paths (nvalchemiops_torch.parallel) in two
+# spawned runs, (backend, ranks): two ranks sharing the card over gloo (the
+# exchanged rows staged through host memory) and one rank on NCCL (NCCL
+# takes one rank per card).  Each run's wall-clock deadline, s
+PARALLEL_RUNS = (("gloo", 2), ("nccl", 1))
+PARALLEL_DEADLINE_S = 420
+# f32 domain outputs against phase 4's single-device calls (the same kernel
+# bodies, summed in another order of atomics and folds): max |diff| of each
+# output's scale; the D3 total energy, relative; the f64 composite on the
+# CPU against the single-process calls, of scale
+PARALLEL_RTOL = KERNEL_RTOL
+PARALLEL_ENERGY_RTOL = 1e-6
+PARALLEL_F64_RTOL = 1e-10
+# the MLIP forward at entry()'s shapes (__graft_entry__.py: 4 x 256 atoms,
+# zmax 4, cutoff 2.9, 6 A boxes); f32 on the card against f64 on the CPU:
+# (energies, forces) max |diff| / scale, 1.25x the larger reading of two
+# sound runs (NVIDIA H100 80GB HBM3, 700 W: 3.023e-7 and 2.815e-6 both)
+MLIP = dict(b=4, n=256, zmax=4, cutoff=2.9, box=6.0)
+MLIP_BARS = (3.779e-7, 3.519e-6)
 
 KERNEL_SOURCES = {
     "window_sweep": ("nvalchemiops_torch/csrc/window_sweep.cu",
@@ -2695,6 +2732,355 @@ def run_xla_routes(dev, full):
               f"on the CPU, worst {worst}", errs[worst], bars["math_f32"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the multi-rank paths (nvalchemiops_torch.parallel)
+# ---------------------------------------------------------------------------
+
+
+def _scale_error(got, want):
+    """max |got - want| / max |want| (0 for two empty arrays)."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"shape {tuple(g.shape)} vs {tuple(w.shape)}")
+    if not torch.isfinite(g).all():
+        raise AssertionError("non-finite values")
+    return ((g - w).abs().max() / w.abs().max()).item() if w.numel() else 0.0
+
+
+def _parallel_calls(parallel, zmesh, bmesh, inp, dev):
+    """The phase's calls on this rank: ``{name: fn}`` on the card in f32,
+    every rank with the same replicated inputs."""
+    from nvalchemiops_torch.grid import build_atom_grid
+
+    pos = torch.as_tensor(inp["pos"], dtype=torch.float32, device=dev)
+    cell = torch.as_tensor(inp["cell"], dtype=torch.float32, device=dev)
+    q = torch.as_tensor(inp["q"], dtype=torch.float32, device=dev)
+    tables = inp["d3_tables"]             # numbers, rcov, r4r2, c6, cna
+    numbers, rcov = tables[:2]
+    g = build_atom_grid(pos, cell, np.array([True] * 3), *inp["geometry"])
+    rcov_a = torch.as_tensor(rcov, dtype=torch.float32, device=dev)[
+        torch.as_tensor(numbers, device=dev).long()]
+    cutoff, alpha = inp["cutoff"], inp["alpha"]
+    a1, a2, s8 = inp["d3_params"]
+    bpos, bq, bcell = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                       for a in inp["batch"])
+    return {
+        "cn": lambda: parallel.domain_dftd3_cn(zmesh, g, rcov_a, cell,
+                                               cutoff),
+        "coulomb": lambda: parallel.domain_coulomb_energy_forces(
+            zmesh, g, q, cell, cutoff, alpha),
+        "d3": lambda: parallel.domain_dftd3(zmesh, g, *tables, cutoff, a1,
+                                            a2, s8, cell),
+        "d3_coulomb": lambda: parallel.domain_dftd3_coulomb(
+            zmesh, g, numbers, q, *tables[1:], cutoff, a1, a2, s8, cell,
+            alpha=alpha),
+        "pme": lambda: parallel.domain_pme_reciprocal(
+            zmesh, pos, q, cell, alpha, FULL_MESH,
+            tile_capacity=inp["tile_cap"], compute_forces=True),
+        "batch_pme": lambda: parallel.sharded_batch_pme_reciprocal(
+            bmesh, bpos, bq, bcell, PME_BATCH["alpha"], PME_BATCH["mesh"],
+            compute_forces=True),
+    }
+
+
+#: the launch counts each call of phase 17 must show on every rank
+PARALLEL_LAUNCHES = {
+    "cn": ("window_sweep_cn",),
+    "coulomb": ("window_sweep_coulomb",),
+    "d3": ("window_sweep_cn", "window_sweep_d3_direct",
+           "window_sweep_chain"),
+    "d3_coulomb": ("window_sweep_cn", "window_sweep_d3_direct_coulomb",
+                   "window_sweep_chain"),
+    "pme": ("windowed_spread", "windowed_gather_grad"),
+    "batch_pme": ("separable_spread", "separable_gather"),
+}
+
+
+def _parallel_f64_composite(parallel, zmesh):
+    """The 1,024-atom composite in f64 on CPU tensors (the kernels as their
+    plain versions), on a grid of 6 cells a side (2 bins per cutoff, so
+    the z axis splits into slabs of 3 cells at D = 2): every domain call
+    and the tile-split PME; rank 0 also returns the single-process calls'
+    errors against them."""
+    from nvalchemiops_torch.grid import (
+        build_atom_grid, estimate_grid_geometry, grid_coulomb_energy_forces,
+    )
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
+        compact_d3_elements, grid_dftd3, grid_dftd3_coulomb,
+    )
+    from nvalchemiops_torch.interactions.electrostatics.pme import (
+        pme_reciprocal_space,
+    )
+    from nvalchemiops_torch import composite
+
+    f64 = torch.float64
+    pos_np, cell_np, numbers, charges, rcov, r4r2, cna, c6 = \
+        composite.build_system()
+    numbers, rcov, r4r2, c6, cna = compact_d3_elements(numbers, rcov, r4r2,
+                                                       c6, cna)
+    pos, cell, q = (torch.as_tensor(a, dtype=f64) for a in
+                    (pos_np, cell_np, charges))
+    pbc = np.array([True] * 3)
+    geo = estimate_grid_geometry(cell_np, pbc, composite.CUTOFF,
+                                 len(pos_np), bins_per_cutoff=2)
+    g = build_atom_grid(pos, cell, pbc, *geo)
+    cut, alpha = composite.CUTOFF, composite.ALPHA
+    d3 = (numbers, rcov, r4r2, c6, cna, cut, composite.D3_A1,
+          composite.D3_A2, composite.D3_S8)
+    rcov_a = torch.as_tensor(rcov, dtype=f64)[torch.as_tensor(numbers)
+                                              .long()]
+    dom = {
+        "cn": (parallel.domain_dftd3_cn(zmesh, g, rcov_a, cell, cut),),
+        "coulomb": parallel.domain_coulomb_energy_forces(zmesh, g, q, cell,
+                                                         cut, alpha),
+        "d3": parallel.domain_dftd3(zmesh, g, *d3, cell),
+        "d3_coulomb": parallel.domain_dftd3_coulomb(
+            zmesh, g, numbers, q, *d3[1:], cell, alpha=alpha),
+        "pme": parallel.domain_pme_reciprocal(
+            zmesh, pos, q, cell, alpha, composite.MESH,
+            compute_forces=True),
+    }
+    ed3, fd3, cnd3 = grid_dftd3(g, *d3)
+    fused = grid_dftd3_coulomb(g, numbers, q, *d3[1:], alpha=alpha,
+                               engine="window")
+    single = {
+        "cn": (cnd3,),
+        "coulomb": grid_coulomb_energy_forces(g, q, cut, alpha),
+        "d3": (ed3, fd3, cnd3),
+        "d3_coulomb": fused,
+        "pme": pme_reciprocal_space(pos, q, cell, alpha,
+                                    mesh_dimensions=composite.MESH,
+                                    compute_forces=True),
+    }
+    return geo, {k: max(_scale_error(a, b) for a, b in zip(dom[k],
+                                                           single[k]))
+                 for k in dom}
+
+
+def _parallel_rank(rank, world, in_path, out_path):
+    """Phase 17's rank body: drive the calls once with the launch counts
+    reset, check the outputs against phase 4's single-device calls (rank
+    0), time each call, and gather every rank's record to rank 0, which
+    writes them to ``out_path``."""
+    import torch.distributed as dist
+
+    from nvalchemiops_torch import parallel
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.parallel import _dist
+
+    inp = torch.load(in_path, weights_only=False)
+    dev = torch.device(inp["device"])
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zmesh = parallel.make_z_mesh()
+    bmesh = parallel.make_mesh(dp=world, sp=1)
+    calls = _parallel_calls(parallel, zmesh, bmesh, inp, dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in _dist.ring_stats:
+        _dist.ring_stats[k] = 0
+    outs, counts = {}, {}
+    for name, fn in calls.items():
+        reset_launch_counts()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in launch_counts.items() if v}
+    record = {
+        "rank": rank, "counts": counts, "ring": dict(_dist.ring_stats),
+        "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+        "transport": _dist.transport(zmesh.get_group("z"), dev),
+    }
+    record["ms"] = {name: cuda_time_ms(fn, reps=3)
+                    for name, fn in calls.items()}
+    if dist.get_backend() == "gloo":
+        record["f64_geometry"], f64 = _parallel_f64_composite(parallel,
+                                                              zmesh)
+        record["f64_errors"] = f64
+    records = [None] * world
+    dist.all_gather_object(records, record)
+    if rank != 0:
+        return
+    ref = torch.load(inp["ref_path"], weights_only=False)
+    pairs = {
+        "cn": [("cn", outs["cn"], ref["cn"])],
+        "coulomb": [("energies", outs["coulomb"][0], ref["e_c"]),
+                    ("forces", outs["coulomb"][1], ref["f_c"])],
+        "d3": [("forces", outs["d3"][1], ref["f_d3"]),
+               ("cn", outs["d3"][2], ref["cn"])],
+        "d3_coulomb": [("d3 forces", outs["d3_coulomb"][1], ref["f_d3"]),
+                       ("cn", outs["d3_coulomb"][2], ref["cn"]),
+                       ("coulomb energies", outs["d3_coulomb"][3],
+                        ref["e_c"]),
+                       ("coulomb forces", outs["d3_coulomb"][4],
+                        ref["f_c"])],
+        "pme": [("energies", outs["pme"][0], ref["e_p"]),
+                ("forces", outs["pme"][1], ref["f_p"])],
+        "batch_pme": [("energies", outs["batch_pme"][0], ref["e_b"]),
+                      ("forces", outs["batch_pme"][1], ref["f_b"])],
+    }
+    errors = {f"{k} {label}": _scale_error(a, b.to(dev))
+              for k, rows in pairs.items() for label, a, b in rows}
+    e_ref = ref["e_d3"].double().item()
+    energy = {k: abs(outs[k][0].double().item() - e_ref) / abs(e_ref)
+              for k in ("d3", "d3_coulomb")}
+    net = {k: check_forces(f"phase 17 {k}", f) for k, f in (
+        ("coulomb", outs["coulomb"][1]), ("d3", outs["d3"][1]),
+        ("pme", outs["pme"][1]), ("batch_pme", outs["batch_pme"][1]))}
+    with open(out_path, "w") as f:
+        json.dump({"records": records, "errors": errors, "energy": energy,
+                   "net": net}, f)
+
+
+def run_parallel(dev, full):
+    """Phase 17: the multi-rank paths on the card, in two spawned runs
+    (``PARALLEL_RUNS``), against phase 4's single-device calls; then the
+    MLIP forward in f32 on the card against f64 on the CPU."""
+    import tempfile
+
+    from nvalchemiops_torch.interactions.electrostatics.pme import (
+        batch_pme_reciprocal,
+    )
+    from nvalchemiops_torch.parallel._dist import spawn_ranks
+
+    bpos, bq, bcell = pme_batch_system(dev)
+    cfg = PME_BATCH
+    e_b, f_b = batch_pme_reciprocal(bpos, bq, bcell, cfg["alpha"],
+                                    cfg["mesh"], compute_forces=True)
+    batch_ms = cuda_time_ms(lambda: batch_pme_reciprocal(
+        bpos, bq, bcell, cfg["alpha"], cfg["mesh"], compute_forces=True),
+        reps=3)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p17_") as tmp:
+        in_path = os.path.join(tmp, "inputs.pt")
+        ref_path = os.path.join(tmp, "refs.pt")
+        torch.save({k: full[k].detach().cpu() for k in (
+            "e_d3", "f_d3", "cn", "e_c", "f_c", "e_p", "f_p")}
+            | {"e_b": e_b.cpu(), "f_b": f_b.cpu()}, ref_path)
+        torch.save({"pos": full["pos"].cpu().numpy(),
+                    "cell": full["cell"].cpu().numpy(),
+                    "q": full["q"].cpu().numpy(),
+                    "d3_tables": full["d3_args"][:5],
+                    "d3_params": full["d3_args"][6:],
+                    "cutoff": full["cutoff"], "alpha": full["alpha"],
+                    "geometry": full["geometry"],
+                    "tile_cap": full["tile_cap"],
+                    "batch": tuple(a.cpu().numpy()
+                                   for a in (bpos, bq, bcell)),
+                    "ref_path": ref_path, "device": str(dev)}, in_path)
+        for backend, world in PARALLEL_RUNS:
+            out_path = os.path.join(tmp, f"{backend}{world}.json")
+            t0 = time.perf_counter()
+            spawn_ranks(_parallel_rank, world, backend,
+                        args=(in_path, out_path),
+                        deadline_s=PARALLEL_DEADLINE_S, threads=0)
+            with open(out_path) as f:
+                res = json.load(f)
+            _report_parallel(f"{world} rank(s) over {backend}", res, full,
+                             batch_ms, time.perf_counter() - t0)
+    run_mlip(dev)
+
+
+def _report_parallel(label, res, full, batch_ms, wall_s):
+    """Print one run of phase 17 and hold it to its bars."""
+    for rec in res["records"]:
+        r = rec["rank"]
+        ring = rec["ring"]
+        per = ring["bytes"] / max(ring["exchanges"], 1)
+        phase(f"phase 17 {label}, rank {r}: transport {rec['transport']}, "
+              f"{ring['exchanges']} ring exchanges, {per / 2**20:.4f} MiB "
+              f"sent per exchange ({ring['bytes'] / 2**20:.3f} MiB in all), "
+              f"peak memory {rec['peak_mib']:.1f} MiB")
+        phase(f"phase 17 {label}, rank {r} ms (CUDA events, median of 3 "
+              "after a warm-up): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in rec["ms"].items()))
+        for name, want in PARALLEL_LAUNCHES.items():
+            got = rec["counts"][name]
+            missing = [k for k in want if not got.get(k)]
+            extra = [k for k in got if k not in want
+                     and k.startswith(SWEEP_COUNT_PREFIXES)]
+            if missing or extra:
+                raise AssertionError(
+                    f"phase 17 {label} rank {r} {name}: launches {got}; "
+                    f"missing {missing}, off the path {extra}")
+        if "f64_errors" in rec:
+            f64 = rec["f64_errors"]
+            phase(f"phase 17 {label}, rank {r}: f64 composite (grid "
+                  f"{rec['f64_geometry']}) domain vs single process, max "
+                  "|diff| / scale: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in f64.items()))
+            bad = {k: v for k, v in f64.items() if v > PARALLEL_F64_RTOL}
+            if bad:
+                raise AssertionError(f"phase 17 f64 composite: {bad}")
+    phase(f"phase 17 {label}: launches per rank " + json.dumps(
+        [rec["counts"] for rec in res["records"]]))
+    phase(f"phase 17 {label}: phase 4's single-device ms: d3 "
+          f"{full['steady']['d3']:.3f}, coulomb "
+          f"{full['steady']['coulomb']:.3f}, pme "
+          f"{full['steady']['pme']:.3f}; unsharded batch PME "
+          f"{batch_ms:.3f}; the run's wall {wall_s:.1f} s")
+    phase(f"phase 17 {label} vs single device, max |diff| / scale (bar "
+          f"{PARALLEL_RTOL:g}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in res["errors"].items()))
+    phase(f"phase 17 {label} D3 total energy rel. diff (bar "
+          f"{PARALLEL_ENERGY_RTOL:g}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in res["energy"].items())
+          + "; net force / sum|F|: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in res["net"].items()))
+    bad = {k: v for k, v in res["errors"].items() if v > PARALLEL_RTOL}
+    bad.update({k: v for k, v in res["energy"].items()
+                if v > PARALLEL_ENERGY_RTOL})
+    if bad:
+        raise AssertionError(f"phase 17 {label} above its bars: {bad}")
+
+
+def mlip_batch(b, n, zmax, box, seed=0):
+    """``__graft_entry__._make_batch``'s inputs (numpy ``default_rng(0)``,
+    6 A boxes): positions, element ids and cells."""
+    rng = np.random.default_rng(seed)
+    positions = rng.uniform(0, box, (b, n, 3))
+    numbers = rng.integers(1, zmax + 1, (b, n))
+    return positions, numbers, np.tile(np.eye(3) * box, (b, 1, 1))
+
+
+def run_mlip(dev):
+    """The MLIP forward at ``entry()``'s shapes: f32 on the card against
+    f64 on the CPU (``MLIP_BARS``), with ~zero net force per system."""
+    from nvalchemiops_torch import parallel
+
+    cfg = MLIP
+    pos, numbers, cells = mlip_batch(cfg["b"], cfg["n"], cfg["zmax"],
+                                     cfg["box"])
+    outs = {}
+    for dtype, where in ((torch.float32, dev), (torch.float64, "cpu")):
+        params = parallel.init_mlip_params(cfg["zmax"], dtype, device=where)
+        tables = parallel.default_d3_tables(cfg["zmax"], dtype=dtype,
+                                            device=where)
+        args = (params, tables,
+                torch.as_tensor(pos, dtype=dtype, device=where),
+                torch.as_tensor(numbers, device=where),
+                torch.as_tensor(cells, dtype=dtype, device=where),
+                cfg["cutoff"])
+        outs[where] = parallel.batched_energy_forces(*args)
+        if where == dev:
+            ms = cuda_time_ms(lambda: parallel.batched_energy_forces(*args),
+                              reps=3)
+    e32, f32 = outs[dev]
+    e64, f64 = outs["cpu"]
+    e_err = _scale_error(e32, e64)
+    f_err = _scale_error(f32, f64)
+    net = check_forces("MLIP f32", f32)
+    phase(f"MLIP {cfg['b']} x {cfg['n']} (zmax {cfg['zmax']}, "
+          f"{cfg['cutoff']} A) f32 on the card vs f64 on the CPU: energies "
+          f"{e_err:.3e} (bar {MLIP_BARS[0]:.3e}), forces max |diff| / scale "
+          f"{f_err:.3e} (bar {MLIP_BARS[1]:.3e}); net force / sum|F| "
+          f"{net:.2e}; {ms:.3f} ms (CUDA events, median of 3)")
+    if e_err > MLIP_BARS[0] or f_err > MLIP_BARS[1]:
+        raise AssertionError("MLIP f32 above its bars")
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -2952,6 +3338,15 @@ def main():
         "grid": lambda: build_atom_grid(pos, cell, pbc, dims, radius, gcap,
                                         origin=origin),
         "virial64": virial64})
+
+    # -- phase 17: the multi-rank paths and the MLIP forward ---------------
+    run_parallel(dev, {
+        "pos": pos, "cell": cell, "q": q, "alpha": alpha, "cutoff": cutoff,
+        "d3_args": (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
+                    composite.D3_A2, composite.D3_S8),
+        "geometry": (dims, radius, gcap, origin), "tile_cap": tile_cap,
+        "steady": steady, "e_d3": e_d3, "f_d3": f_d3, "cn": cn, "e_c": e_c,
+        "f_c": f_c, "e_p": e_p, "f_p": f_p})
 
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),

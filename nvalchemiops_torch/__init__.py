@@ -9,9 +9,10 @@ under ``csrc/``, built with ``nvcc`` at their first launch (never at
 import) and bound with ``ctypes`` (``kernels/``).  On CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 
-The package namespace holds the JAX package's subpackages except
-``parallel`` (the multi-device paths, not ported yet).  Importing them
-builds and loads no kernel.
+The package namespace holds every subpackage of the JAX package;
+``parallel`` runs its multi-device paths on ``torch.distributed`` (one
+process per rank) and lacks the JAX package's training step.  Importing
+them builds and loads no kernel.
 
 This package imports ``torch`` and never ``jax``.
 """
@@ -23,6 +24,7 @@ from nvalchemiops_torch import (  # noqa: E402
     interactions,
     mathops,
     neighborlist,
+    parallel,
     spline,
     spline_windowed,
 )
@@ -33,6 +35,7 @@ __all__ = [
     "interactions",
     "mathops",
     "neighborlist",
+    "parallel",
     "spline",
     "spline_windowed",
 ]

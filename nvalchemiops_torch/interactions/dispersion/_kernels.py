@@ -69,8 +69,10 @@ def _c6_interpolate(cn_i, cn_j, c6ab_mat, cnref_i_mat, cnref_j_mat, k3):
     has_ref = max_exp > 0.1 * _NEG_BIG
     zero = torch.zeros((), dtype=arg.dtype, device=arg.device)
     max_exp = torch.where(has_ref, max_exp, zero)
-    l_pq = arg.sub_(max_exp[..., None, None]).exp_().masked_fill_(~ref_ok,
-                                                                 0.0)
+    # masked to -inf before the exp (exp gives 0 there): the in-place ops
+    # stay differentiable, as exp_ saves its output and nothing writes it
+    l_pq = arg.sub_(max_exp[..., None, None]).masked_fill_(
+        ~ref_ok, -float("inf")).exp_()
     zl = c6ab_mat * l_pq
     w = l_pq.sum(dim=(-2, -1))
     z = zl.sum(dim=(-2, -1))

@@ -18,6 +18,7 @@ import torch
 from nvalchemiops_torch.grid import AtomGrid
 from nvalchemiops_torch.neighborlist.batch_cell_list import BatchCellList
 from nvalchemiops_torch.neighborlist.cell_list import CellList
+from nvalchemiops_torch.parallel.mlip import D3Tables, MLIPParams
 from nvalchemiops_torch.spline_windowed import MeshTiles
 from nvalchemiops_torch.stencil import StencilGrid
 from nvalchemiops_torch.types import INDEX_DTYPE
@@ -26,7 +27,8 @@ __all__ = ["ATOM_GRID_FIELDS", "MESH_TILES_FIELDS", "STENCIL_GRID_FIELDS",
            "atom_grid_from_numpy", "batch_atom_grid_from_numpy",
            "stencil_grid_from_numpy", "mesh_tiles_from_numpy",
            "d3_tables_from_numpy", "cell_list_from_numpy",
-           "batch_cell_list_from_numpy"]
+           "batch_cell_list_from_numpy", "mlip_params_from_numpy",
+           "mlip_tables_from_numpy"]
 
 #: array fields of an AtomGrid (both packages use these names)
 ATOM_GRID_FIELDS = ("ext_px", "ext_py", "ext_pz", "ext_valid", "ext_aid",
@@ -134,6 +136,24 @@ def d3_tables_from_numpy(rcov, r4r2, c6ab, cn_ref_elem, dtype=torch.float64,
 
     return {"rcov": t(rcov), "r4r2": t(r4r2), "c6ab": t(c6ab),
             "cn_ref_elem": t(cn_ref_elem)}
+
+
+def mlip_params_from_numpy(fields: Mapping[str, np.ndarray],
+                           dtype=torch.float64,
+                           device="cuda") -> MLIPParams:
+    """``parallel.MLIPParams`` from the JAX ``MLIPParams`` fields (numpy,
+    keyed by the field names both packages use), as ``dtype`` on
+    ``device``."""
+    return MLIPParams(**{f: torch.from_numpy(np.array(fields[f])).to(
+        device=device, dtype=dtype) for f in MLIPParams._fields})
+
+
+def mlip_tables_from_numpy(fields: Mapping[str, np.ndarray],
+                           dtype=torch.float64, device="cuda") -> D3Tables:
+    """``parallel.mlip.D3Tables`` from the JAX ``D3Tables`` fields (numpy),
+    as ``dtype`` on ``device``."""
+    return D3Tables(**{f: torch.from_numpy(np.array(fields[f])).to(
+        device=device, dtype=dtype) for f in D3Tables._fields})
 
 
 

@@ -314,12 +314,24 @@ def windowed_spread(tiles: MeshTiles, values, engine: str = "xla"):
     if engine not in ("xla", "pallas"):
         raise ValueError(f"windowed_spread engine must be 'xla' or 'pallas', "
                          f"got {engine!r}")
-    nx, ny, nz = tiles.mesh_dims
-    tile, cap, w_win = tiles.tile, tiles.cap, tiles.w_win
-    ntx, nty, ntz = nx // tile, ny // tile, nz // tile
+    windows = spread_windows(tiles.smat, _slot_values(tiles, values),
+                             tiles.w_win)
+    return _fold_windows(tiles, windows)
+
+
+def _slot_values(tiles: MeshTiles, values):
+    """Per-atom ``values [N]`` in slot layout ``[ntiles, cap]`` (empty slots
+    0)."""
     padded = torch.cat([values, values.new_zeros((1,))])
-    q_t = padded[tiles.aid.long()].reshape(ntx * nty * ntz, cap)
-    windows = spread_windows(tiles.smat, q_t, w_win)
+    return padded[tiles.aid.long()].reshape(tiles.smat.shape[0], tiles.cap)
+
+
+def _fold_windows(tiles: MeshTiles, windows):
+    """Per-tile spread windows ``[ntiles, W, W*W]`` folded onto the mesh
+    ``[nx, ny, nz]`` (the parity fold, z -> y -> x)."""
+    nx, ny, nz = tiles.mesh_dims
+    tile, w_win = tiles.tile, tiles.w_win
+    ntx, nty, ntz = nx // tile, ny // tile, nz // tile
     a = windows.reshape(ntx, nty, ntz, w_win, w_win * w_win)
     a = _fold_axis(a, 2, nz, tile)                       # [tx, ty, nz, W*W]
     a = torch.transpose(a, 2, 3)                         # [tx, ty, W*W, nz]

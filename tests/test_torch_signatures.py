@@ -116,6 +116,33 @@ def test_walk_covers_the_jax_grid_and_mathops_lists():
         assert set(importlib.import_module(mod).__all__) == walked[mod], sub
 
 
+def test_walk_covers_the_parallel_list():
+    """Every function of the port's ``parallel.__all__`` is walked against
+    its JAX namesake (so its JAX parameters, in order and with their
+    defaults, lead the port's), each sharded entry point taking the mesh
+    first; the classes carry the JAX fields."""
+    import nvalchemiops_tpu.parallel as jpar
+
+    tpar = nvalchemiops_torch.parallel
+    walked = {name for mod, name, _, _ in _namesakes()
+              if mod.startswith("nvalchemiops_torch.parallel")}
+    funcs = {n for n in tpar.__all__ if inspect.isfunction(getattr(tpar, n))}
+    assert funcs == walked
+    assert funcs == set(tpar.__all__) - {"MLIPParams"}
+    for n in funcs:
+        if n.startswith(("domain_", "sharded_")):
+            assert list(inspect.signature(getattr(tpar, n)).parameters)[0] \
+                == "mesh", n
+    for n in ("MLIPParams", "D3Tables"):
+        assert getattr(tpar, n)._fields == getattr(jpar, n)._fields
+    # default_d3_tables is public but outside __all__ in both packages
+    port = inspect.signature(tpar.default_d3_tables).parameters
+    ref = inspect.signature(jpar.default_d3_tables).parameters
+    assert list(port)[:len(ref)] == list(ref)
+    for pname, par in ref.items():
+        assert _same_default(port[pname].default, par.default), pname
+
+
 def _dtype_name(x):
     """The name of a torch, numpy or JAX dtype (or dtype type), else
     None."""
