@@ -121,7 +121,20 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     and 6 where its calls need them and no other pair sweep; each rank's
     stage times, ring traffic, transport and peak memory are printed.
     Then the MLIP forward at ``entry()``'s shapes in f32 on the card
-    against f64 on the CPU (``MLIP_BARS``).
+    against f64 on the CPU (``MLIP_BARS``);
+18. the MLIP training step, the entry points and kernel 1 batched:
+    ``train_step`` at ``TRAIN``'s 4 x 256 and 4 x 1,024 atoms, f32 on the
+    card against f64 on the CPU (``TRAIN_BARS``; ms, peak memory);
+    ``sharded_train_step`` on two ranks sharing the card over gloo at
+    (dp, sp) = (1, 2) and (2, 1) and on one NCCL rank, every rank against
+    the single-process step; ``entry()``'s forward and
+    ``dryrun_multichip(1)`` on NCCL (``run_training``, after phase 17).
+    ``batch_grid_dftd3`` on the 4 x 16,000 grid branch and on 128 x 2,000
+    at 9 A (``run_batch_window``, run before phase 17): three kernel-1
+    launches a call and no per-system one, the outputs against the
+    per-system loop (``BATCH_WINDOW_FORCE_BARS``) and both against the
+    f64 plain path, each batched launch replayed against its plain
+    version, the batched call and the loop timed and profiled.
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
@@ -421,9 +434,41 @@ PARALLEL_F64_RTOL = 1e-10
 MLIP = dict(b=4, n=256, zmax=4, cutoff=2.9, box=6.0)
 MLIP_BARS = (3.779e-7, 3.519e-6)
 
+# phase 18: the MLIP training step at entry()'s 4 x 256 atoms (6 A boxes)
+# and at 4 x 1,024 in 9.52 A boxes (entry's density; 2.9 A < half the
+# box), f32 on the card against f64 on the CPU: (loss, relative; new
+# parameters, max |diff| of each field's scale).  The sharded step on the
+# (dp, sp) meshes of two ranks sharing the card over gloo and on one NCCL
+# rank, against the single-process f32 step on the card: the same bars
+TRAIN = dict(shapes=((4, 256, 6.0), (4, 1024, 9.52)), zmax=4, cutoff=2.9)
+TRAIN_BARS = (1e-5, 1e-6)
+SHARDED_RUNS = (("gloo", 2, ((1, 2), (2, 1))), ("nccl", 1, ((1, 1),)))
+SHARDED_DEADLINE_S = 300
+# kernel 1's batched launch under batch_grid_dftd3: the grid branch of
+# phase 7 (4 x 16,000, 54 A, 9 A) and phase 6's 128 x 2,000 batch in 27 A
+# boxes at 9 A, against the per-system loop of kernel-1 launches.  Energies
+# and CNs: max |diff| / scale within KERNEL_RTOL.  Forces differ by the
+# order of the j-side atomics, amplified through the CN chain (f32 on the
+# card against the f64 plain path reads ~2e-5 of scale at 9 A, phase 6):
+# max |diff| / scale within 2x the larger reading of sound runs (NVIDIA
+# H100 80GB HBM3, 700 W: grid branch 6.637e-6, 6.860e-6, 5.770e-6;
+# 128 x 2,000 2.129e-5).  Against the f64 plain path on the first 4
+# systems the batched forces are within 1.25x the loop's own f32 error
+# (max rel, RMS rel), and both RMS errors within 1.25x the JAX package's
+# f32 D3 RMS bar (JAX_F32_BARS); the max rel has no absolute bar (the grid
+# branch read 1.422e-3 for both paths, above the composite's D3 bar; the
+# script prints the worst atom and its pairs at D3's hard cutoff)
+BATCH_WINDOW_RTOL = KERNEL_RTOL
+BATCH_WINDOW_FORCE_BARS = {"grid branch": 1.372e-5, "128 x 2000": 4.258e-5}
+BATCH_WINDOW_WITNESS = 4
+
 KERNEL_SOURCES = {
     "window_sweep": ("nvalchemiops_torch/csrc/window_sweep.cu",
                      "nvalchemiops_tpu/pallas/window_sweep.py:165"),
+    # kernel 1 over every system of a batch grid in one launch (the JAX
+    # package vmaps the same pallas_call over the batch)
+    "window_sweep_batch": ("nvalchemiops_torch/csrc/window_sweep.cu",
+                           "nvalchemiops_tpu/pallas/window_sweep.py:165"),
     "windowed_spread": ("nvalchemiops_torch/csrc/windowed_gather.cu",
                         "nvalchemiops_tpu/pallas/windowed_gather.py:134"),
     "windowed_gather_grad": ("nvalchemiops_torch/csrc/windowed_gather.cu",
@@ -441,8 +486,13 @@ KERNEL_SOURCES = {
     "stencil_sweep": ("nvalchemiops_torch/csrc/stencil_sweep.cu",
                       "nvalchemiops_tpu/pallas/stencil_sweep.py:46"),
 }
-# the half-space pair sweeps over the halo grid (kernels 1, 7, 8)
-GRID_SWEEPS = ("window_sweep", "row_sweep", "chunk_sweep")
+# the half-space pair sweeps over the halo grid (kernels 1, 7, 8; kernel 1
+# also batched)
+GRID_SWEEPS = ("window_sweep", "window_sweep_batch", "row_sweep",
+               "chunk_sweep")
+# kernel 1's batched launches, one a D3 pass
+BATCH_KEYS = ["window_sweep_batch_cn", "window_sweep_batch_d3_direct",
+              "window_sweep_batch_chain"]
 # launch-count prefixes of every pair-sweep kernel: a drive of phases 10-12
 # forbids each one off its path
 SWEEP_COUNT_PREFIXES = ("window_sweep_", "row_sweep_", "chunk_sweep_",
@@ -477,43 +527,53 @@ def cuda_time_ms(fn, reps=5):
 
 
 #: profiler runs of :func:`device_time_ms` that recorded fewer kernel
-#: launches than calls, and were taken again: (busy us, launches, reps)
+#: launches than calls, and were taken again: (busy us, launches, reps,
+#: margin s)
 LOST_PROFILES = []
+#: the margins (s) of host time that a retry of :func:`device_time_ms`
+#: leaves inside the profiler's window before the first call and after the
+#: last: 0 on the first run
+PROFILE_MARGINS_S = (0.0, 0.01, 0.05, 0.25, 1.0)
 
 
-def device_time_ms(fn, reps=5, tries=5):
+def device_time_ms(fn, reps=5):
     """Device time of one call of ``fn``: the CUDA kernels (memsets
     included) that one torch.profiler run of ``reps`` calls records, summed,
     over ``reps``.  Unlike :func:`cuda_time_ms` it leaves out the time the
     card waits for the host between launches.
 
     Every call of ``fn`` launches at least one kernel, so a run that
-    records fewer launches than calls has lost device events (one run of
-    a probe did, with none at all; PERF.md section 7): it is noted in
-    ``LOST_PROFILES`` and taken again after a pause of a second, up to
-    ``tries`` runs, and then this raises.  It never returns None."""
+    records fewer launches than calls has lost device events (some runs
+    lose the last calls' events, some every one; PERF.md section 7).  Such a run is noted in ``LOST_PROFILES`` and taken
+    again with a wider margin of idle host time on both sides of the calls
+    inside the profiler's window (``PROFILE_MARGINS_S``): a device clock
+    that drifts from the host's would put the events outside a tight
+    window.  When every margin loses events this raises: it never returns
+    None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for margin in PROFILE_MARGINS_S:
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            time.sleep(margin)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(margin)
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kern)
         launches = sum(e.count for e in kern)
         if busy > 0 and launches >= reps:
             return busy / 1e3 / reps
-        LOST_PROFILES.append((busy, launches, reps))
-        time.sleep(1.0)
+        LOST_PROFILES.append((busy, launches, reps, margin))
+    tries = len(PROFILE_MARGINS_S)
     raise RuntimeError(f"device_time_ms: {tries} profiler runs of {reps} "
-                       f"calls lost their device events: "
-                       f"{LOST_PROFILES[-tries:]}")
+                       f"calls lost device events: {LOST_PROFILES[-tries:]}")
 
 
 class Capture:
@@ -549,6 +609,8 @@ def install_capture():
     for mod in (grid, grid_d3):
         cap.wrap(mod, "window_sweep", lambda body, *a: f"window_sweep[{body}]")
         cap.wrap(mod, "chunk_sweep", lambda body, *a: f"chunk_sweep[{body}]")
+    cap.wrap(grid_d3, "window_sweep_batch",
+             lambda body, *a: f"window_sweep_batch[{body}]")
     cap.wrap(grid_d3, "row_sweep", lambda body, *a: f"row_sweep[{body}]")
     cap.wrap(stencil, "stencil_sweep",
              lambda body, *a: f"stencil_sweep[{body}]")
@@ -591,13 +653,18 @@ def work(key, args, kwargs, out, ctx):
         # the spread reads Sx | Sy | Sz; the derivative columns feed the gather
         smat, q_t, w = args
         reads = [smat[..., :3 * w], q_t]
+    batched = base == "window_sweep_batch"
     if base in GRID_SWEEPS:
         # the half-space windows never reach the low z halo, nor the low y
         # halo of the first interior plane; j_out is written where read
+        # (a batched call's planes carry the system axis first)
         rz, ry = args[1][0], args[1][1]
         cand, j_out, cf = args[3], outs[1], kwargs.get("cf")
+        lead = (slice(None),) * (2 if batched else 1)
+        hi = lead + (slice(rz + 1, None),)
+        row = lead + (rz, slice(ry, None))
         reads = [a for a in reads if a is not cand and a is not cf] + [
-            cand[:, rz + 1:], cand[:, rz, ry:]]
+            cand[hi], cand[row]]
         if cf is not None:
             # the zm-wide rows cf [.., cap, 2 zm] are [z_j == z] e_j, mostly
             # zeros: the function needs kernel 1's candidate features z,
@@ -605,7 +672,7 @@ def work(key, args, kwargs, out, ctx):
             # traffic of the wide form shows as distance from the bound
             nk = 1 + 2 * ctx["mesh"]
             reads += [cf[rz + 1:, ..., :nk], cf[rz, ry:, ..., :nk]]
-        outs = (outs[0], j_out[:, rz + 1:], j_out[:, rz, ry:])
+        outs = (outs[0], j_out[hi], j_out[row])
     nbytes = _nbytes(*reads, *outs)
     if base in GRID_SWEEPS or base == "stencil_sweep":
         # every pair inside the cutoff once (the full-space stencil visits
@@ -613,7 +680,8 @@ def work(key, args, kwargs, out, ctx):
         # three C6 dots have the mesh length on every engine (the zm-wide
         # dots of kernels 7 and 8 add zeros)
         body = key[len(base) + 1:-1]
-        pairs = pairs_in_cutoff(1, ctx["n"], ctx["volume"], ctx["cutoff"])
+        pairs = pairs_in_cutoff(ctx["systems"] if batched else 1, ctx["n"],
+                                ctx["volume"], ctx["cutoff"])
         extra = 6 * ctx["mesh"] if body.startswith("d3_direct") else 0
         return nbytes, pairs * (DIST_FLOPS + PAIR_FLOPS[body] + extra)
     if base == "dense_pairs":
@@ -731,6 +799,8 @@ def compare_kernels(calls, label, ctx=None):
 
     pairs = {
         "window_sweep": (ws.window_sweep, ws.window_sweep_plain),
+        "window_sweep_batch": (ws.window_sweep_batch,
+                               ws.window_sweep_batch_plain),
         "windowed_spread": (wg.spread_windows, wg.spread_windows_plain),
         "windowed_gather_grad": (wg.gather_grad_planes,
                                  wg.gather_grad_planes_plain),
@@ -756,6 +826,10 @@ def compare_kernels(calls, label, ctx=None):
         split = base in GRID_SWEEPS + ("dense_pairs", "stencil_sweep")
         out_k = out_k if isinstance(out_k, tuple) else (out_k,)
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        if base == "window_sweep_batch":
+            # [B, F, ..] -> [F, B, ..]: each plane over every system
+            out_k = tuple(t.transpose(0, 1) for t in out_k)
+            out_p = tuple(t.transpose(0, 1) for t in out_p)
         max_abs, worst_rel = 0.0, 0.0
         for tk, tp in zip(out_k, out_p):
             for a, b in zip(tk if split else [tk], tp if split else [tp]):
@@ -776,8 +850,10 @@ def compare_kernels(calls, label, ctx=None):
                f"(rel {worst_rel:.2e}) kernel {ms:.4f} ms plain "
                f"{plain_ms:.4f} ms")
         if ctx is not None:
-            nbytes, flops = work(key, args, kwargs, out_k if len(out_k) > 1
-                                 else out_k[0], ctx)
+            nbytes, flops = work(key, args, kwargs, tuple(
+                t.transpose(0, 1) for t in out_k) if base ==
+                "window_sweep_batch" else out_k if len(out_k) > 1
+                else out_k[0], ctx)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FP32_PER_S * 1e3
             lib = library_call(key, args)
@@ -1027,7 +1103,7 @@ def run_batched_d3(dev):
     pbc = np.array([True] * 3)
     dense_keys = ["dense_pairs_cn", "dense_pairs_direct", "dense_pairs_chain"]
     grid_keys = ["window_sweep_cn", "window_sweep_d3_direct",
-                 "window_sweep_chain"]
+                 "window_sweep_chain", *BATCH_KEYS]
     d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
 
     def f64_witness(p, cell_, cut_):
@@ -1123,7 +1199,8 @@ def run_batched_d3(dev):
                f"{g['cutoff']} A (dims {dims}, cap {gcap}, observed "
                f"occupancy {occ})")
     capture_g = install_capture()
-    (e_g, f_g, _), _ = drive(label_g, run_g, grid_keys, forbid=dense_keys)
+    (e_g, f_g, _), _ = drive(label_g, run_g, BATCH_KEYS,
+                             forbid=dense_keys + grid_keys[:3])
     capture_g.restore()
     compare_kernels(capture_g.calls, f"batched D3 grid branch cap {gcap}")
     del capture_g
@@ -3081,6 +3158,312 @@ def run_mlip(dev):
         raise AssertionError("MLIP f32 above its bars")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the MLIP training step, the entry points, kernel 1 batched
+# ---------------------------------------------------------------------------
+
+
+def _mlip_weights(dtype, dev):
+    from nvalchemiops_torch import parallel
+
+    return (parallel.init_mlip_params(TRAIN["zmax"], dtype, device=dev),
+            parallel.default_d3_tables(TRAIN["zmax"], dtype=dtype,
+                                       device=dev))
+
+
+def _step_errors(new, loss, ref_new, ref_loss):
+    """(loss, relative; new parameters, the largest field error of scale)
+    of a step against a reference step."""
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    par_err = max(_scale_error(torch.as_tensor(getattr(new, f)),
+                               torch.as_tensor(getattr(ref_new, f)))
+                  for f in ref_new._fields)
+    return loss_err, par_err
+
+
+def _train_rank(rank, world, in_path, out_path):
+    """Phase 18's rank body: ``sharded_train_step`` on each ``(dp, sp)``
+    mesh of this world on entry()'s batch in f32 on cuda:0, timed; rank 0
+    writes every rank's new parameters, loss and ms."""
+    import torch.distributed as dist
+
+    from nvalchemiops_torch import entry, parallel
+
+    inp = torch.load(in_path, weights_only=False)
+    dev = torch.device(inp["device"])
+    torch.cuda.set_device(dev)
+    params, tables = _mlip_weights(torch.float32, dev)
+    b, n, box = TRAIN["shapes"][0]
+    batch = entry.make_batch(b, n, TRAIN["zmax"], torch.float32, dev, box)
+    record = {}
+    for dp, sp in inp["meshes"]:
+        mesh = parallel.make_mesh(dp=dp, sp=sp)
+        local = parallel.shard_batch(mesh, batch)
+        step = parallel.sharded_train_step(mesh, TRAIN["cutoff"])
+        new, loss = step(params, tables, local)
+        torch.cuda.synchronize()
+        record[f"{dp}x{sp}"] = {
+            "loss": loss.item(),
+            "new": {f: getattr(new, f).cpu().tolist() for f in new._fields},
+            "ms": cuda_time_ms(lambda: step(params, tables, local), reps=3),
+            "transport": parallel._dist.transport(mesh.get_group("sp"),
+                                                  dev)}
+    records = [None] * world
+    dist.all_gather_object(records, record)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(records, f)
+
+
+def run_training(dev):
+    """Phase 18, the training half: ``train_step`` at both ``TRAIN``
+    shapes (f32 on the card against f64 on the CPU, CUDA-event ms, peak
+    memory), the sharded step in spawned ranks against the card's
+    single-process step, entry()'s forward and ``dryrun_multichip(1)`` on
+    NCCL."""
+    import tempfile
+
+    from nvalchemiops_torch import entry, parallel
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.parallel._dist import spawn_ranks
+
+    single = None
+    for b, n, box in TRAIN["shapes"]:
+        out = {}
+        for dtype, where in ((torch.float32, dev), (torch.float64, "cpu")):
+            params, tables = _mlip_weights(dtype, where)
+            batch = entry.make_batch(b, n, TRAIN["zmax"], dtype, where, box)
+            if where == dev:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launch_counts()
+            out[where] = parallel.train_step(params, tables, batch,
+                                             TRAIN["cutoff"])
+            if where == dev:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev)
+                launched = {k: v for k, v in launch_counts.items() if v}
+                ms = cuda_time_ms(lambda: parallel.train_step(
+                    params, tables, batch, TRAIN["cutoff"]), reps=3)
+                fwd_ms = cuda_time_ms(lambda: parallel.batched_energy_forces(
+                    params, tables, *batch[:3], TRAIN["cutoff"]), reps=3)
+        (new32, loss32), (new64, loss64) = out[dev], out["cpu"]
+        if not (torch.isfinite(loss32) and all(
+                torch.isfinite(p).all() for p in new32)):
+            raise AssertionError(f"train_step {b} x {n}: non-finite")
+        loss_err, par_err = _step_errors(new32, loss32, new64, loss64)
+        phase(f"train_step {b} x {n} ({box} A boxes, {TRAIN['cutoff']} A) "
+              f"f32 on the card vs f64 on the CPU: loss {loss32.item():.6e} "
+              f"rel {loss_err:.3e} (bar {TRAIN_BARS[0]:g}), new parameters "
+              f"max |diff| / scale {par_err:.3e} (bar {TRAIN_BARS[1]:g}); "
+              f"{ms:.3f} ms a step, forward {fwd_ms:.3f} ms (CUDA events, "
+              f"median of 3), peak memory {peak / 2**20:.1f} MiB, kernel "
+              f"launches {launched}")
+        if loss_err > TRAIN_BARS[0] or par_err > TRAIN_BARS[1]:
+            raise AssertionError(f"train_step {b} x {n} above its bars")
+        if single is None:
+            single = (new32, loss32, ms)
+        del out
+        torch.cuda.empty_cache()
+
+    new1, loss1, ms1 = single
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p18_") as tmp:
+        for backend, world, meshes in SHARDED_RUNS:
+            in_path = os.path.join(tmp, f"{backend}.pt")
+            out_path = os.path.join(tmp, f"{backend}.json")
+            torch.save({"meshes": meshes, "device": str(dev)}, in_path)
+            t0 = time.perf_counter()
+            spawn_ranks(_train_rank, world, backend, args=(in_path, out_path),
+                        deadline_s=SHARDED_DEADLINE_S, threads=0)
+            wall = time.perf_counter() - t0
+            with open(out_path) as f:
+                records = json.load(f)
+            bad = {}
+            for r, rec in enumerate(records):
+                for mesh, res in rec.items():
+                    new = parallel.MLIPParams(**{
+                        k: torch.tensor(v) for k, v in res["new"].items()})
+                    errs = _step_errors(new, res["loss"], new1, loss1)
+                    phase(f"sharded_train_step {world} rank(s) over "
+                          f"{backend} ({res['transport']}), mesh dp x sp "
+                          f"{mesh}, rank {r}: vs the single-process f32 "
+                          f"step, loss rel {errs[0]:.3e}, new parameters "
+                          f"{errs[1]:.3e} (bars {TRAIN_BARS[0]:g}, "
+                          f"{TRAIN_BARS[1]:g}); {res['ms']:.3f} ms a step "
+                          f"against {ms1:.3f} single-process (CUDA events, "
+                          f"median of 3)")
+                    if errs[0] > TRAIN_BARS[0] or errs[1] > TRAIN_BARS[1]:
+                        bad[f"{backend} {mesh} rank {r}"] = errs
+            phase(f"sharded_train_step over {backend}: the run's wall "
+                  f"{wall:.1f} s")
+            if bad:
+                raise AssertionError(f"sharded_train_step above its bars: "
+                                     f"{bad}")
+
+    forward, args = entry.entry()
+    e, f = forward(*args)
+    torch.cuda.synchronize()
+    check_forces("entry() forward", f)
+    if not torch.isfinite(e).all() or e.shape != (4,):
+        raise AssertionError("entry() forward: bad energies")
+    ms = cuda_time_ms(lambda: forward(*args), reps=3)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    phase(f"entry(): forward {tuple(e.shape)} energies, forces "
+          f"{tuple(f.shape)} on {e.device}, {ms:.3f} ms (CUDA events, median "
+          f"of 3); dryrun_multichip(1) on NCCL (sharded step, domain "
+          f"Coulomb and D3, tile-split and batch-split PME, all finite) in "
+          f"{time.perf_counter() - t0:.1f} s wall")
+
+
+def batch_window_loop(pos, numbers, cell, pbc, cutoff, tables, d3_params,
+                      cap=None):
+    """The per-system loop that ``batch_grid_dftd3`` ran before its batched
+    launch: ``grid_dftd3`` (window engine) on each system's part of the
+    same batch grid, three kernel-1 launches a system."""
+    from nvalchemiops_torch.grid import (
+        batch_build_atom_grid, estimate_grid_geometry, system_grid,
+    )
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import grid_dftd3
+
+    cells = cell.cpu().numpy()
+    dims, radius, cap_est = estimate_grid_geometry(
+        cells if cells.ndim == 2 else cells[0], pbc, cutoff, pos.shape[1])
+    g = batch_build_atom_grid(pos, cell, pbc, dims, radius,
+                              cap_est if cap is None else cap)
+    outs = [grid_dftd3(system_grid(g, i), numbers[i], *tables, cutoff,
+                       *d3_params, engine="window")
+            for i in range(pos.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def cutoff_straddles(forces, ref, pos, box, cut, rel=1e-5):
+    """Where the f32 forces differ most from the f64 ones: the atom, and
+    its pairs (minimum image in the cubic ``box``) whose f64 r^2 lies
+    within ``rel`` of ``cut^2``, with how many of them f32 r^2 puts on the
+    other side of the cutoff."""
+    err = (forces.double() - ref.double()).abs().amax(dim=-1)
+    s, i = divmod(int(err.argmax()), err.shape[1])
+    seps = []
+    for dt in (torch.float64, torch.float32):
+        d = pos[s].to(dt) - pos[s, i].to(dt)
+        d = d - box * torch.round(d / box)
+        seps.append((d * d).sum(dim=-1))
+    cut2 = cut * cut
+    near = (seps[0] - cut2).abs() < rel * cut2
+    near[i] = False
+    flips = near & ((seps[0] < cut2) != (seps[1] < cut2))
+    gaps = ", ".join(f"{v:+.2e}" for v in (seps[0][near] - cut2).tolist())
+    return (f"largest at system {s} atom {i} ({err[s, i].item():.3e}); its "
+            f"pairs within {rel:g} of cut^2 in f64: {int(near.sum())} "
+            f"(r^2 - cut^2: {gaps or 'none'}), on the other side in f32: "
+            f"{int(flips.sum())}")
+
+
+def run_batch_window(dev):
+    """Phase 18, kernel 1 batched: ``batch_grid_dftd3`` on the grid branch
+    (4 x 16,000) and on the 128 x 2,000 batch at 9 A launches kernel 1
+    three times a call (one a pass, every system in each) and no
+    per-system sweep; each launch replayed against its plain version (with
+    bound), the outputs against the per-system loop, both timed.  Returns
+    the kernel rows with their launches."""
+    from nvalchemiops_torch.grid import (
+        batch_build_atom_grid, estimate_grid_geometry,
+    )
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
+        batch_grid_dftd3,
+    )
+    from nvalchemiops_torch.kernels.window_sweep import (
+        window_sweep_batch_plain,
+    )
+
+    cfg, gb = D3_BATCH, D3_GRID
+    tables, pos, numbers, _, pos_g, numbers_g = d3_batch_system(dev)
+    pbc = np.array([True] * 3)
+    dims, radius, _ = estimate_grid_geometry(np.eye(3) * gb["box"], pbc,
+                                             gb["cutoff"], gb["n"])
+    occ = int(batch_build_atom_grid(
+        pos_g, torch.eye(3, device=dev) * gb["box"], pbc, dims, radius,
+        8).counts_max.max())
+    cases = (
+        ("grid branch", f"grid branch {gb['b']} x {gb['n']} at "
+         f"{gb['cutoff']} A", pos_g, numbers_g, gb["box"], gb["cutoff"],
+         int(np.ceil((occ + 2) / 8)) * 8),
+        ("128 x 2000", f"{cfg['b']} x {cfg['n']} at {cfg['cutoff']} A", pos,
+         numbers, cfg["box"], cfg["cutoff"], None))
+    single = ["window_sweep_cn", "window_sweep_d3_direct",
+              "window_sweep_chain"]
+    rows = {}
+    for case, label, p, z, box, cut, cap in cases:
+        cell = torch.eye(3, device=dev) * box
+        label = f"batch_grid_dftd3 {label}"
+
+        def run():
+            return batch_grid_dftd3(p, z, cell, pbc, cut, *tables,
+                                    *D3_PARAMS, cap=cap)
+
+        def loop():
+            return batch_window_loop(p, z, cell, pbc, cut, tables, D3_PARAMS,
+                                     cap=cap)
+
+        capture = install_capture()
+        out, counts = drive(label, run, BATCH_KEYS, forbid=single)
+        capture.restore()
+        launched = {k: v for k, v in counts.items() if v}
+        if launched != {k: 1 for k in BATCH_KEYS}:
+            raise AssertionError(f"{label}: launches {launched}, not one "
+                                 f"batched launch a pass")
+        ref, loop_counts = drive(f"{label}, per-system loop", loop, single)
+        errs = [_scale_error(a, r) for a, r in zip(out, ref)]
+        check_forces(label, out[1])
+        batched_ms = cuda_time_ms(run, reps=3)
+        loop_ms = cuda_time_ms(loop, reps=3)
+        force_bar = BATCH_WINDOW_FORCE_BARS[case]
+        phase(f"{label}: 3 launches a call against "
+              f"{sum(loop_counts[k] for k in single)} in the loop; vs the "
+              f"loop, max |diff| / scale: energies {errs[0]:.3e}, CNs "
+              f"{errs[2]:.3e} (bar {BATCH_WINDOW_RTOL:g}), forces "
+              f"{errs[1]:.3e} (bar {force_bar:g}); {batched_ms:.3f} ms a "
+              f"call against the loop's {loop_ms:.3f} (CUDA events, median "
+              f"of 3)")
+        if max(errs[0], errs[2]) > BATCH_WINDOW_RTOL or errs[1] > force_bar:
+            raise AssertionError(f"{label}: batched vs loop above its bar")
+        # both paths against the f64 plain path on the first systems: the
+        # batched launch within 1.25x the loop's own f32 error (both drop
+        # the same pairs at D3's hard cutoff, where f32 and f64 r^2 differ)
+        w = BATCH_WINDOW_WITNESS
+        with plain_kernels(grid_d3,
+                           window_sweep_batch=window_sweep_batch_plain):
+            f64 = batch_grid_dftd3(
+                p[:w].double(), z[:w], cell.double(), pbc, cut,
+                *(t.astype(np.float64) for t in tables), *D3_PARAMS,
+                cap=cap)[1]
+        loop_err = force_errors(ref[1][:w], f64)
+        rms_bar = BAR_FACTOR * JAX_F32_BARS["d3"][1]
+        phase(f"{label} per-system loop f32 vs f64 plain (first {w} "
+              f"systems): max rel {loop_err[0]:.3e}, rms rel "
+              f"{loop_err[1]:.3e} (bar {rms_bar:.3e}); "
+              f"{cutoff_straddles(ref[1][:w], f64, p, box, cut)}")
+        if loop_err[1] > rms_bar:
+            raise AssertionError(f"{label}: per-system loop f32 vs f64 rms "
+                                 "above its bar")
+        check_errors(f"{label} batched f32 vs f64 plain (first {w} "
+                     "systems)", out[1][:w], f64,
+                     (BAR_FACTOR * loop_err[0],
+                      min(BAR_FACTOR * loop_err[1], rms_bar)))
+        del f64
+        ctx = {"systems": p.shape[0], "n": p.shape[1], "volume": box ** 3,
+               "cutoff": cut, "mesh": tables[3].shape[1]}
+        for key, row in compare_kernels(capture.calls, label, ctx).items():
+            rows.setdefault(key, (row, counts[count_key_of(key)]))
+        profile_step(label, run)
+        profile_step(f"{label}, per-system loop", loop)
+        del capture, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -3339,6 +3722,11 @@ def main():
                                         origin=origin),
         "virial64": virial64})
 
+    # -- phase 18, kernel 1 batched: before phase 17, because in two runs
+    # every profiler run of device_time_ms after the spawned ranks of
+    # phases 17 and 18 lost its device events (PERF.md section 7) ---------
+    rows18 = run_batch_window(dev)
+
     # -- phase 17: the multi-rank paths and the MLIP forward ---------------
     run_parallel(dev, {
         "pos": pos, "cell": cell, "q": q, "alpha": alpha, "cutoff": cutoff,
@@ -3347,6 +3735,9 @@ def main():
         "geometry": (dims, radius, gcap, origin), "tile_cap": tile_cap,
         "steady": steady, "e_d3": e_d3, "f_d3": f_d3, "cn": cn, "e_c": e_c,
         "f_c": f_c, "e_p": e_p, "f_p": f_p})
+
+    # -- phase 18: the training step and the entry points -------------------
+    run_training(dev)
 
     kernels = []
     for rows, counts in ((full_rows, main_counts), (d3_rows, d3_counts),
@@ -3357,7 +3748,7 @@ def main():
                             "replaces": replaces,
                             "launches": counts[count_key_of(key)], **row})
     listed = {k["name"] for k in kernels}
-    for table in (rows11, rows12):
+    for table in (rows11, rows12, rows18):
         for key, (row, launches) in sorted(table.items()):
             if key in listed:
                 continue

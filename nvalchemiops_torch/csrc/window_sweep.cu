@@ -56,6 +56,15 @@
 // the time; the per-cell work around them (staging, the distance tests,
 // each own slot's drain and reduction) is.
 //
+// Batches.  One launch sweeps the n_sys systems of a batched grid (the
+// per-system grids of grid.batch_build_atom_grid, one geometry): block
+// (cell, system) with blockIdx.y the system, each system's planes one
+// after the other ([n_sys][n_own] own planes, [n_sys][n_cand] candidate
+// planes, [n_sys] left rows, and the outputs likewise).  The scalar
+// parameters are shared; each system's cell is already in its ghost
+// positions.  Systems never meet, so a block reads and writes its own
+// system's planes only.
+//
 // Interface: C, for ctypes.  Every pointer is a device pointer into a
 // contiguous float32 tensor allocated by the Python wrapper; j_out must be
 // zero on entry.  Returns the cudaError_t of the launch.
@@ -136,6 +145,13 @@ __global__ void __launch_bounds__(kThreads)
   const int ex = cx + 2 * rx;
   const int64_t ext_plane = static_cast<int64_t>(cz + 2 * rz) * ey * ex * cap;
   const int64_t own_plane = static_cast<int64_t>(cz) * cy * cx * cap;
+  // this block's system: its planes follow those of the systems before it
+  const int64_t sys = blockIdx.y;
+  own += sys * Body::kOwn * own_plane;
+  cand += sys * n_cand * ext_plane;
+  if (lf) lf += sys * own_plane * 2 * p.zm;
+  own_out += sys * Body::kOut * own_plane;
+  j_out += sys * Body::kJ * ext_plane;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_win = 1 + ry + rz * (2 * ry + 1);
@@ -222,9 +238,10 @@ template <class Body>
 cudaError_t launch(const float* own, const float* cand, float* own_out,
                    float* j_out, int cz, int cy, int cx, int rz, int ry, int rx,
                    int cap, int n_cand, const float* lf, const Params& p,
-                   cudaStream_t stream) {
+                   int n_sys, cudaStream_t stream) {
   const int ncells = cz * cy * cx;
-  if (ncells == 0 || cap == 0) return cudaSuccess;
+  if (n_sys > 65535) return cudaErrorInvalidValue;  // gridDim.y
+  if (ncells == 0 || cap == 0 || n_sys <= 0) return cudaSuccess;
   // every window staged at once where that fits, else the most that fits
   const int total = (rx + 1) * cap + (ry + rz * (2 * ry + 1)) * (2 * rx + 1) * cap;
   const size_t fixed =
@@ -238,7 +255,7 @@ cudaError_t launch(const float* own, const float* cand, float* own_out,
   const size_t smem = fixed + per * ncs;
   const cudaError_t e = allow_smem(sweep_kernel<Body>, smem);
   if (e != cudaSuccess) return e;
-  sweep_kernel<Body><<<ncells, kThreads, smem, stream>>>(
+  sweep_kernel<Body><<<dim3(ncells, n_sys), kThreads, smem, stream>>>(
       own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p, ncs);
   return cudaGetLastError();
 }
@@ -247,17 +264,20 @@ cudaError_t launch(const float* own, const float* cand, float* own_out,
 
 // body: 0 = CN, 1 = D3 direct, 2 = CN chain, 3 = Coulomb, 4 = D3 direct +
 // Coulomb (separate force channels), 5 = D3 direct + Coulomb (combined).
+// n_sys: the systems of a batched grid swept by this launch (1 for one
+// grid).
 extern "C" int nv_window_sweep(int body, const float* own, const float* cand,
                                const float* lf, float* own_out, float* j_out,
                                int cz, int cy, int cx, int rz, int ry, int rx,
                                int cap, int n_cand, float cutoff_sq, float a1,
                                float a2, float s6, float s8, float k1, float k3,
                                float alpha, float ccutoff_sq, int zm, int mesh,
-                               void* stream) {
+                               int n_sys, void* stream) {
   const Params p{cutoff_sq, a1, a2, s6, s8, k1, k3, alpha, ccutoff_sq, zm, mesh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(B) \
-  launch<B>(own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p, st)
+  launch<B>(own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, \
+            p, n_sys, st)
   switch (body) {
     case 0: return LAUNCH(CnBody);
     case 1: return LAUNCH(D3DirectBody<false>);

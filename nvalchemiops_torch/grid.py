@@ -341,57 +341,90 @@ def gather_from_grid(grid: AtomGrid, plane):
     return flat[torch.clamp(grid.flat_slot.long(), max=flat.numel() - 1)]
 
 
+def _system_axes(grid: AtomGrid) -> int:
+    """1 for a batched grid (array fields ``[B, ..]``), else 0 (a grid
+    that holds only its geometry counts as one system)."""
+    return 0 if grid.ext_px is None else grid.ext_px.dim() - 4
+
+
+def _batch_rows(table, idx):
+    """``table [B, R, k]`` rows ``idx [B, m]`` -> ``[B, m, k]``."""
+    sys_id = torch.arange(table.shape[0], device=table.device)[:, None]
+    return table[sys_id, idx]
+
+
 def gather_rows_from_grid(grid: AtomGrid, planes):
     """One ``[slots, k]`` row gather for k interior planes -> k per-atom
-    arrays (overflow atoms read the last slot, as in the JAX package)."""
-    stacked = torch.stack([p.reshape(-1) for p in planes], dim=-1)
-    rows = stacked[torch.clamp(grid.flat_slot.long(),
-                               max=stacked.shape[0] - 1)]
-    return tuple(rows[:, i] for i in range(len(planes)))
+    arrays (overflow atoms read the last slot, as in the JAX package).  On
+    a batched grid, per system: planes ``[B, ..]`` -> arrays ``[B, n]``."""
+    batched = _system_axes(grid)
+    slot = grid.flat_slot.long()
+    if not batched:
+        slot = slot[None]
+    b = slot.shape[0]
+    stacked = torch.stack([p.reshape(b, -1) for p in planes], dim=-1)
+    rows = _batch_rows(stacked, torch.clamp(slot, max=stacked.shape[1] - 1))
+    if not batched:
+        rows = rows[0]
+    return tuple(rows[..., i] for i in range(len(planes)))
 
 
 def _interior(grid: AtomGrid, ext_plane):
     rz, ry, rx = grid.radius
     cz, cy, cx = grid.dims
-    return ext_plane[rz:rz + cz, ry:ry + cy, rx:rx + cx]
+    lead = (slice(None),) * _system_axes(grid)
+    return ext_plane[lead + (slice(rz, rz + cz), slice(ry, ry + cy),
+                             slice(rx, rx + cx))]
 
 
 def scatter_rows_to_grid(grid: AtomGrid, values_list, fill=0.0):
     """k per-atom arrays -> k interior planes, as one slot -> atom row
     gather through the grid's atom-id plane (empty slots read ``fill``).
 
-    Values are cast to the first array's dtype.
+    Values are cast to the first array's dtype.  On a batched grid the
+    arrays are ``[B, n]`` and the planes ``[B, cz, cy, cx, cap]``.
     """
     cz, cy, cx = grid.dims
     dtype = values_list[0].dtype
     k = len(values_list)
     vals = torch.stack([torch.as_tensor(v).to(dtype) for v in values_list],
                        dim=-1)
-    padded = torch.cat([vals, torch.full((1, k), fill, dtype=dtype,
-                                         device=vals.device)])
-    aid = _interior(grid, grid.ext_aid).reshape(-1).long()
-    planes = padded[aid].reshape(cz, cy, cx, grid.cap, k)
+    aid = _interior(grid, grid.ext_aid)
+    batched = _system_axes(grid)
+    if not batched:
+        vals, aid = vals[None], aid[None]
+    b = aid.shape[0]
+    padded = torch.cat([vals, torch.full((b, 1, k), fill, dtype=dtype,
+                                         device=vals.device)], dim=1)
+    planes = _batch_rows(padded, aid.reshape(b, -1).long()).reshape(
+        b, cz, cy, cx, grid.cap, k)
+    if not batched:
+        planes = planes[0]
     return tuple(planes[..., i] for i in range(k))
 
 
 def _extend_like(grid: AtomGrid, plane, fill):
     """Halo-extend an interior per-slot property plane: periodic copies,
     masked to ``fill`` where the extended slot is not a valid atom.
-    Feature planes ``[.., cap, F]`` extend the same way."""
-    out = _extend(plane, grid.radius, [True] * 3, fill)
+    Feature planes ``[.., cap, F]`` extend the same way, and on a batched
+    grid planes ``[B, ..]`` per system."""
+    out = _extend(plane, grid.radius, [True] * 3, fill,
+                  first_axis=_system_axes(grid))
     valid = grid.ext_valid
-    if plane.dim() == 5:
+    if plane.dim() > valid.dim():
         valid = valid[..., None]
     return torch.where(valid, out,
                        torch.full((), fill, dtype=out.dtype, device=out.device))
 
 
 def fold_halo(grid: AtomGrid, ext_acc):
-    """Fold an extended accumulator's halo back onto the interior (wrap)."""
+    """Fold an extended accumulator's halo back onto the interior (wrap);
+    on a batched grid, ``[B, ..]`` per system."""
     rz, ry, rx = grid.radius
     cz, cy, cx = grid.dims
     a = ext_acc
-    for ax, (r, c) in enumerate(((rz, cz), (ry, cy), (rx, cx))):
+    for ax, (r, c) in enumerate(((rz, cz), (ry, cy), (rx, cx)),
+                                start=_system_axes(grid)):
         core = a.narrow(ax, r, c).clone()
         if r:
             core.narrow(ax, 0, r).add_(a.narrow(ax, r + c, r))

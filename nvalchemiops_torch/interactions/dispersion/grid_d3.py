@@ -45,6 +45,7 @@ from nvalchemiops_torch.grid import (
     AtomGrid,
     _extend_like,
     _interior,
+    _system_axes,
     batch_build_atom_grid,
     estimate_grid_geometry,
     fold_halo,
@@ -58,7 +59,9 @@ from nvalchemiops_torch.kernels.chunk_sweep import (
     chunk_sweep, super_chunk_cells,
 )
 from nvalchemiops_torch.kernels.row_sweep import row_sweep
-from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
+from nvalchemiops_torch.kernels.window_sweep import (
+    SweepParams, window_sweep, window_sweep_batch,
+)
 from nvalchemiops_torch.neighborlist.neighbor_utils import unpack_shifts
 from nvalchemiops_torch.stencil import (
     extend_stencil, scatter_to_stencil, stencil_cn_chain_forces,
@@ -188,13 +191,29 @@ def _check_engine(name, engine, engines):
                          f"{[e for e in engines if e]}")
 
 
+def _stack(grid, planes):
+    """Feature planes stacked feature-major: ``[F, ..]``, or ``[B, F, ..]``
+    on a batched grid."""
+    return torch.stack(planes, dim=_system_axes(grid))
+
+
 def _sweep(grid, engine, block_g, body, own, cand, params, lf=None,
            cf=None):
     """One pass on the engine's kernel: ``"window"`` (kernel 1, factored
     mesh features), ``"pallas"`` (kernel 7) or ``"block"`` (kernel 8; G =
-    ``block_g`` or the card's pick), the last two with zm-wide features."""
+    ``block_g`` or the card's pick), the last two with zm-wide features.
+    On a batched grid the window engine sweeps every system in one launch
+    and returns ``[F, B, ..]`` views; the other engines take one system's
+    grid and raise on a batched one."""
     if engine == "window":
-        return window_sweep(body, grid.radius, own, cand, params, lf=lf)
+        if not _system_axes(grid):
+            return window_sweep(body, grid.radius, own, cand, params, lf=lf)
+        own_out, j_out = window_sweep_batch(body, grid.radius, own, cand,
+                                            params, lf=lf)
+        return own_out.transpose(0, 1), j_out.transpose(0, 1)
+    if _system_axes(grid):
+        raise ValueError(f"engine {engine!r} sweeps one system's grid; a "
+                         "batched grid takes engine 'window'")
     if engine == "pallas":
         return row_sweep(body, grid.radius, own, cand, params, lf=lf, cf=cf)
     g_cells = block_g or super_chunk_cells(
@@ -207,9 +226,9 @@ def _sweep(grid, engine, block_g, body, own, cand, params, lf=None,
 def _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params, engine="window",
                  block_g=None):
     """Pass 1: coordination-number plane [cz, cy, cx, cap]."""
-    own = torch.stack([_interior(grid, px_d), _interior(grid, grid.ext_py),
-                       _interior(grid, grid.ext_pz), rcov_plane])
-    cand = torch.stack([px_d, grid.ext_py, grid.ext_pz, rcov_ext])
+    own = _stack(grid, [_interior(grid, px_d), _interior(grid, grid.ext_py),
+                        _interior(grid, grid.ext_pz), rcov_plane])
+    cand = _stack(grid, [px_d, grid.ext_py, grid.ext_pz, rcov_ext])
     acc, jacc = _sweep(grid, engine, block_g, "cn", own, cand, params)
     return acc[0] + fold_halo(grid, jacc[0])
 
@@ -295,14 +314,15 @@ def _d3_pass2_direct(grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl,
         cand_cols.append(z_ext.to(px_d.dtype))
         if q is not None:
             cand_cols.append(q[1])
-        cand = torch.cat([torch.stack(cand_cols), torch.movedim(e_ext, -1, 0),
-                          torch.movedim(edc_ext, -1, 0)]).contiguous()
+        nb = _system_axes(grid)
+        cand = torch.cat([_stack(grid, cand_cols), torch.movedim(e_ext, -1, nb),
+                          torch.movedim(edc_ext, -1, nb)], dim=nb).contiguous()
     else:
         if q is not None:
             cand_cols.append(q[1])
         cand = torch.stack(cand_cols)
         cf = _wide_rows(e_ext, edc_ext, z_ext, lf.shape[-1] // 2)
-    acc, jacc = _sweep(grid, engine, block_g, body, torch.stack(own_cols),
+    acc, jacc = _sweep(grid, engine, block_g, body, _stack(grid, own_cols),
                        cand, params, lf=lf, cf=cf)
     if raw_j is not None:
         raw_j.append(jacc[:3])
@@ -316,9 +336,9 @@ def _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn_pl, params,
     """Pass 3: CN chain-rule force planes (fx, fy, fz); a list ``raw_j``
     receives the j-side accumulators before the fold."""
     decn_ext = _extend_like(grid, decn_pl, 0.0)
-    own = torch.stack([_interior(grid, px_d), _interior(grid, grid.ext_py),
-                       _interior(grid, grid.ext_pz), rcov_plane, decn_pl])
-    cand = torch.stack([px_d, grid.ext_py, grid.ext_pz, rcov_ext, decn_ext])
+    own = _stack(grid, [_interior(grid, px_d), _interior(grid, grid.ext_py),
+                        _interior(grid, grid.ext_pz), rcov_plane, decn_pl])
+    cand = _stack(grid, [px_d, grid.ext_py, grid.ext_pz, rcov_ext, decn_ext])
     acc, jacc = _sweep(grid, engine, block_g, "chain", own, cand, params)
     if raw_j is not None:
         raw_j.append(jacc)
@@ -328,7 +348,7 @@ def _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn_pl, params,
 def _parked_px(grid, z_ext):
     """``ext_px`` with padding atoms (numbers == 0) parked like empty slots,
     so no pass body compares element ids for validity."""
-    ez, ey, ex, cap = grid.ext_px.shape
+    ez, ey, ex, cap = grid.ext_px.shape[-4:]
     dtype = grid.ext_px.dtype
     ext_iota = torch.arange(ez * ey * ex * cap, dtype=dtype,
                             device=grid.ext_px.device).reshape(ez, ey, ex, cap)
@@ -645,16 +665,21 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
     """Batched DFT-D3(BJ) on one whole-batch halo grid.
 
     The systems share the grid geometry estimated from ``cells[0]``; the
-    grid is built once for the batch (:func:`grid.batch_build_atom_grid`)
-    and each system runs :func:`grid_dftd3` on its part with ``engine``,
-    in a loop over systems.  ``positions [B, n, 3]``, ``numbers [B, n]``
-    (0 = padding atom), ``cells`` ``[3, 3]`` or ``[B, 3, 3]``;
-    ``target_occupancy`` sizes the estimated slot capacity, and ``cap``
-    overrides it, as in the JAX package.  Returns ``(energy [B], forces [B,
-    n, 3], cn [B, n])``.  The default engine is the window engine (the JAX
-    package defaults to its xla engine here, which agrees with the window
-    engine to f64 rounding; ``engine="xla"`` runs the window engine).
+    grid is built once for the batch (:func:`grid.batch_build_atom_grid`).
+    On the window engine (the default, and ``engine="xla"``) each D3 pass
+    is one launch of kernel 1 over every system (three launches a call for
+    any B), and the folds, feature planes and per-system sums carry the
+    system axis; ``engine="block"``, ``"pallas"`` and ``"hybrid"`` run
+    :func:`grid_dftd3` on each system's part, in a loop over systems.
+    ``positions [B, n, 3]``, ``numbers [B, n]`` (0 = padding atom),
+    ``cells`` ``[3, 3]`` or ``[B, 3, 3]``; ``target_occupancy`` sizes the
+    estimated slot capacity, and ``cap`` overrides it, as in the JAX
+    package.  Returns ``(energy [B], forces [B, n, 3], cn [B, n])``.  The
+    default engine is the window engine (the JAX package defaults to its
+    xla engine here, which agrees with the window engine to f64 rounding).
     """
+    _check_engine("batch_grid_dftd3", engine,
+                  (None, "window", "xla", "block", "pallas", "hybrid"))
     b, n = positions.shape[0], positions.shape[1]
     cells_np = np.asarray(_np(cells), dtype=np.float64)
     dims, radius, cap_est = estimate_grid_geometry(
@@ -663,6 +688,17 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
     g = batch_build_atom_grid(positions, cells, pbc, dims, radius,
                               cap_est if cap is None else cap)
     numbers_np = _np(numbers)
+    if engine in (None, "window", "xla"):
+        _, _, planes, _ = _d3_inputs(g, numbers_np, rcov, r4r2, c6ab,
+                                     cn_ref_elem)
+        params = SweepParams(cutoff=float(cutoff), a1=float(a1),
+                             a2=float(a2), s6=float(s6), s8=float(s8),
+                             k1=float(k1), k3=float(k3))
+        e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(g, *planes, params)
+        f1, f2, f3, coord_num = gather_rows_from_grid(
+            g, (fx_pl, fy_pl, fz_pl, cn_pl))
+        return (e_pl.sum(dim=(1, 2, 3, 4)), torch.stack([f1, f2, f3], dim=-1),
+                coord_num)
     outs = [grid_dftd3(system_grid(g, i), numbers_np[i], rcov, r4r2, c6ab,
                        cn_ref_elem, cutoff, a1, a2, s8, s6=s6, k1=k1, k3=k3,
                        engine=engine)

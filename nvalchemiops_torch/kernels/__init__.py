@@ -13,6 +13,11 @@ launch_counts = {
     "window_sweep_chain": 0,
     "window_sweep_coulomb": 0,
     "window_sweep_d3_direct_coulomb": 0,
+    "window_sweep_batch_cn": 0,
+    "window_sweep_batch_d3_direct": 0,
+    "window_sweep_batch_chain": 0,
+    "window_sweep_batch_coulomb": 0,
+    "window_sweep_batch_d3_direct_coulomb": 0,
     "windowed_spread": 0,
     "windowed_gather_grad": 0,
     "dense_pairs_cn": 0,

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int)
 _SIGNATURES = {
     "nv_window_sweep": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] * 9
-                       + [_I, _I, _P],
+                       + [_I, _I, _I, _P],
     "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 8 + [_P],
     "nv_chunk_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 9 + [_P],
     "nv_stencil_sweep": [_I] + [_P] * 3 + [_I] * 8 + [_F] * 3 + [_P],

@@ -32,6 +32,9 @@ interior planes, ``cand [n_cand, ez, ey, ex, cap]`` extended planes.  The
 result is ``(own_out [n_out, cz, cy, cx, cap], j_out [n_j, ez, ey, ex,
 cap])``; the caller folds ``j_out`` with ``grid.fold_halo``.  Parameters are
 runtime floats (:class:`SweepParams`): no rebuild per parameter set.
+:func:`window_sweep_batch` sweeps the B systems of a batched grid in one
+launch: every array takes a leading system axis (``own [B, n_own, ..]``,
+``cand [B, n_cand, ..]``, ``lf [B, ..]``, and the outputs likewise).
 
 The bodies match the JAX window bodies term for term (grid_d3.py:1380-1387,
 :1465-1571, :1612-1625; grid.py:900-928), including the displacement
@@ -52,7 +55,8 @@ from nvalchemiops_torch.kernels.build import (
 from nvalchemiops_torch.mathops.math import erfc_approx
 
 __all__ = ["SweepParams", "BODIES", "window_sweep", "window_sweep_plain",
-           "body_outputs", "BODY_FNS", "halfspace_zy"]
+           "window_sweep_batch", "window_sweep_batch_plain", "body_outputs",
+           "BODY_FNS", "halfspace_zy"]
 
 #: body name -> (C body id, n_own, n_out, n_j); the D3 bodies have 6 (7 with
 #: the charge) + 2*mesh candidate features, the others as many as own
@@ -160,20 +164,66 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
     _check(body, radius, own, cand, lf)
     if own.device.type == "cpu":
         return window_sweep_plain(body, radius, own, cand, params, lf)
-    check_cuda_tensors("window_sweep", own, cand,
-                       *([lf] if lf is not None else []))
+    out = _launch("window_sweep", body, radius, own[None], cand[None],
+                  params, None if lf is None else lf[None])
+    launch_counts[f"window_sweep_{body}"] += 1
+    return out[0][0], out[1][0]
+
+
+def _check_batch(body, radius, own, cand, lf):
+    if own.dim() != 6 or cand.dim() != 6 or cand.shape[0] != own.shape[0] \
+            or (lf is not None and lf.shape[0] != own.shape[0]):
+        raise ValueError("batched planes must be own [B, n_own, cz, cy, cx, "
+                         "cap], cand [B, n_cand, ez, ey, ex, cap] and lf [B, "
+                         "cz, cy, cx, cap, 2*zm] with one B")
+    if own.shape[0] > 65535:
+        raise ValueError(f"at most 65,535 systems a launch, got "
+                         f"{own.shape[0]}")
+    _check(body, radius, own[0], cand[0], None if lf is None else lf[0])
+
+
+def window_sweep_batch(body: str, radius, own, cand, params: SweepParams,
+                       lf=None):
+    """One pass body over every system of a batched grid in one launch
+    (blocks over cells and systems): CUDA kernel on a CUDA device, the plain
+    version (:func:`window_sweep_batch_plain`) on the CPU.  Arrays carry a
+    leading system axis; returns ``(own_out [B, n_out, ..], j_out [B, n_j,
+    ..])``."""
+    _check_batch(body, radius, own, cand, lf)
+    if own.device.type == "cpu":
+        return window_sweep_batch_plain(body, radius, own, cand, params, lf)
+    out = _launch("window_sweep_batch", body, radius, own, cand, params, lf)
+    launch_counts[f"window_sweep_batch_{body}"] += 1
+    return out
+
+
+def window_sweep_batch_plain(body: str, radius, own, cand,
+                             params: SweepParams, lf=None):
+    """Plain version of :func:`window_sweep_batch`: the per-system loop of
+    :func:`window_sweep_plain`."""
+    _check_batch(body, radius, own, cand, lf)
+    outs = [window_sweep_plain(body, radius, own[b], cand[b], params,
+                               None if lf is None else lf[b])
+            for b in range(own.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _launch(name, body, radius, own, cand, params, lf):
+    """Launch kernel 1 over the systems of ``own [B, ..]``; returns
+    ``(own_out [B, ..], j_out [B, ..])``."""
+    check_cuda_tensors(name, own, cand, *([lf] if lf is not None else []))
     body_id = BODIES[body][0]
     if body == "d3_direct_coulomb" and params.combine_forces:
         body_id = 5
     n_out, n_j = body_outputs(body, params)
-    _, cz, cy, cx, cap = own.shape
+    n_sys, _, cz, cy, cx, cap = own.shape
     rz, ry, rx = radius
     ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
-    own_out = torch.empty((n_out, cz, cy, cx, cap), dtype=own.dtype,
+    own_out = torch.empty((n_sys, n_out, cz, cy, cx, cap), dtype=own.dtype,
                           device=own.device)
-    j_out = torch.zeros((n_j, ez, ey, ex, cap), dtype=own.dtype,
+    j_out = torch.zeros((n_sys, n_j, ez, ey, ex, cap), dtype=own.dtype,
                         device=own.device)
-    n_cand = cand.shape[0]
+    n_cand = cand.shape[1]
     base = 7 if body == "d3_direct_coulomb" else 6
     mesh = (n_cand - base) // 2 if body.startswith("d3_direct") else 0
     zm = lf.shape[-1] // 2 if lf is not None else 0
@@ -184,11 +234,10 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
         own_out.data_ptr(), j_out.data_ptr(),
         cz, cy, cx, rz, ry, rx, cap, n_cand,
         p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8, p.k1,
-        p.k3, p.alpha, p.ccutoff * p.ccutoff, zm, mesh,
+        p.k3, p.alpha, p.ccutoff * p.ccutoff, zm, mesh, n_sys,
         current_stream(own),
     )
-    check_launch(f"window_sweep[{body}]", err)
-    launch_counts[f"window_sweep_{body}"] += 1
+    check_launch(f"{name}[{body}]", err)
     return own_out, j_out
 
 

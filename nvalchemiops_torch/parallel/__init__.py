@@ -1,6 +1,6 @@
 # SPDX-License-Identifier: Apache-2.0
 """Multi-rank paths on ``torch.distributed`` (counterpart of
-``nvalchemiops_tpu.parallel``, without its training step).
+``nvalchemiops_tpu.parallel``).
 
 The JAX package runs SPMD programs over a ``jax.sharding.Mesh`` from one
 process.  The port runs one process per rank: the caller initialises the
@@ -14,8 +14,8 @@ replicated inputs and gets the whole result back.
   over a ring of point-to-point exchanges) and the tile-split PME
   (kernels 3 and 2);
 - :mod:`~nvalchemiops_torch.parallel.batch_pme`: the batch-split PME;
-- :mod:`~nvalchemiops_torch.parallel.mlip`: the MLIP's forward pass and
-  the ``("dp", "sp")`` mesh.
+- :mod:`~nvalchemiops_torch.parallel.mlip`: the MLIP's forward pass, its
+  training step, and the step sharded over the ``("dp", "sp")`` mesh.
 
 Importing it builds no kernel and starts no process group.
 """
@@ -28,6 +28,9 @@ from nvalchemiops_torch.parallel.mlip import (  # noqa: F401
     init_mlip_params,
     make_mesh,
     mlip_energy,
+    shard_batch,
+    sharded_train_step,
+    train_step,
 )
 from nvalchemiops_torch.parallel.domain import (  # noqa: F401
     domain_coulomb_energy_forces,
@@ -54,4 +57,7 @@ __all__ = [
     "make_mesh",
     "make_z_mesh",
     "mlip_energy",
+    "shard_batch",
+    "sharded_train_step",
+    "train_step",
 ]

@@ -218,8 +218,11 @@ def slab_rows(rank: int, size: int, cz: int) -> slice:
 
 
 def _rank_main(fn, rank, world_size, backend, init_method, threads, args,
-               err_path):
+               err_path, card=None):
     try:
+        if card is not None:
+            # before anything starts CUDA: this rank's card is its cuda:0
+            os.environ["CUDA_VISIBLE_DEVICES"] = card
         if threads:
             torch.set_num_threads(threads)
         dist.init_process_group(
@@ -247,20 +250,33 @@ def spawn_ranks(fn, world_size: int, backend: str, args=(),
 
     ``fn`` and ``args`` must pickle (``fn`` a module-level function of a
     module the children can import without JAX).  The children inherit
-    the parent's environment; on several cards each rank must see its own
-    card as cuda:0, where the kernels launch (e.g. ``CUDA_VISIBLE_DEVICES``
-    per rank).  The parent joins the children until ``deadline_s``
-    wall-clock seconds have passed, kills any still running and raises
-    ``TimeoutError``; a child that raises or exits non-zero makes this
+    the parent's environment.  NCCL takes one card per rank, and each rank
+    launches its kernels on cuda:0: under ``"nccl"`` rank ``r`` sees the
+    ``r``-th card the parent sees as its only one (``CUDA_VISIBLE_DEVICES``,
+    set in the child before the process group starts), and fewer visible
+    cards than ranks raise ``ValueError``.  The parent joins the children
+    until ``deadline_s`` wall-clock seconds have passed, kills any still
+    running and raises ``TimeoutError``; a child that raises or exits non-zero makes this
     raise ``RuntimeError`` with its traceback.
     """
     ctx = multiprocessing.get_context("spawn")
+    cards = [None] * world_size
+    if backend == "nccl":
+        seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ids = ([c.strip() for c in seen.split(",") if c.strip()]
+               if seen is not None else
+               [str(i) for i in range(torch.cuda.device_count())])
+        if len(ids) < world_size:
+            raise ValueError(f"spawn_ranks: {world_size} ranks, one card "
+                             f"each, but {len(ids)} cards are visible")
+        cards = ids[:world_size]
     with tempfile.TemporaryDirectory(prefix="nvalchemiops_ranks_") as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
         err_path = os.path.join(tmp, "rank{rank}.err")
         procs = [ctx.Process(target=_rank_main, daemon=True, args=(
             fn, rank, world_size, backend, init_method, threads,
-            tuple(args), err_path)) for rank in range(world_size)]
+            tuple(args), err_path, cards[rank]))
+            for rank in range(world_size)]
         for p in procs:
             p.start()
         end = time.monotonic() + deadline_s

@@ -1,6 +1,6 @@
 # SPDX-License-Identifier: Apache-2.0
-"""The differentiable MLIP's forward pass (counterpart of
-``nvalchemiops_tpu.parallel.mlip``, without its training step).
+"""A differentiable MLIP built from the library's interaction terms
+(counterpart of ``nvalchemiops_tpu.parallel.mlip``).
 
 A physically structured machine-learned interatomic potential
 
@@ -10,11 +10,22 @@ A physically structured machine-learned interatomic potential
                 learnable damping/scaling)
 
 over periodic systems, as a dense minimum-image pair sum; forces are the
-exact energy gradients (``torch.autograd``).  Plain torch, as it is plain
-XLA in the JAX package: no kernel.  The tables and starting parameters are
-drawn as the JAX package draws them, so both packages start from equal
-bits.  :func:`make_mesh` builds the ``("dp", "sp")`` mesh of the JAX
-package on ``torch.distributed``.
+exact energy gradients (``torch.autograd``), and the training step
+differentiates the force-matching loss through the forces again (a double
+backward through the CNs and the C6 interpolation).  Plain torch, as it is
+plain XLA in the JAX package: no kernel.  The tables and starting
+parameters are drawn as the JAX package draws them, so both packages start
+from equal bits.
+
+Multi-rank: :func:`make_mesh` builds the ``("dp", "sp")`` mesh of the JAX
+package on ``torch.distributed``; :func:`shard_batch` gives each rank its
+block of a batch (systems over ``dp``, atoms over ``sp``) and
+:func:`sharded_train_step` the step on those blocks, with the collectives
+that XLA inserts in the JAX package written out: each ``sp`` rank gathers
+its systems' atoms, takes the energy of the pairs of its own rows and its
+gradient, the forces are one all-reduce of those gradients, and the
+parameter gradients one all-reduce over the mesh (no collective sits
+inside an autograd graph).
 """
 
 from __future__ import annotations
@@ -30,14 +41,21 @@ from nvalchemiops_torch.interactions.dispersion._kernels import (
     _c6_interpolate,
 )
 from nvalchemiops_torch.mathops.math import apply_mat3, erfc_approx
+from nvalchemiops_torch.parallel._dist import (
+    all_gather_cat, all_reduce_sum, axis_group,
+)
 from nvalchemiops_torch.parallel.domain import _mesh_device_type
+from nvalchemiops_torch.types import default_device
 
 __all__ = [
     "MLIPParams",
     "init_mlip_params",
     "mlip_energy",
     "batched_energy_forces",
+    "train_step",
     "make_mesh",
+    "shard_batch",
+    "sharded_train_step",
 ]
 
 
@@ -116,11 +134,25 @@ def mlip_energy(params: MLIPParams, tables: D3Tables, positions, numbers,
     ``numbers == 0`` marks padding atoms.  Dense minimum-image pair sum,
     for systems up to a few thousand atoms.
     """
+    return _system_energy(params, tables, positions, numbers, cell, cutoff,
+                          alpha)
+
+
+def _system_energy(params, tables, positions, numbers, cell, cutoff,
+                   alpha=0.6, rows=None):
+    """:func:`mlip_energy`, or with ``rows`` (a slice of atoms) the energy
+    of the pairs of those rows: half of each pair term with an atom of
+    ``rows`` on its left.  The CNs take every atom either way, so the rows
+    of a partition of the atoms sum to the total."""
     dtype, device = positions.dtype, positions.device
     n = positions.shape[0]
     numbers = torch.as_tensor(numbers, device=device).long()
     alive = numbers != 0
     zero = torch.zeros((), dtype=dtype, device=device)
+    own = slice(None) if rows is None else rows
+
+    def half_sum(terms):
+        return 0.5 * torch.sum(torch.where(mask, terms, zero)[own])
 
     d = _minimum_image_pairs(positions, cell)
     r2 = torch.sum(d * d, dim=-1)
@@ -135,13 +167,11 @@ def mlip_energy(params: MLIPParams, tables: D3Tables, positions, numbers,
 
     q = params.charge[numbers] * alive_f
     qq = q[:, None] * q[None, :]
-    e_elec = 0.5 * torch.sum(torch.where(
-        mask, qq * erfc_approx(alpha * r) * inv_r, zero))
+    e_elec = half_sum(qq * erfc_approx(alpha * r) * inv_r)
 
     a_rep = torch.exp(params.repulse_a)[numbers] * alive_f
     rho = torch.exp(params.repulse_rho)
-    e_rep = 0.5 * torch.sum(torch.where(
-        mask, a_rep[:, None] * a_rep[None, :] * torch.exp(-r / rho), zero))
+    e_rep = half_sum(a_rep[:, None] * a_rep[None, :] * torch.exp(-r / rho))
 
     # dispersion: CN -> C6(CN) -> BJ-damped -C6/r^6 - C8/r^8
     rcov = tables.rcov[numbers]
@@ -162,24 +192,85 @@ def mlip_energy(params: MLIPParams, tables: D3Tables, positions, numbers,
     r0 = params.a1 * torch.sqrt(rr) + params.a2
     r6 = r2_safe ** 3
     r8 = r2_safe ** 4
-    e_disp = 0.5 * torch.sum(torch.where(
-        mask,
-        -c6 * (params.s6 / (r6 + r0 ** 6) + params.s8 * rr / (r8 + r0 ** 8)),
-        zero))
+    e_disp = half_sum(
+        -c6 * (params.s6 / (r6 + r0 ** 6) + params.s8 * rr / (r8 + r0 ** 8)))
     return e_elec + e_rep + e_disp
+
+
+def _energies_forces(params, tables, positions, numbers, cell, cutoff,
+                     create_graph):
+    """``[B]`` energies and ``[B, n, 3]`` forces (-dE/dr by autograd);
+    with ``create_graph`` both stay functions of the parameters, so a loss
+    of the forces can be differentiated again."""
+    with torch.enable_grad():
+        pos = positions.detach().requires_grad_(True)
+        energies = torch.stack([
+            _system_energy(params, tables, pos[b], numbers[b], cell[b],
+                           cutoff)
+            for b in range(pos.shape[0])])
+        (grad,) = torch.autograd.grad(energies.sum(), pos,
+                                      create_graph=create_graph)
+    return energies, -grad
 
 
 def batched_energy_forces(params, tables, positions, numbers, cell, cutoff):
     """``[B, n, ...]`` batched energies ``[B]`` and forces ``[B, n, 3]``
     (forces = -dE/dr, exact, by ``torch.autograd.grad`` of the summed
-    energies)."""
+    energies); both detached."""
+    energies, forces = _energies_forces(params, tables, positions, numbers,
+                                        cell, cutoff, create_graph=False)
+    return energies.detach(), forces.detach()
+
+
+def _batch_tensors(batch, device=None):
+    """``(positions, numbers, cell, target_e, target_f)`` as tensors: on
+    the first tensor's device (else ``device``, the card unless named),
+    floats in the positions' dtype, the element ids as given."""
+    dev = default_device(next((a for a in batch
+                               if isinstance(a, torch.Tensor)), None), device)
+    positions = torch.as_tensor(batch[0], device=dev)
+    dtype = positions.dtype
+    numbers = torch.as_tensor(batch[1], device=dev)
+    return (positions, numbers) + tuple(
+        torch.as_tensor(a, device=dev).to(dtype) for a in batch[2:])
+
+
+def loss_fn(params, tables, batch, cutoff):
+    """Energy + force MSE of the batched MLIP against the batch targets:
+    the mean squared energy error over systems plus the squared force
+    error summed over alive atoms (``numbers != 0``) and divided by their
+    count.  Differentiable in the parameters through the forces."""
+    positions, numbers, cell, target_e, target_f = _batch_tensors(batch)
+    energies, forces = _energies_forces(params, tables, positions, numbers,
+                                        cell, cutoff, create_graph=True)
+    alive = (numbers != 0)[..., None]
+    n_alive = torch.clamp(alive.sum(), min=1).to(positions.dtype)
+    e_loss = torch.mean((energies - target_e) ** 2)
+    f_loss = torch.sum(torch.where(alive, (forces - target_f) ** 2,
+                                   torch.zeros_like(forces))) / n_alive
+    return e_loss + f_loss
+
+
+def _leaves(params):
+    """Fresh leaves of the parameters that autograd differentiates."""
+    return MLIPParams(*(p.detach().requires_grad_(True) for p in params))
+
+
+def _sgd(leaves, grads, lr):
+    return MLIPParams(*((p - lr * g).detach() for p, g in zip(leaves,
+                                                               grads)))
+
+
+def train_step(params, tables, batch, cutoff, lr=1e-3):
+    """One SGD step on the force-matching loss (fully differentiable): the
+    loss and its gradient with respect to every field of ``params`` (a
+    double backward through the forces).  Returns ``(new_params, loss)``,
+    ``new_params = params - lr * grad`` field by field, detached."""
+    leaves = _leaves(params)
     with torch.enable_grad():
-        pos = positions.detach().requires_grad_(True)
-        energies = torch.stack([
-            mlip_energy(params, tables, pos[b], numbers[b], cell[b], cutoff)
-            for b in range(pos.shape[0])])
-        (grad,) = torch.autograd.grad(energies.sum(), pos)
-    return energies.detach(), -grad
+        loss = loss_fn(leaves, tables, batch, cutoff)
+        grads = torch.autograd.grad(loss, leaves)
+    return _sgd(leaves, grads, lr), loss.detach()
 
 
 def make_mesh(devices=None, dp: int | None = None,
@@ -202,3 +293,100 @@ def make_mesh(devices=None, dp: int | None = None,
     return DeviceMesh(_mesh_device_type(),
                       torch.tensor(ranks).reshape(dp, sp),
                       mesh_dim_names=("dp", "sp"))
+
+
+def shard_batch(mesh: DeviceMesh, batch, device=None):
+    """This rank's block of a ``(positions, numbers, cell, target_e,
+    target_f)`` batch on a ``("dp", "sp")`` mesh: systems over ``"dp"``
+    and atoms over ``"sp"`` for the per-atom arrays (positions ``[B/dp,
+    n/sp, 3]``, numbers, force targets), systems over ``"dp"`` for the
+    per-system ones (cells ``[B/dp, 3, 3]``, energy targets), as JAX's
+    ``NamedSharding``s place them.  Raises ``ValueError`` where B does not
+    divide over dp or n over sp.
+
+    The blocks go on ``device``: by default the mesh's card under NCCL,
+    else the batch's own device (the card for arrays that are not
+    tensors); pass ``device="cpu"`` for the CPU."""
+    _, dp, dp_rank = axis_group(mesh, "dp")
+    _, sp, sp_rank = axis_group(mesh, "sp")
+    if device is None and mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device is not None:
+        batch = tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                      for a in batch)
+    positions, numbers, cell, target_e, target_f = _batch_tensors(batch,
+                                                                  device)
+    b, n = positions.shape[0], positions.shape[1]
+    if b % dp or n % sp:
+        raise ValueError(f"a batch of {b} systems x {n} atoms does not "
+                         f"shard over dp={dp} x sp={sp}")
+    if cell.dim() == 2:
+        cell = cell.expand(b, 3, 3)
+    sys_rows = slice(dp_rank * (b // dp), (dp_rank + 1) * (b // dp))
+    atoms = slice(sp_rank * (n // sp), (sp_rank + 1) * (n // sp))
+    return (positions[sys_rows, atoms].contiguous(),
+            numbers[sys_rows, atoms].contiguous(),
+            cell[sys_rows].contiguous(), target_e[sys_rows].contiguous(),
+            target_f[sys_rows, atoms].contiguous())
+
+
+def sharded_train_step(mesh: DeviceMesh, cutoff: float, lr: float = 1e-3):
+    """The training step for a ``("dp", "sp")`` mesh: ``step(params,
+    tables, batch) -> (new_params, loss)`` on this rank's block of the
+    batch (:func:`shard_batch`), with the parameters replicated.  Every
+    rank returns the new parameters and the global loss of
+    :func:`train_step` on the whole batch.
+
+    Per rank: the ``sp`` ranks of a system all-gather its positions and
+    element ids (a fresh leaf ``x``); each computes the CNs of the whole
+    system and the energy ``E_r`` of the pairs of its own rows, and ``g_r
+    = dE_r/dx`` keeping the graph.  The energies and forces are
+    all-reduces of the values ``E_r`` and ``-g_r`` over ``sp``; the loss
+    and its cotangents ``dL/dE`` and ``dL/dF`` follow from the global
+    sums (energy errors over ``dp``, force errors and the alive count over
+    the mesh), and one ``autograd.grad`` of ``(E_r, g_r)`` weighted by
+    them gives this rank's share of the parameter gradients, summed over
+    the mesh."""
+    sp_group, _, sp_rank = axis_group(mesh, "sp")
+    dp_group, dp, _ = axis_group(mesh, "dp")
+
+    def mesh_sum(t):
+        return all_reduce_sum(all_reduce_sum(t, sp_group), dp_group)
+
+    def step(params, tables, batch):
+        positions, numbers, cell, target_e, target_f = _batch_tensors(batch)
+        b_local, n_local = positions.shape[0], positions.shape[1]
+        rows = slice(sp_rank * n_local, (sp_rank + 1) * n_local)
+        x_all = all_gather_cat(positions.detach(), sp_group, dim=1)
+        z_all = all_gather_cat(numbers, sp_group, dim=1)
+        leaves = _leaves(params)
+        with torch.enable_grad():
+            x_all = x_all.detach().requires_grad_(True)
+            e_r = torch.stack([
+                _system_energy(leaves, tables, x_all[b], z_all[b], cell[b],
+                               cutoff, rows=rows)
+                for b in range(b_local)])
+            (g_r,) = torch.autograd.grad(e_r.sum(), x_all, create_graph=True)
+        energies = all_reduce_sum(e_r.detach(), sp_group)
+        forces = -all_reduce_sum(g_r.detach(), sp_group)[:, rows]
+        alive = (numbers != 0)[..., None]
+        dtype = positions.dtype
+        n_alive = torch.clamp(mesh_sum(alive.sum().to(dtype)), min=1)
+        n_systems = b_local * dp
+        de = energies - target_e
+        df = torch.where(alive, forces - target_f, torch.zeros_like(forces))
+        loss = (all_reduce_sum((de * de).sum(), dp_group) / n_systems
+                + mesh_sum((df * df).sum()) / n_alive)
+        # cotangents: dL/dE_r is dL/dE of the rank's systems, and dL/dg_r
+        # is -dL/dF (F = -sum of g_r over sp)
+        dl_de = 2.0 * de / n_systems
+        dl_df = all_gather_cat(2.0 * df / n_alive, sp_group, dim=1)
+        with torch.enable_grad():
+            grads = torch.autograd.grad(
+                (e_r, g_r), leaves, grad_outputs=(dl_de, -dl_df),
+                allow_unused=True)
+        grads = [mesh_sum(torch.zeros_like(p) if g is None else g)
+                 for p, g in zip(leaves, grads)]
+        return _sgd(leaves, grads, lr), loss
+
+    return step

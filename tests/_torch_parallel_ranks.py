@@ -7,8 +7,11 @@ package: inputs are made here with numpy from a seed, and the test module
 
 Every rank of a world runs every case of :data:`GRID_CASES`,
 :data:`PME_CASES` and :data:`BATCH_CASES` on CPU tensors in f64 (the
-kernels then run their plain versions) and checks the ``ValueError``
-cases; rank 0 writes the outputs to an ``.npz``.
+kernels then run their plain versions), the sharded MLIP training step on
+each ``(dp, sp)`` mesh of :data:`MLIP_MESHES` and, in a world of two, the
+rank body of ``entry.dryrun_multichip``, and checks the ``ValueError``
+cases; rank 0 writes the outputs (the MLIP step's of every rank) to an
+``.npz``.
 """
 
 import json
@@ -16,9 +19,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from nvalchemiops_torch import parallel
+from nvalchemiops_torch import entry, parallel
 from nvalchemiops_torch.grid import (
     build_atom_grid, estimate_grid_geometry, grid_coulomb_energy_forces,
 )
@@ -47,6 +51,13 @@ BATCH_ALPHA = 0.4
 #: output names of the grid cases
 GRID_KEYS = ("cn", "ec", "fc", "ed3", "fd3", "cnd3", "fused_ed3",
              "fused_fd3", "fused_cn", "fused_ec", "fused_fc")
+#: the sharded MLIP training step: the (dp, sp) meshes of each world size,
+#: on a batch of 4 systems x 16 atoms (every fifth a padding atom) that
+#: divides over each of them
+MLIP_MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4), (4, 1))}
+MLIP_ZMAX = 4
+MLIP_CUTOFF = 2.1
+MLIP_LR = 1e-3
 
 
 def grid_system(seed, n=800, box=32.0, zmax=4):
@@ -90,6 +101,56 @@ def batch_system(seed, b, n, box):
     rng = np.random.default_rng(seed)
     return (rng.uniform(0.0, box, (b, n, 3)), rng.normal(size=(b, n)),
             np.eye(3) * box)
+
+
+def mlip_train_batch(seed=31, b=4, n=16):
+    """The MLIP training batch (numpy): positions in boxes of 4.5-4.8 A
+    (per-system ``[B, 3, 3]`` cells), element ids with padding atoms,
+    energy and force targets."""
+    rng = np.random.default_rng(seed)
+    boxes = 4.5 + 0.1 * np.arange(b)
+    pos = rng.uniform(0.0, 1.0, (b, n, 3)) * boxes[:, None, None]
+    numbers = rng.integers(1, MLIP_ZMAX + 1, (b, n)).astype(np.int32)
+    numbers[:, ::5] = 0
+    cells = np.eye(3)[None] * boxes[:, None, None]
+    return (pos, numbers, cells, rng.normal(size=b),
+            rng.normal(size=(b, n, 3)) * 0.01)
+
+
+def mlip_weights():
+    """The port's f64 starting parameters and tables on the CPU."""
+    return (parallel.init_mlip_params(MLIP_ZMAX, F64, device="cpu"),
+            parallel.default_d3_tables(MLIP_ZMAX, dtype=F64, device="cpu"))
+
+
+def mlip_step(mesh=None, batch=None):
+    """``(new_params, loss)`` as numpy: the sharded step on ``mesh``'s
+    block of the batch, or with ``mesh=None`` the single-process
+    ``train_step`` on the whole batch."""
+    params, tables = mlip_weights()
+    batch = mlip_train_batch() if batch is None else batch
+    if mesh is None:
+        batch = tuple(torch.as_tensor(a) for a in batch)
+        new, loss = parallel.train_step(params, tables, batch, MLIP_CUTOFF,
+                                        MLIP_LR)
+    else:
+        step = parallel.sharded_train_step(mesh, MLIP_CUTOFF, MLIP_LR)
+        new, loss = step(params, tables,
+                         parallel.shard_batch(mesh, batch, device="cpu"))
+    return ({f: getattr(new, f).numpy() for f in new._fields},
+            loss.numpy())
+
+
+def check_shard_rejections(world):
+    """``shard_batch`` refuses a batch whose systems do not divide over dp
+    or whose atoms do not divide over sp (both meshes of every rank)."""
+    raised = 0
+    for dp, sp, b, n in ((world, 1, world + 1, 16), (1, world, 4, 17)):
+        mesh = parallel.make_mesh(dp=dp, sp=sp)
+        _raises(lambda: parallel.shard_batch(
+            mesh, mlip_train_batch(b=b, n=n), device="cpu"))
+        raised += 1
+    return raised
 
 
 def _t(a, dtype=F64, device="cpu"):
@@ -218,6 +279,20 @@ def run_cases(rank, world, out_path, names=None):
         if wanted(case[0]):
             for k, v in enumerate(batch_outputs(mesh, case)):
                 saved[f"{case[0]}/{k}"] = v
+    if wanted("mlip") and world > 1:
+        saved["mlip_bad_shapes"] = check_shard_rejections(world)
+        for dp, sp in MLIP_MESHES.get(world, ()):
+            got = [None] * world
+            dist.all_gather_object(got, mlip_step(parallel.make_mesh(
+                dp=dp, sp=sp)))
+            for r, (new, loss) in enumerate(got):
+                saved[f"mlip{dp}x{sp}/{r}/loss"] = loss
+                saved.update({f"mlip{dp}x{sp}/{r}/{f}": v
+                              for f, v in new.items()})
+    if wanted("dryrun") and world == 2:
+        # the rank body of entry.dryrun_multichip(2, device="cpu")
+        entry._dryrun_rank(rank, world, "cpu")
+        saved["dryrun"] = 1
     if rank == 0:
         np.savez(out_path, **{k: np.asarray(v) for k, v in saved.items()})
 

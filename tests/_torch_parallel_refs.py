@@ -18,6 +18,8 @@ from tests import _torch_parallel_ranks as R
 
 JAX_TOL = 1e-9
 SINGLE_TOL = 1e-10
+#: the sharded MLIP step against the single-process train_step
+MLIP_SINGLE_TOL = 1e-12
 GRID_KEYS = R.GRID_KEYS
 
 
@@ -95,6 +97,42 @@ def jax_batch(world, case):
         jnp.asarray(q), jnp.asarray(cell), R.BATCH_ALPHA, mesh_dims,
         compute_forces=True, engine=engine)
     return [np.asarray(a) for a in res]
+
+
+@functools.lru_cache(maxsize=None)
+def mlip_single():
+    """The port's single-process ``train_step`` on the MLIP batch."""
+    return R.mlip_step()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_mlip():
+    """The JAX package's ``train_step`` (jitted) on the MLIP batch, f64."""
+    pos, numbers, cells, te, tf = R.mlip_train_batch()
+    params = jpar.init_mlip_params(R.MLIP_ZMAX, jnp.float64)
+    tables = jpar.default_d3_tables(R.MLIP_ZMAX, dtype=jnp.float64)
+    batch = (jnp.asarray(pos), jnp.asarray(numbers), jnp.asarray(cells),
+             jnp.asarray(te), jnp.asarray(tf))
+    new, loss = jax.jit(jpar.train_step, static_argnums=(3, 4))(
+        params, tables, batch, R.MLIP_CUTOFF, R.MLIP_LR)
+    return ({f: np.asarray(getattr(new, f)) for f in new._fields},
+            np.asarray(loss))
+
+
+def check_mlip_mesh(got, world, dp, sp):
+    """Every rank's new parameters and loss from the sharded step on a (dp,
+    sp) mesh against the single-process step and the JAX step."""
+    new1, loss1 = mlip_single()
+    new_j, loss_j = jax_mlip()
+    for r in range(world):
+        key = f"mlip{dp}x{sp}/{r}"
+        within(got[f"{key}/loss"], loss1, MLIP_SINGLE_TOL,
+               f"{key} loss vs single process")
+        within(got[f"{key}/loss"], loss_j, JAX_TOL, f"{key} loss vs JAX")
+        for f, want in new1.items():
+            within(got[f"{key}/{f}"], want, MLIP_SINGLE_TOL,
+                   f"{key} {f} vs single process")
+            within(got[f"{key}/{f}"], new_j[f], JAX_TOL, f"{key} {f} vs JAX")
 
 
 def spawn_world(world, tmp_path_factory, names=None):

@@ -1522,8 +1522,8 @@ XLA_ROUTES = {
     "grid coulomb": ("window_sweep_coulomb",),
     "fused": ("window_sweep_cn", "window_sweep_d3_direct_coulomb",
               "window_sweep_chain"),
-    "batch grid": ("window_sweep_cn", "window_sweep_d3_direct",
-                   "window_sweep_chain"),
+    "batch grid": ("window_sweep_batch_cn", "window_sweep_batch_d3_direct",
+                   "window_sweep_batch_chain"),
     "batch dense": ("dense_pairs_cn", "dense_pairs_direct",
                     "dense_pairs_chain"),
     "neighbor count": (),
@@ -1535,7 +1535,8 @@ XLA_ROUTES = {
 @pytest.mark.parametrize("name", list(XLA_ROUTES))
 def test_xla_routes_on_card_match_cpu(cuda, name):
     """``engine="xla"`` on the card runs the kernels' routes (the window
-    engine, kernel 4, kernel 9) and launches exactly their kernels; in f32
+    engine, kernel 1 batched over the systems for the batch grid, kernel
+    4, kernel 9) and launches exactly their kernels; in f32
     it meets the f32 bar against the f64 call on CPU tensors.  The grid's
     neighbour counts (a plain sweep, no kernel) run in f64 and match
     exactly."""
@@ -1670,3 +1671,107 @@ def test_parallel_paths_on_card_match_single_process(cuda, tmp_path, backend,
     assert len(res) == len(ranks.GRID_KEYS) + 4
     for name, err in res.items():
         assert float(err) <= RTOL, (name, float(err))
+
+
+def _batch_window_case(device, seed=61, b=3, n=1500, box=16.0, cutoff=6.0):
+    """A batch of ``b`` systems with padding atoms and per-system cells on
+    one grid geometry, and its D3 arguments."""
+    rng = np.random.default_rng(seed)
+    tab = _d3_tables(rng)
+    frac = rng.uniform(0.0, 1.0, (b, n, 3))
+    cells = np.stack([np.eye(3) * box + np.triu(rng.normal(0.0, 0.2, (3, 3)),
+                                                1) for _ in range(b)])
+    pos = np.einsum("bnk,bkl->bnl", frac, cells)
+    numbers = rng.integers(1, 5, (b, n)).astype(np.int32)
+    numbers[:, ::7] = 0
+    f32 = torch.float32
+    return (torch.as_tensor(pos, dtype=f32, device=device), numbers,
+            torch.as_tensor(cells, dtype=f32, device=device),
+            np.array([True] * 3), cutoff, *tab, 0.42, 4.1, 1.7)
+
+
+def _per_system_loop(args):
+    """``grid_dftd3`` (one kernel-1 launch a pass and system) on each
+    system's part of the batch grid that ``batch_grid_dftd3`` builds."""
+    from nvalchemiops_torch import grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    pos, numbers, cells, pbc, cutoff = args[:5]
+    dims, radius, cap = grid.estimate_grid_geometry(
+        cells[0].cpu().numpy(), pbc, cutoff, pos.shape[1])
+    g = grid.batch_build_atom_grid(pos, cells, pbc, dims, radius, cap)
+    outs = [grid_d3.grid_dftd3(grid.system_grid(g, i), numbers[i],
+                               *args[5:9], cutoff, *args[9:],
+                               engine="window")
+            for i in range(pos.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def test_batched_window_kernel_matches_plain_and_the_loop(cuda):
+    """``batch_grid_dftd3`` on the card makes exactly three kernel-1
+    launches (one a pass, every system in each) and none per system; each
+    captured batched launch agrees with its plain version (the per-system
+    loop of ``window_sweep_plain``) and with per-system kernel-1 launches on
+    the same planes; the outputs agree with the per-system loop."""
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import window_sweep as ws
+
+    args = _batch_window_case(cuda)
+    calls = {}
+    orig = grid_d3.window_sweep_batch
+
+    def capture(body, *a, **kw):
+        calls.setdefault(body, (a, kw))
+        return orig(body, *a, **kw)
+
+    grid_d3.window_sweep_batch = capture
+    try:
+        reset_launch_counts()
+        got = grid_d3.batch_grid_dftd3(*args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts.items() if v}
+    finally:
+        grid_d3.window_sweep_batch = orig
+    assert counts == {"window_sweep_batch_cn": 1,
+                      "window_sweep_batch_d3_direct": 1,
+                      "window_sweep_batch_chain": 1}, counts
+    assert sorted(calls) == ["chain", "cn", "d3_direct"]
+    for body, (a, kw) in calls.items():
+        radius, own, cand, params = a
+        out_k = ws.window_sweep_batch(body, radius, own, cand, params, **kw)
+        out_p = ws.window_sweep_batch_plain(body, radius, own, cand, params,
+                                            **kw)
+        lf = kw.get("lf")
+        loop = [ws.window_sweep(body, radius, own[i], cand[i], params,
+                                lf=None if lf is None else lf[i])
+                for i in range(own.shape[0])]
+        torch.cuda.synchronize()
+        for k in range(2):
+            for f in range(out_k[k].shape[1]):
+                _close(out_k[k][:, f], out_p[k][:, f])
+                _close(out_k[k][:, f], torch.stack([o[k][f] for o in loop]))
+    want = _per_system_loop(args)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a, w)
+
+
+def test_train_step_on_card_matches_cpu_f64(cuda):
+    """``train_step`` at 4 x 64 atoms (6 A boxes) in f32 on the card
+    against f64 on the CPU: the loss within 1e-5 relative and each field
+    of the new parameters within 1e-6 of its scale."""
+    from nvalchemiops_torch import entry, parallel
+
+    out = {}
+    for dtype, dev in ((torch.float32, cuda), (torch.float64, "cpu")):
+        params = parallel.init_mlip_params(4, dtype, device=dev)
+        tables = parallel.default_d3_tables(4, dtype=dtype, device=dev)
+        batch = entry.make_batch(4, 64, dtype=dtype, device=dev)
+        out[dtype] = parallel.train_step(params, tables, batch, 2.9)
+    (new32, loss32), (new64, loss64) = out[torch.float32], out[torch.float64]
+    assert loss32.device.type == "cuda"
+    assert abs(loss32.item() - loss64.item()) <= 1e-5 * abs(loss64.item())
+    for f in new64._fields:
+        a, b = getattr(new32, f).double().cpu(), getattr(new64, f)
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item(), f

@@ -53,19 +53,19 @@ def _one_torch_thread():
 def test_namespace_holds_the_jax_subpackages_but_parallel():
     """Every name of the JAX package's ``__all__`` is an attribute of the
     port, ``parallel`` included, and so are both names of
-    ``interactions.__all__``.  ``parallel.__all__`` is the JAX list but
-    the training step (``shard_batch``, ``train_step``,
-    ``sharded_train_step``; ROADMAP queue 1 item 8), and the package holds
-    ``D3Tables`` and ``default_d3_tables`` as the JAX one does."""
+    ``interactions.__all__``.  ``parallel.__all__`` is the JAX list, the
+    training step (``train_step``, ``shard_batch``,
+    ``sharded_train_step``) included, and the package holds ``D3Tables``
+    and ``default_d3_tables`` as the JAX one does."""
     missing = [n for n in nvalchemiops_tpu.__all__
                if not hasattr(nvalchemiops_torch, n)]
     assert missing == []
     assert sorted(nvalchemiops_torch.__all__) == sorted(
         nvalchemiops_tpu.__all__)
     jpar, tpar = nvalchemiops_tpu.parallel, nvalchemiops_torch.parallel
-    assert set(jpar.__all__) - set(tpar.__all__) == {
-        "shard_batch", "train_step", "sharded_train_step"}
-    assert set(tpar.__all__) <= set(jpar.__all__)
+    assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    for n in ("train_step", "shard_batch", "sharded_train_step"):
+        assert callable(getattr(tpar, n)), n
     for n in tpar.__all__ + ["D3Tables", "default_d3_tables"]:
         assert hasattr(tpar, n), n
     assert sorted(nvalchemiops_tpu.interactions.__all__) == sorted(
@@ -98,8 +98,9 @@ def test_mathops_and_grid_export_the_jax_lists():
 
 
 def test_import_builds_no_kernel_and_imports_no_jax():
-    """In a fresh interpreter, importing the package and its subpackages
-    neither builds nor loads the kernel library, and imports no JAX."""
+    """In a fresh interpreter, importing the package, its subpackages and
+    the entry points (``nvalchemiops_torch.entry``) neither builds nor
+    loads the kernel library, and imports no JAX."""
     code = (
         "import sys\n"
         "import nvalchemiops_torch as t\n"
@@ -107,6 +108,7 @@ def test_import_builds_no_kernel_and_imports_no_jax():
         "import nvalchemiops_torch.parallel\n"
         "t.grid, t.spline_windowed, t.interactions.electrostatics\n"
         "t.parallel.domain, t.parallel.mlip, t.parallel.batch_pme\n"
+        "import nvalchemiops_torch.entry\n"
         "assert load_library.cache_info().currsize == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nvalchemiops_tpu', 'triton')]\n"

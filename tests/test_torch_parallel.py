@@ -62,11 +62,34 @@ def test_sharded_batch_pme_matches_jax_and_single_process(outputs, case):
     refs.check_pme_case(outputs, WORLD, case, refs.jax_batch)
 
 
+@pytest.mark.parametrize("mesh", R.MLIP_MESHES[WORLD],
+                         ids=lambda m: f"dp{m[0]}xsp{m[1]}")
+def test_sharded_train_step_matches_single_process_and_jax(outputs, mesh):
+    """``sharded_train_step`` on a ``(dp, sp)`` mesh of the world: every
+    rank's new parameters and global loss within 1e-12 of the
+    single-process ``train_step`` on the whole batch and within 1e-9 of
+    the JAX ``train_step`` (f64, each field's scale)."""
+    refs.check_mlip_mesh(outputs, WORLD, *mesh)
+
+
+def test_shard_batch_rejects_indivisible_shapes(outputs):
+    """Every rank got ``ValueError`` from ``shard_batch`` for a batch of D
+    + 1 systems on a ``(D, 1)`` mesh and one of 17 atoms on ``(1, D)``."""
+    assert int(outputs["mlip_bad_shapes"]) == 2
+
+
 def test_rejections_ran(outputs):
     """Every rank checked the ``ValueError`` cases: a 3-cell z axis does
     not split into slabs, a batch of D + 1 does not divide, the windows
     reject a 36^3 mesh, an 8^3 mesh has one tile."""
     assert int(outputs["bad_cz"]) == 3
+
+
+def test_dryrun_multichip_rank_body_ran(outputs):
+    """Both ranks ran ``entry.dryrun_multichip``'s rank body on the CPU
+    (the sharded training step at 2 x 32 atoms, the domain sweeps, the
+    tile-split and batch-split PME, every output finite)."""
+    assert int(outputs["dryrun"]) == 1
 
 
 def test_world_of_one_is_the_local_ring(tmp_path_factory):

@@ -143,6 +143,41 @@ def test_walk_covers_the_parallel_list():
         assert _same_default(port[pname].default, par.default), pname
 
 
+def test_entry_points_take_the_jax_parameters_first():
+    """``entry`` and ``dryrun_multichip`` of ``nvalchemiops_torch.entry``
+    take the parameters of the JAX package's entry points in their order
+    (none, and ``n_devices``), then the port's ``device`` and
+    ``backend``, both defaulting to None (the card, and NCCL there)."""
+    import __graft_entry__ as jentry
+    from nvalchemiops_torch import entry
+
+    assert entry.__all__ == ["entry", "dryrun_multichip"]
+    for name, extra in (("entry", ["device"]),
+                        ("dryrun_multichip", ["device", "backend"])):
+        port = inspect.signature(getattr(entry, name)).parameters
+        ref = list(inspect.signature(getattr(jentry, name)).parameters)
+        assert list(port) == ref + extra, name
+        assert all(port[p].default is None for p in extra), name
+
+
+def test_training_step_signatures():
+    """``train_step`` and ``sharded_train_step`` take JAX's ``lr=1e-3``;
+    ``shard_batch`` adds the port's ``device`` after JAX's ``(mesh,
+    batch)``; ``loss_fn`` (outside both ``__all__`` lists) matches too."""
+    import nvalchemiops_tpu.parallel.mlip as jmlip
+    from nvalchemiops_torch.parallel import mlip as tmlip
+
+    for name in ("train_step", "sharded_train_step", "loss_fn",
+                 "shard_batch"):
+        port = inspect.signature(getattr(tmlip, name)).parameters
+        ref = inspect.signature(getattr(jmlip, name)).parameters
+        assert list(port)[:len(ref)] == list(ref), name
+        for pname, par in ref.items():
+            assert port[pname].default == par.default, (name, pname)
+    assert list(inspect.signature(tmlip.shard_batch).parameters) == [
+        "mesh", "batch", "device"]
+
+
 def _dtype_name(x):
     """The name of a torch, numpy or JAX dtype (or dtype type), else
     None."""
