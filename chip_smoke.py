@@ -134,7 +134,24 @@ hand-written CUDA kernels built from ``nvalchemiops_torch/csrc``:
     launches a call and no per-system one, the outputs against the
     per-system loop (``BATCH_WINDOW_FORCE_BARS``) and both against the
     f64 plain path, each batched launch replayed against its plain
-    version, the batched call and the loop timed and profiled.
+    version, the batched call and the loop timed and profiled;
+19. kernels 1, 7 and 8 where one cell's window overflows shared memory,
+    kernels 7 and 8 batched, and the f64 and device routes
+    (``run_overflow``, run before phase 17): ``batch_grid_dftd3`` on phase
+    6's 128 x 2,000 batch at 21.2 A (dims 1^3, cap 3,032) on the window,
+    block and pallas engines, three launches a call, each against kernel
+    4's plain version in f64 on the card within 1.25x kernel 4's own f32
+    error; ``grid_dftd3`` on the JAX dry run's 400 atoms (cap 1,336) on
+    each engine against ``dftd3`` in f64 on the card, and kernel 1 there
+    with its own slots split over blocks; kernels 7 and 8 batched on the
+    grid branch and the 9 A batch against the per-system loop and kernel 1
+    batched (``BATCH_WINDOW_FORCE_BARS``), timed beside the loop; each
+    batched launch timed on the whole batch with its bound from the pair
+    slots it tests and replayed against its plain version on its first
+    systems; ``grid_dftd3``, ``dense_dftd3`` and ``pme_reciprocal_space`` in
+    f64 on the card against the CPU (``F64_ROUTE_RTOL``, no launch) and in
+    f32 launching their kernels; a kernel call on cuda:1 where the machine
+    has a second card.
 
 Every drive of phases 10-12 captures its kernel calls and replays them
 against their plain versions, and forbids every pair-sweep kernel off its
@@ -461,14 +478,31 @@ SHARDED_DEADLINE_S = 300
 BATCH_WINDOW_RTOL = KERNEL_RTOL
 BATCH_WINDOW_FORCE_BARS = {"grid branch": 1.372e-5, "128 x 2000": 4.258e-5}
 BATCH_WINDOW_WITNESS = 4
+# phase 19: kernels 1, 7 and 8 where one cell's window overflows shared
+# memory, kernels 7 and 8 batched, and the f64 and device routes.  19a:
+# batch_grid_dftd3 on phase 6's 128 x 2,000 batch in 41.2 A boxes at 21.2 A
+# (dims 1^3, cap 3,032) on each engine, its f32 forces on the first
+# OVERFLOW_WITNESS systems against kernel 4's plain version in f64 on the
+# card (batch_dftd3 given f64 inputs) within 1.25x kernel 4's own f32
+# error (max rel, RMS rel) against the same witness; kernel vs plain on
+# the whole batch.  19b: grid_dftd3 on the JAX
+# dry run's 400 atoms (4 A box, 4 A, occupancy 0.3: cap 1,336) against
+# dftd3 in f64 on the card at the JAX f32 D3 bar (1.25x).  19c: kernels 7
+# and 8 batched on the grid branch and the 9 A batch, against the
+# per-system loop and kernel 1 batched within BATCH_WINDOW_RTOL (energies,
+# CNs) and BATCH_WINDOW_FORCE_BARS (forces); kernel vs plain on the whole
+# batch.  19d: f64 on the card against the CPU
+# within F64_ROUTE_RTOL of scale, no launch
+OVERFLOW_ENGINES = {"window": "window_sweep", "block": "chunk_sweep",
+                    "pallas": "row_sweep"}
+OVERFLOW_WITNESS = 2
+F64_ROUTE_RTOL = 1e-10
+# the blocks a cell's own slots are split over in 19b's probe of kernel 1
+OWN_SPLIT = 16
 
 KERNEL_SOURCES = {
     "window_sweep": ("nvalchemiops_torch/csrc/window_sweep.cu",
                      "nvalchemiops_tpu/pallas/window_sweep.py:165"),
-    # kernel 1 over every system of a batch grid in one launch (the JAX
-    # package vmaps the same pallas_call over the batch)
-    "window_sweep_batch": ("nvalchemiops_torch/csrc/window_sweep.cu",
-                           "nvalchemiops_tpu/pallas/window_sweep.py:165"),
     "windowed_spread": ("nvalchemiops_torch/csrc/windowed_gather.cu",
                         "nvalchemiops_tpu/pallas/windowed_gather.py:134"),
     "windowed_gather_grad": ("nvalchemiops_torch/csrc/windowed_gather.cu",
@@ -486,13 +520,13 @@ KERNEL_SOURCES = {
     "stencil_sweep": ("nvalchemiops_torch/csrc/stencil_sweep.cu",
                       "nvalchemiops_tpu/pallas/stencil_sweep.py:46"),
 }
-# the half-space pair sweeps over the halo grid (kernels 1, 7, 8; kernel 1
-# also batched)
-GRID_SWEEPS = ("window_sweep", "window_sweep_batch", "row_sweep",
-               "chunk_sweep")
-# kernel 1's batched launches, one a D3 pass
-BATCH_KEYS = ["window_sweep_batch_cn", "window_sweep_batch_d3_direct",
-              "window_sweep_batch_chain"]
+# the half-space pair sweeps over the halo grid (kernels 1, 7, 8; each
+# takes one grid's planes or a batched grid's, with a leading system axis)
+GRID_SWEEPS = ("window_sweep", "row_sweep", "chunk_sweep")
+# kernel 1's launches under batch_grid_dftd3, one a D3 pass for every
+# system (a batched launch counts under the same key as one grid's)
+BATCH_KEYS = ["window_sweep_cn", "window_sweep_d3_direct",
+              "window_sweep_chain"]
 # launch-count prefixes of every pair-sweep kernel: a drive of phases 10-12
 # forbids each one off its path
 SWEEP_COUNT_PREFIXES = ("window_sweep_", "row_sweep_", "chunk_sweep_",
@@ -526,14 +560,36 @@ def cuda_time_ms(fn, reps=5):
     return statistics.median(times)
 
 
-#: profiler runs of :func:`device_time_ms` that recorded fewer kernel
-#: launches than calls, and were taken again: (busy us, launches, reps,
-#: margin s)
+#: profiler runs of :func:`device_time_ms` that lost device events and
+#: were taken again: (device events kept by kernel name, runtime launches
+#: the host recorded, reps, mode)
 LOST_PROFILES = []
-#: the margins (s) of host time that a retry of :func:`device_time_ms`
-#: leaves inside the profiler's window before the first call and after the
-#: last: 0 on the first run
-PROFILE_MARGINS_S = (0.0, 0.01, 0.05, 0.25, 1.0)
+#: how the runs of one :func:`device_time_ms` call issue their ``reps``
+#: calls: back to back first, then with the card synchronized after each
+#: call, which mostly kept every event where back to back lost some
+#: (PERF.md section 6, PR 16's chip-check follow-up)
+PROFILE_MODES = ("back to back", "sync each", "sync each")
+
+
+def device_events(prof):
+    """The device events one torch.profiler run kept: their count by
+    kernel name, their summed time (us), and the launches, memsets and
+    copies the host recorded, each of which makes one device event."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    kept = Counter()
+    busy = 0.0
+    launched = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kept[e.name] += 1
+            busy += e.time_range.elapsed_us()
+        elif e.name.startswith("cu") and any(
+                w in e.name for w in ("Launch", "Memset", "Memcpy")):
+            launched += 1
+    return kept, busy, launched
 
 
 def device_time_ms(fn, reps=5):
@@ -542,38 +598,45 @@ def device_time_ms(fn, reps=5):
     over ``reps``.  Unlike :func:`cuda_time_ms` it leaves out the time the
     card waits for the host between launches.
 
-    Every call of ``fn`` launches at least one kernel, so a run that
-    records fewer launches than calls has lost device events (some runs
-    lose the last calls' events, some every one; PERF.md section 7).  Such a run is noted in ``LOST_PROFILES`` and taken
-    again with a wider margin of idle host time on both sides of the calls
-    inside the profiler's window (``PROFILE_MARGINS_S``): a device clock
-    that drifts from the host's would put the events outside a tight
-    window.  When every margin loses events this raises: it never returns
-    None."""
-    from torch.autograd import DeviceType
+    Every call of ``fn`` launches the same kernels, so a run has kept all
+    its device events only where each kernel name's count is a multiple of
+    ``reps`` and there are at least as many as the host recorded launches,
+    memsets and copies (:func:`device_events`).  The profiler drops device
+    events of whole calls late in a long process (PERF.md section 7), and
+    a count of at least ``reps``, the earlier test, let three calls of
+    five pass as the device time.  A
+    run that lost events is noted in ``LOST_PROFILES`` and taken again
+    (``PROFILE_MODES``).  When every run loses events this returns None,
+    printed as not measured: the device time is a reading beside the
+    CUDA-event time (which the kernels line's ``ms`` carries), never a
+    check, so a profiler that drops events does not fail the run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for margin in PROFILE_MARGINS_S:
+    for mode in PROFILE_MODES:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      acc_events=True) as prof:
-            time.sleep(margin)
             for _ in range(reps):
                 fn()
+                if mode == "sync each":
+                    torch.cuda.synchronize()
             torch.cuda.synchronize()
-            time.sleep(margin)
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kern)
-        launches = sum(e.count for e in kern)
-        if busy > 0 and launches >= reps:
+        kept, busy, launched = device_events(prof)
+        if busy > 0 and sum(kept.values()) >= launched and all(
+                c % reps == 0 for c in kept.values()):
             return busy / 1e3 / reps
-        LOST_PROFILES.append((busy, launches, reps, margin))
-    tries = len(PROFILE_MARGINS_S)
-    raise RuntimeError(f"device_time_ms: {tries} profiler runs of {reps} "
-                       f"calls lost device events: {LOST_PROFILES[-tries:]}")
+        LOST_PROFILES.append(({k[:48]: c for k, c in kept.items()},
+                              launched, reps, mode))
+    phase(f"device time not measured: {len(PROFILE_MODES)} profiler "
+          f"runs of {reps} calls lost device events: "
+          f"{LOST_PROFILES[-len(PROFILE_MODES):]}")
+    return None
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 class Capture:
@@ -609,8 +672,6 @@ def install_capture():
     for mod in (grid, grid_d3):
         cap.wrap(mod, "window_sweep", lambda body, *a: f"window_sweep[{body}]")
         cap.wrap(mod, "chunk_sweep", lambda body, *a: f"chunk_sweep[{body}]")
-    cap.wrap(grid_d3, "window_sweep_batch",
-             lambda body, *a: f"window_sweep_batch[{body}]")
     cap.wrap(grid_d3, "row_sweep", lambda body, *a: f"row_sweep[{body}]")
     cap.wrap(stencil, "stencil_sweep",
              lambda body, *a: f"stencil_sweep[{body}]")
@@ -653,7 +714,7 @@ def work(key, args, kwargs, out, ctx):
         # the spread reads Sx | Sy | Sz; the derivative columns feed the gather
         smat, q_t, w = args
         reads = [smat[..., :3 * w], q_t]
-    batched = base == "window_sweep_batch"
+    batched = base in GRID_SWEEPS and args[2].dim() == 6
     if base in GRID_SWEEPS:
         # the half-space windows never reach the low z halo, nor the low y
         # halo of the first interior plane; j_out is written where read
@@ -671,7 +732,7 @@ def work(key, args, kwargs, out, ctx):
             # e[mesh], edc[mesh] (1 + 2 mesh floats a slot), so the extra
             # traffic of the wide form shows as distance from the bound
             nk = 1 + 2 * ctx["mesh"]
-            reads += [cf[rz + 1:, ..., :nk], cf[rz, ry:, ..., :nk]]
+            reads += [cf[hi[1:]][..., :nk], cf[row[1:]][..., :nk]]
         outs = (outs[0], j_out[hi], j_out[row])
     nbytes = _nbytes(*reads, *outs)
     if base in GRID_SWEEPS or base == "stencil_sweep":
@@ -782,6 +843,33 @@ def parent_key(key, args, ctx):
     return key
 
 
+def kernel_vs_plain(label, base, out_k, out_p, batched):
+    """Hold a kernel's outputs against its plain version's: each plane of a
+    pair sweep on its own scale (a batched sweep's plane over every
+    system), every other output whole, within ``KERNEL_RTOL`` of its
+    scale.  Returns the kernel's outputs as a tuple (a batched sweep's
+    [F, B, ..]), the largest absolute error and the worst relative one."""
+    split = base in GRID_SWEEPS + ("dense_pairs", "stencil_sweep")
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    if batched:
+        # [B, F, ..] -> [F, B, ..]: each plane over every system
+        out_k = tuple(t.transpose(0, 1) for t in out_k)
+        out_p = tuple(t.transpose(0, 1) for t in out_p)
+    max_abs, worst_rel = 0.0, 0.0
+    for tk, tp in zip(out_k, out_p):
+        for a, b in zip(tk if split else [tk], tp if split else [tp]):
+            err = (a.double() - b.double()).abs().max().item()
+            scale = b.double().abs().max().item()
+            if not np.isfinite(err) or err > KERNEL_RTOL * scale:
+                raise AssertionError(
+                    f"{label}: kernel vs plain max abs err {err:.3e} > "
+                    f"{KERNEL_RTOL:g} x scale {scale:.3e}")
+            max_abs = max(max_abs, err)
+            worst_rel = max(worst_rel, err / scale if scale else 0.0)
+    return out_k, max_abs, worst_rel
+
+
 def compare_kernels(calls, label, ctx=None):
     """Replay each captured call through kernel and plain version; with
     ``ctx`` also time the library call and compute the bound, and with
@@ -799,8 +887,6 @@ def compare_kernels(calls, label, ctx=None):
 
     pairs = {
         "window_sweep": (ws.window_sweep, ws.window_sweep_plain),
-        "window_sweep_batch": (ws.window_sweep_batch,
-                               ws.window_sweep_batch_plain),
         "windowed_spread": (wg.spread_windows, wg.spread_windows_plain),
         "windowed_gather_grad": (wg.gather_grad_planes,
                                  wg.gather_grad_planes_plain),
@@ -822,25 +908,9 @@ def compare_kernels(calls, label, ctx=None):
             raise AssertionError(f"{label} {key}: launch count did not move")
         out_p = plain(*args, **kwargs)
         torch.cuda.synchronize()
-        # the pair sweeps return stacked planes: each plane on its own scale
-        split = base in GRID_SWEEPS + ("dense_pairs", "stencil_sweep")
-        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        if base == "window_sweep_batch":
-            # [B, F, ..] -> [F, B, ..]: each plane over every system
-            out_k = tuple(t.transpose(0, 1) for t in out_k)
-            out_p = tuple(t.transpose(0, 1) for t in out_p)
-        max_abs, worst_rel = 0.0, 0.0
-        for tk, tp in zip(out_k, out_p):
-            for a, b in zip(tk if split else [tk], tp if split else [tp]):
-                err = (a.double() - b.double()).abs().max().item()
-                scale = b.double().abs().max().item()
-                if not np.isfinite(err) or err > KERNEL_RTOL * scale:
-                    raise AssertionError(
-                        f"{label} {key}: kernel vs plain max abs err {err:.3e}"
-                        f" > {KERNEL_RTOL:g} x scale {scale:.3e}")
-                max_abs = max(max_abs, err)
-                worst_rel = max(worst_rel, err / scale if scale else 0.0)
+        batched = base in GRID_SWEEPS and args[2].dim() == 6
+        out_k, max_abs, worst_rel = kernel_vs_plain(f"{label} {key}", base,
+                                                    out_k, out_p, batched)
         ms = cuda_time_ms(lambda: kern(*args, **kwargs))
         plain_ms = cuda_time_ms(lambda: plain(*args, **kwargs))
         shape = tuple(next(a for a in args
@@ -851,9 +921,8 @@ def compare_kernels(calls, label, ctx=None):
                f"{plain_ms:.4f} ms")
         if ctx is not None:
             nbytes, flops = work(key, args, kwargs, tuple(
-                t.transpose(0, 1) for t in out_k) if base ==
-                "window_sweep_batch" else out_k if len(out_k) > 1
-                else out_k[0], ctx)
+                t.transpose(0, 1) for t in out_k) if batched
+                else out_k if len(out_k) > 1 else out_k[0], ctx)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FP32_PER_S * 1e3
             lib = library_call(key, args)
@@ -863,14 +932,15 @@ def compare_kernels(calls, label, ctx=None):
             row["device_ms"] = device_time_ms(lambda: kern(*args, **kwargs))
             row["library_device_ms"] = device_time_ms(lib) if lib else None
             parent = PARENT_DEVICE_MS.get(parent_key(key, args, ctx))
-            msg += f" (device {row['device_ms']} ms"
+            msg += f" (device {_ms(row['device_ms'])}"
             wanted = ctx.get("parent")
             if parent is not None and (wanted is True or wanted
                                        and base in wanted):
                 msg += f"; parent tree {parent} ms"
-            msg += (f") library "
-                    f"{row['library_ms']} ms (device "
-                    f"{row['library_device_ms']} ms) bound "
+            library = (f"{row['library_ms']} ms (device "
+                       f"{_ms(row['library_device_ms'])})" if lib
+                       else "none")
+            msg += (f") library {library} bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                     f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         phase(msg)
@@ -939,13 +1009,15 @@ def spread_plan_variants(calls, label):
         phase(f"{label} dense spread under plan '{name}' (planes "
               f"{plan.planes}, rows {plan.rows}, {plan.blocks} blocks, "
               f"{plan.smem_bytes} B shared): kernel {ms:.4f} ms (device "
-              f"{dev_ms} ms), max_abs_err {err:.3e}")
+              f"{_ms(dev_ms)}), max_abs_err {err:.3e}")
 
 
 def profile_step(label, fn, top=6):
     """Host wall (synchronized, median of 3 after a warm-up), device busy
     time (the sum of CUDA kernel times in one torch.profiler run), the idle
-    share and the kernels that take the most device time."""
+    share and the kernels that take the most device time; the busy time
+    is marked a lower bound where the run lost device events
+    (:func:`device_events`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -962,20 +1034,24 @@ def profile_step(label, fn, top=6):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    launches = sum(e.count for e in kern)
+    kept, busy, launched = device_events(prof)
+    busy /= 1e3
+    launches = sum(kept.values())
     if busy == 0.0:
         phase(f"profile {label}: host wall {wall:.3f} ms; device time not "
               "measured (the profiler saw no kernel time)")
         return
+    lost = ("" if launches >= launched else
+            f" (at least: the profiler kept {launches} device events of "
+            f"the host's {launched} launches, memsets and copies)")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
     kern.sort(key=lambda e: -e.self_device_time_total)
     tops = "; ".join(f"{e.key[:60]} x{e.count} "
                      f"{e.self_device_time_total / 1e3:.3f} ms"
                      for e in kern[:top])
     phase(f"profile {label}: host wall {wall:.3f} ms (synchronized, median "
-          f"of 3), device busy {busy:.3f} ms, idle share "
+          f"of 3), device busy {busy:.3f} ms{lost}, idle share "
           f"{1.0 - busy / wall:.3f}, {launches} kernel launches; "
           f"top: {tops}")
 
@@ -1085,14 +1161,13 @@ def d3_batch_system(dev):
 def run_batched_d3(dev):
     """Phases 6 and 7; returns the dense capture, counts and bound
     context, and the 21.2 A batch's energies and forces."""
-    from nvalchemiops_torch.interactions.dispersion import dense_d3
     from nvalchemiops_torch.interactions.dispersion.dense_d3 import (
         _image_combos, batch_dense_dftd3, batch_dftd3, batch_route,
     )
     from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
         batch_grid_dftd3,
     )
-    from nvalchemiops_torch.kernels.dense_pairs import dense_pairs_plain
+    from nvalchemiops_torch.kernels import launch_counts
     from nvalchemiops_torch.grid import (
         batch_build_atom_grid, estimate_grid_geometry,
     )
@@ -1102,16 +1177,17 @@ def run_batched_d3(dev):
     a1, a2, s8 = D3_PARAMS
     pbc = np.array([True] * 3)
     dense_keys = ["dense_pairs_cn", "dense_pairs_direct", "dense_pairs_chain"]
-    grid_keys = ["window_sweep_cn", "window_sweep_d3_direct",
-                 "window_sweep_chain", *BATCH_KEYS]
+    grid_keys = [k for k in launch_counts
+                 if k.startswith(("window_sweep_", "row_sweep_",
+                                  "chunk_sweep_"))]
     d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
 
     def f64_witness(p, cell_, cut_):
-        """Forces of the port's dense D3 on the plain sweep in f64."""
-        with plain_kernels(dense_d3, dense_pairs=dense_pairs_plain):
-            return batch_dense_dftd3(
-                p.double(), numbers[:len(p)], cell_.double(), cut_,
-                *(t.astype(np.float64) for t in tables), a1, a2, s8)[1]
+        """Forces of the port's dense D3 in f64: the plain sweep (f64
+        inputs take the plain versions on the card)."""
+        return batch_dense_dftd3(
+            p.double(), numbers[:len(p)], cell_.double(), cut_,
+            *(t.astype(np.float64) for t in tables), a1, a2, s8)[1]
 
     # -- 21.2 A in 41.2 A boxes: 4 image combos --------------------------
     box, cut = cfg["matched_box"], cfg["matched_cutoff"]
@@ -1199,9 +1275,12 @@ def run_batched_d3(dev):
                f"{g['cutoff']} A (dims {dims}, cap {gcap}, observed "
                f"occupancy {occ})")
     capture_g = install_capture()
-    (e_g, f_g, _), _ = drive(label_g, run_g, BATCH_KEYS,
-                             forbid=dense_keys + grid_keys[:3])
+    (e_g, f_g, _), counts_g = drive(label_g, run_g, BATCH_KEYS,
+                                    forbid=dense_keys)
     capture_g.restore()
+    if any(counts_g[k] != 1 for k in BATCH_KEYS):
+        raise AssertionError(f"grid branch: not one kernel-1 launch a pass "
+                             f"for the batch: {counts_g}")
     compare_kernels(capture_g.calls, f"batched D3 grid branch cap {gcap}")
     del capture_g
     if not torch.isfinite(e_g).all():
@@ -1233,12 +1312,8 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
     """Phase 8; returns the dense and fallback captures, counts, contexts,
     and the composite's dense spread call with its context."""
     from nvalchemiops_torch import composite
-    from nvalchemiops_torch.interactions.electrostatics import pme
     from nvalchemiops_torch.interactions.electrostatics.pme import (
         batch_pme_reciprocal, pme_reciprocal_space,
-    )
-    from nvalchemiops_torch.kernels.separable_spline import (
-        separable_gather_plain, separable_spread_plain,
     )
 
     cfg = PME_BATCH
@@ -1307,11 +1382,9 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
     # both f32 engines against the dense path on the plain kernels in f64:
     # the fallback within 1.25x the windowed engine's own error, then the
     # two against each other
-    with plain_kernels(pme, separable_spread=separable_spread_plain,
-                       separable_gather=separable_gather_plain):
-        _, f_fb64 = pme_reciprocal_space(
-            pos_f.double(), q_f.double(), cell_f.double(), alpha_f,
-            mesh_dimensions=FULL_MESH, compute_forces=True, tile_capacity=1)
+    _, f_fb64 = pme_reciprocal_space(
+        pos_f.double(), q_f.double(), cell_f.double(), alpha_f,
+        mesh_dimensions=FULL_MESH, compute_forces=True, tile_capacity=1)
     err_w = check_errors("PME 128^3 windowed f32 vs f64 plain dense", f_p_full,
                          f_fb64, (math.inf, math.inf))
     check_errors("PME 128^3 fallback f32 vs f64 plain dense", f_fb, f_fb64,
@@ -1488,10 +1561,7 @@ def run_stencil(dev):
     """Phase 12; returns the kernel rows with their launches."""
     from nvalchemiops_torch import composite, stencil
     from nvalchemiops_torch.grid import grid_coulomb_energy_forces
-    from nvalchemiops_torch.interactions.dispersion import grid_d3
     from nvalchemiops_torch.interactions.dispersion.grid_d3 import grid_dftd3
-    from nvalchemiops_torch.kernels.stencil_sweep import stencil_sweep_plain
-    from nvalchemiops_torch.kernels.window_sweep import window_sweep_plain
 
     cfg = HYBRID
     cutoff, alpha = cfg["cutoff"], cfg["alpha"]
@@ -1588,11 +1658,9 @@ def run_stencil(dev):
     n_rep = cfg["witness_n_rep"]
     label = f"crystal {n_rep ** 3} atoms"
     k32 = runs(*setup(n_rep, torch.float32))
-    with plain_kernels(grid_d3, window_sweep=window_sweep_plain), \
-            plain_kernels(stencil, stencil_sweep=stencil_sweep_plain):
-        p64 = runs(*setup(n_rep, torch.float64))
-        f64_d3 = p64[0]("stencil")()["d3"]
-        f64_c = p64[1]()["coulomb"]
+    p64 = runs(*setup(n_rep, torch.float64))
+    f64_d3 = p64[0]("stencil")()["d3"]
+    f64_c = p64[1]()["coulomb"]
     d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
     c_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["coulomb"])
     for cn_mode in ("stencil", "row"):
@@ -1648,9 +1716,6 @@ def run_neighbor_electrostatics(dev, full):
         ewald_reciprocal_space, ewald_summation,
         generate_k_vectors_ewald_summation, grid_particle_mesh_ewald,
         particle_mesh_ewald, pme, pme_reciprocal_space,
-    )
-    from nvalchemiops_torch.kernels.separable_spline import (
-        separable_gather_plain, separable_spread_plain,
     )
     from nvalchemiops_torch.neighborlist import (
         assert_max_neighbors, cell_list, naive_neighbor_list, neighbor_list,
@@ -1716,11 +1781,9 @@ def run_neighbor_electrostatics(dev, full):
                                      mesh_dimensions=mesh36,
                                      compute_forces=True),
         dense_keys, forbid=win_keys)
-    with plain_kernels(pme, separable_spread=separable_spread_plain,
-                       separable_gather=separable_gather_plain):
-        _, f36_64 = pme_reciprocal_space(
-            pos_c.double(), q_c.double(), cell_c.double(), alpha,
-            mesh_dimensions=mesh36, compute_forces=True)
+    _, f36_64 = pme_reciprocal_space(
+        pos_c.double(), q_c.double(), cell_c.double(), alpha,
+        mesh_dimensions=mesh36, compute_forces=True)
     check_errors("composite PME 36^3 dense route f32 kernels vs f64 plain",
                  f36, f36_64, tuple(BAR_FACTOR * v
                                     for v in JAX_F32_BARS["pme"]))
@@ -1928,7 +1991,7 @@ def run_neighbor_electrostatics(dev, full):
         dev_ms = device_time_ms(recip, reps=3)
         phase(f"ewald_reciprocal_space energies {b} x {n_s} "
               f"({kv.shape[1]} k-vectors): {ms:.3f} ms (CUDA events, median"
-              f" of 3), device {dev_ms:.3f} ms (reference H100 "
+              f" of 3), device {_ms(dev_ms)} (reference H100 "
               f"{REFERENCE_MS.get(f'ewald recip {b} x {n_s:,}')} ms)")
 
 
@@ -1981,7 +2044,6 @@ def run_surface(dev, full):
         DENSE_PAIR_CHUNK,
     )
     from nvalchemiops_torch.kernels import separable_spline as ss
-    from nvalchemiops_torch.kernels import windowed_gather as wg
     from nvalchemiops_torch.neighborlist import (
         assert_max_neighbors, neighbor_list,
     )
@@ -2132,13 +2194,8 @@ def run_surface(dev, full):
                     pos, meshes[c], cell)),
                 ("vec3", vec[:, c], q * spline.spline_gather(
                     pos, vfield[..., c], cell))])
-        with plain_kernels(sw, spread_windows=wg.spread_windows_plain,
-                           gather_grad_planes=wg.gather_grad_planes_plain), \
-                plain_kernels(spline,
-                              separable_spread=ss.separable_spread_plain,
-                              separable_gather=ss.separable_gather_plain):
-            ref = channel_calls(pos.double(), vals.double(), q.double(),
-                                cell.double(), meshes=meshes.double())
+        ref = channel_calls(pos.double(), vals.double(), q.double(),
+                            cell.double(), meshes=meshes.double())
         errs = [check_rel(f"{label} {name} f32 vs f64 plain", a, b,
                           CHANNEL_F32_RTOL)
                 for name, a, b in zip(("spread", "gather", "vec3"),
@@ -2165,10 +2222,8 @@ def run_surface(dev, full):
     capture.restore()
     replays.append((f"{label} matmul", capture.calls))
     e_x, f_x = batch_pme("xla")
-    with plain_kernels(pme, separable_spread=ss.separable_spread_plain,
-                       separable_gather=ss.separable_gather_plain):
-        e_64, f_64 = batch_pme("xla", pos_b.double(), q_b.double(),
-                               cell_b.double())
+    e_64, f_64 = batch_pme("xla", pos_b.double(), q_b.double(),
+                           cell_b.double())
     check_errors(f"{label} matmul vs xla forces", f_m, f_x,
                  SURFACE_BARS["matmul_vs_xla"])
     check_errors(f"{label} matmul vs xla energies", e_m, e_x,
@@ -2188,7 +2243,7 @@ def run_surface(dev, full):
     phase(f"{label} E+F: fft_mode='matmul' {times['matmul']:.3f} ms, 'xla' "
           f"{times['xla']:.3f} ms (CUDA events, median of 5); the "
           f"convolution alone (Green's function included) device "
-          f"{conv['matmul']:.4f} ms vs {conv['xla']:.4f} ms")
+          f"{_ms(conv['matmul'])} vs {_ms(conv['xla'])}")
     del e_m, f_m, e_x, e_64, mesh_q
 
     # -- 14.5: dense Coulomb --------------------------------------------------
@@ -2367,7 +2422,6 @@ def run_dftd3(dev, full):
         realistic_test_tables,
     )
     from nvalchemiops_torch.kernels import launch_counts
-    from nvalchemiops_torch.kernels.window_sweep import window_sweep_plain
     from nvalchemiops_torch.neighborlist import (
         assert_max_neighbors, get_neighbor_list_from_neighbor_matrix,
         neighbor_list,
@@ -2479,9 +2533,8 @@ def run_dftd3(dev, full):
                  d3_bar)
     del g
     g64 = full["grid64"]()
-    with plain_kernels(grid_d3, window_sweep=window_sweep_plain):
-        v_plain = grid_d3.grid_dftd3(g64, *d3_args, compute_virial=True,
-                                     cell=cell64)[3]
+    v_plain = grid_d3.grid_dftd3(g64, *d3_args, compute_virial=True,
+                                 cell=cell64)[3]
     check_bar("window plain path f64 virial vs dftd3 f64 virial "
               "(Frobenius)", frobenius_error(v_plain, v64[0]),
               VIRIAL_F64_RTOL)
@@ -3370,12 +3423,8 @@ def run_batch_window(dev):
     from nvalchemiops_torch.grid import (
         batch_build_atom_grid, estimate_grid_geometry,
     )
-    from nvalchemiops_torch.interactions.dispersion import grid_d3
     from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
         batch_grid_dftd3,
-    )
-    from nvalchemiops_torch.kernels.window_sweep import (
-        window_sweep_batch_plain,
     )
 
     cfg, gb = D3_BATCH, D3_GRID
@@ -3392,8 +3441,6 @@ def run_batch_window(dev):
          int(np.ceil((occ + 2) / 8)) * 8),
         ("128 x 2000", f"{cfg['b']} x {cfg['n']} at {cfg['cutoff']} A", pos,
          numbers, cfg["box"], cfg["cutoff"], None))
-    single = ["window_sweep_cn", "window_sweep_d3_direct",
-              "window_sweep_chain"]
     rows = {}
     for case, label, p, z, box, cut, cap in cases:
         cell = torch.eye(3, device=dev) * box
@@ -3408,20 +3455,21 @@ def run_batch_window(dev):
                                      cap=cap)
 
         capture = install_capture()
-        out, counts = drive(label, run, BATCH_KEYS, forbid=single)
+        out, counts = drive(label, run, BATCH_KEYS)
         capture.restore()
         launched = {k: v for k, v in counts.items() if v}
         if launched != {k: 1 for k in BATCH_KEYS}:
             raise AssertionError(f"{label}: launches {launched}, not one "
                                  f"batched launch a pass")
-        ref, loop_counts = drive(f"{label}, per-system loop", loop, single)
+        ref, loop_counts = drive(f"{label}, per-system loop", loop,
+                                 BATCH_KEYS)
         errs = [_scale_error(a, r) for a, r in zip(out, ref)]
         check_forces(label, out[1])
         batched_ms = cuda_time_ms(run, reps=3)
         loop_ms = cuda_time_ms(loop, reps=3)
         force_bar = BATCH_WINDOW_FORCE_BARS[case]
         phase(f"{label}: 3 launches a call against "
-              f"{sum(loop_counts[k] for k in single)} in the loop; vs the "
+              f"{sum(loop_counts[k] for k in BATCH_KEYS)} in the loop; vs the "
               f"loop, max |diff| / scale: energies {errs[0]:.3e}, CNs "
               f"{errs[2]:.3e} (bar {BATCH_WINDOW_RTOL:g}), forces "
               f"{errs[1]:.3e} (bar {force_bar:g}); {batched_ms:.3f} ms a "
@@ -3433,12 +3481,10 @@ def run_batch_window(dev):
         # batched launch within 1.25x the loop's own f32 error (both drop
         # the same pairs at D3's hard cutoff, where f32 and f64 r^2 differ)
         w = BATCH_WINDOW_WITNESS
-        with plain_kernels(grid_d3,
-                           window_sweep_batch=window_sweep_batch_plain):
-            f64 = batch_grid_dftd3(
-                p[:w].double(), z[:w], cell.double(), pbc, cut,
-                *(t.astype(np.float64) for t in tables), *D3_PARAMS,
-                cap=cap)[1]
+        f64 = batch_grid_dftd3(
+            p[:w].double(), z[:w], cell.double(), pbc, cut,
+            *(t.astype(np.float64) for t in tables), *D3_PARAMS,
+            cap=cap)[1]
         loop_err = force_errors(ref[1][:w], f64)
         rms_bar = BAR_FACTOR * JAX_F32_BARS["d3"][1]
         phase(f"{label} per-system loop f32 vs f64 plain (first {w} "
@@ -3461,6 +3507,392 @@ def run_batch_window(dev):
         profile_step(f"{label}, per-system loop", loop)
         del capture, out, ref
         torch.cuda.empty_cache()
+    return rows
+
+
+def replay_batch(calls, label, ctx):
+    """Phase 19's replay of its captured launches, each on its whole input
+    (a batched grid's every system, so the timed launch's plan): the kernel
+    against its plain version on the same inputs (``kernel_vs_plain``), the
+    kernel timed with CUDA events (median of 3; device time printed where
+    the profiler keeps its events), the plain version with CUDA events on
+    one call after the call whose outputs are compared (its batched form
+    loops over up to 128 systems, seconds a call), and the bound from
+    ``work``, as every other row of these kernels has it.  Returns the rows
+    of the kernels line."""
+    from nvalchemiops_torch.kernels import chunk_sweep as cs
+    from nvalchemiops_torch.kernels import row_sweep as rs
+    from nvalchemiops_torch.kernels import window_sweep as ws
+
+    kerns = {"window_sweep": (ws.window_sweep, ws.window_sweep_plain),
+             "row_sweep": (rs.row_sweep, rs.row_sweep_plain),
+             "chunk_sweep": (cs.chunk_sweep, cs.chunk_sweep_plain)}
+    rows = {}
+    for key, (args, kwargs) in sorted(calls.items()):
+        base = key.split("[")[0]
+        kern, plain = kerns[base]
+        batched = args[2].dim() == 6
+        n_sys = args[2].shape[0] if batched else 1
+        ms = cuda_time_ms(lambda: kern(*args, **kwargs), reps=3)
+        dev_ms = device_time_ms(lambda: kern(*args, **kwargs), reps=3)
+        out_k = kern(*args, **kwargs)
+        out_p = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        out_k, max_abs, worst_rel = kernel_vs_plain(
+            f"{label} {key}", base, out_k, out_p, batched)
+        del out_p
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain(*args, **kwargs)
+        b.record()
+        b.synchronize()
+        plain_ms = a.elapsed_time(b)
+        nbytes, flops = work(key, args, kwargs, tuple(
+            t.transpose(0, 1) for t in out_k) if batched else out_k,
+            dict(ctx, systems=n_sys))
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FP32_PER_S * 1e3
+        rows[key] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": None}
+        phase(f"{label} {key} on {n_sys} systems: kernel {ms:.3f} ms (CUDA "
+              f"events, median of 3), device {_ms(dev_ms)}; plain "
+              f"{plain_ms:.3f} ms (CUDA events, one call); max_abs_err "
+              f"{max_abs:.3e} (rel {worst_rel:.2e}); bound "
+              f"{rows[key]['bound_ms']:.4f} ms ({rows[key]['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        del out_k
+    return rows
+
+
+def own_split_probe(calls, label):
+    """Kernel 1 at one block a cell (the dry run's one cell: one SM busy)
+    against its own slots split over ``OWN_SPLIT`` blocks (the plan's third
+    grid axis): the time of each, and the split's output against the
+    whole cell's."""
+    from nvalchemiops_torch.kernels import window_sweep as ws
+
+    for key, (args, kwargs) in sorted(calls.items()):
+        body, radius, own, cand, params = args[:5]
+        cap = own.shape[-1]
+        slots, _ = ws.window_plan(body, radius, cap, cand.shape[-5], params)
+        default = ws.window_plan(body, radius, cap, cand.shape[-5], params,
+                                 1, torch.cuda.get_device_properties(
+                                     own.device).multi_processor_count)
+        split = (slots, -(-cap // OWN_SPLIT))
+        whole = ws.window_sweep(*args, plan=(slots, cap), **kwargs)
+        parts = ws.window_sweep(*args, plan=split, **kwargs)
+        # planes that are zero in both (the dry run's dE/dCN underflows:
+        # every atom has ~1,600 neighbours) agree
+        err = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                    1e-30)
+                  for a, b in zip(parts, whole))
+        t_whole = cuda_time_ms(lambda: ws.window_sweep(
+            *args, plan=(slots, cap), **kwargs), reps=3)
+        t_split = cuda_time_ms(lambda: ws.window_sweep(
+            *args, plan=split, **kwargs), reps=3)
+        phase(f"{label} {key}: one block a cell {t_whole:.4f} ms, own slots "
+              f"over {OWN_SPLIT} blocks ({split[1]} each) {t_split:.4f} ms "
+              f"(CUDA events, median of 3), outputs {err:.2e} of scale "
+              f"apart; the default plan {default} (slots, own slots a "
+              "block)")
+        if err > KERNEL_RTOL:
+            raise AssertionError(f"{label} {key}: split own slots disagree")
+
+
+def dryrun_system(dev, dtype=torch.float32):
+    """The JAX dry run's D3 system (``__graft_entry__.py``, as
+    ``entry._dryrun_domain_decomposition`` draws it at n = 1): 400 atoms in
+    a 4 A box from ``default_rng(1)``, charges, then element ids and
+    zmax-4 random tables."""
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0, 4.0, (400, 3))
+    rng.normal(size=400)                       # the charges
+    numbers = rng.integers(1, 5, 400).astype(np.int32)
+    rcov = np.r_[0.0, rng.uniform(0.6, 1.4, 4)]
+    r4r2 = np.r_[0.0, rng.uniform(2.0, 6.0, 4)]
+    cna = np.vstack([np.zeros(5), np.cumsum(rng.uniform(0.3, 1.0, (4, 5)),
+                                            1)])
+    c6 = rng.uniform(5.0, 40.0, (5, 5, 5, 5))
+    c6[0] = 0.0
+    c6[:, 0] = 0.0
+    c6 = 0.5 * (c6 + np.swapaxes(np.swapaxes(c6, 0, 1), 2, 3))
+    return (torch.as_tensor(pos, dtype=dtype, device=dev), numbers,
+            (rcov, r4r2, c6, cna))
+
+
+def run_overflow(dev):
+    """Phase 19: kernels 1, 7 and 8 on grids whose window overflows shared
+    memory, kernels 7 and 8 batched, and the f64 and device routes.
+    Returns the kernel rows of the batched cells with their launches."""
+    from nvalchemiops_torch import composite
+    from nvalchemiops_torch.grid import (
+        batch_build_atom_grid, build_atom_grid, estimate_grid_geometry,
+        system_grid,
+    )
+    from nvalchemiops_torch.interactions.dispersion import dftd3
+    from nvalchemiops_torch.interactions.dispersion.dense_d3 import (
+        batch_dftd3, dense_dftd3,
+    )
+    from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
+        batch_grid_dftd3, compact_d3_elements, grid_dftd3,
+    )
+    from nvalchemiops_torch.interactions.electrostatics.pme import (
+        pme_reciprocal_space,
+    )
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.neighborlist import (
+        assert_max_neighbors, neighbor_list,
+    )
+
+    t_phase = time.perf_counter()
+    pbc = np.array([True] * 3)
+    a1, a2, s8 = D3_PARAMS
+    d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
+    tables, pos9, numbers, pos_m, pos_g, numbers_g = d3_batch_system(dev)
+    tables64 = tuple(t.astype(np.float64) for t in tables)
+    cfg = D3_BATCH
+    rows = {}
+
+    # -- 19a: the overflow cell, 128 x 2,000 at 21.2 A (dims 1^3) ----------
+    box, cut = cfg["matched_box"], cfg["matched_cutoff"]
+    cell = torch.eye(3, device=dev) * box
+    dims, radius, cap = estimate_grid_geometry(np.eye(3) * box, pbc, cut,
+                                               cfg["n"])
+    w = OVERFLOW_WITNESS
+    f64 = batch_dftd3(pos_m[:w].double(), numbers[:w], cell.double(), pbc,
+                      cut, *tables64, a1, a2, s8)[1]
+    reset_launch_counts()
+    f_dense = batch_dftd3(pos_m[:w], numbers[:w], cell, pbc, cut, *tables,
+                          a1, a2, s8)[1]
+    if not launch_counts["dense_pairs_direct"]:
+        raise AssertionError("19a: kernel 4 did not run the f32 base call")
+    base = force_errors(f_dense, f64)
+    bar = (BAR_FACTOR * base[0], BAR_FACTOR * base[1])
+    phase(f"19a kernel 4 (batch_dftd3, f32) vs its plain version in f64 on "
+          f"the card (first {w} systems): max rel {base[0]:.3e}, rms rel "
+          f"{base[1]:.3e}; grid geometry dims {dims} radius {radius} cap "
+          f"{cap}")
+    ctx = {"systems": cfg["b"], "n": cfg["n"], "volume": box ** 3,
+           "cutoff": cut, "mesh": tables[3].shape[1]}
+    for engine, kernel in OVERFLOW_ENGINES.items():
+        keys = [f"{kernel}_{b}" for b in ("cn", "d3_direct", "chain")]
+        label = (f"19a batch_grid_dftd3(engine={engine!r}) {cfg['b']} x "
+                 f"{cfg['n']} at {cut} A (cap {cap})")
+
+        def run(engine=engine):
+            return batch_grid_dftd3(pos_m, numbers, cell, pbc, cut, *tables,
+                                    a1, a2, s8, engine=engine)
+
+        capture = install_capture()
+        out, counts = drive(label, run, keys)
+        capture.restore()
+        launched = {k: v for k, v in counts.items() if v}
+        if launched != {k: 1 for k in keys}:
+            raise AssertionError(f"{label}: launches {launched}, not 3")
+        check_forces(label, out[1])
+        check_errors(f"{label} f32 vs kernel 4's plain version in f64 "
+                     f"(first {w} systems; bar 1.25x kernel 4's own)",
+                     out[1][:w], f64, bar)
+        del out
+        ms = cuda_time_ms(run, reps=3)
+        dev_ms = device_time_ms(run, reps=3)
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        phase(f"{label}: {ms:.3f} ms a call (CUDA events, median of 3), "
+              f"device {_ms(dev_ms)}, peak {peak:.1f} MiB, 3 launches")
+        for key, row in replay_batch(capture.calls, label, ctx).items():
+            rows.setdefault(f"{key} cap {cap}", (key, row, 1))
+        del capture
+        torch.cuda.empty_cache()
+    del f64, f_dense
+
+    # -- 19b: the dry run's 400 atoms at cap 1,336 (dims 1^3) --------------
+    pos_d, num_d, tab_d = dryrun_system(dev)
+    box_d, cut_d = 4.0, 4.0
+    cell_d = torch.eye(3, device=dev) * box_d
+    dims_d, radius_d, cap_d = estimate_grid_geometry(
+        np.eye(3) * box_d, pbc, cut_d, 400, target_occupancy=0.3)
+    g_d = build_atom_grid(pos_d, cell_d, pbc, dims_d, radius_d, cap_d)
+    pos64, cell64 = pos_d.double(), cell_d.double()
+    k = density_max_neighbors(400, cell64, cut_d)
+    nm, num, sh = neighbor_list(pos64, cut_d, cell=cell64, pbc=pbc,
+                                max_neighbors=k, method="cell_list")
+    assert_max_neighbors(nm, num)
+    rcov_d, r4r2_d, c6_d, cna_d = tab_d
+    cn_full = np.broadcast_to(cna_d[:, None, :, None], (5, 5, 5, 5)).copy()
+    reset_launch_counts()
+    _, f_ref, _ = dftd3(pos64, num_d, 0.42, 4.1, 1.7, covalent_radii=rcov_d,
+                        r4r2=r4r2_d, c6_reference=c6_d,
+                        coord_num_ref=cn_full, cell=cell64,
+                        neighbor_matrix=nm, neighbor_matrix_shifts=sh,
+                        output_dtype=None)
+    if any(launch_counts.values()):
+        raise AssertionError("19b: the f64 dftd3 launched a kernel")
+    phase(f"19b dry-run grid: dims {dims_d} radius {radius_d} cap {cap_d}, "
+          f"occupancy {int(g_d.counts_max)}; f64 dftd3 witness over {k} "
+          f"neighbours a row, {int(num.sum())} pairs")
+    del nm, sh
+    for engine, kernel in OVERFLOW_ENGINES.items():
+        keys = [f"{kernel}_{b}" for b in ("cn", "d3_direct", "chain")]
+        label = f"19b grid_dftd3(engine={engine!r}) dry run cap {cap_d}"
+
+        def run(engine=engine):
+            return grid_dftd3(g_d, num_d, *tab_d, cut_d, 0.42, 4.1, 1.7,
+                              engine=engine)
+
+        capture = install_capture()
+        out, counts = drive(label, run, keys)
+        capture.restore()
+        if {k: v for k, v in counts.items() if v} != {k: 1 for k in keys}:
+            raise AssertionError(f"{label}: launches {counts}")
+        check_errors(f"{label} f32 vs dftd3 in f64 on the card", out[1],
+                     f_ref, d3_bar)
+        dev_ms = device_time_ms(run, reps=3)
+        phase(f"{label}: {cuda_time_ms(run, reps=3):.3f} ms a call (CUDA "
+              f"events, median of 3), device {_ms(dev_ms)}")
+        dctx = {"systems": 1, "n": 400, "volume": box_d ** 3,
+                "cutoff": cut_d, "mesh": 5}
+        for key, row in replay_batch(capture.calls, label, dctx).items():
+            rows.setdefault(f"{key} cap {cap_d}", (key, row, 1))
+        if engine == "window":
+            own_split_probe(capture.calls, label)
+    del g_d
+
+    # -- 19c: kernels 7 and 8 batched: grid branch and 128 x 2,000 at 9 A --
+    gb = D3_GRID
+    dims_g, radius_g, _ = estimate_grid_geometry(np.eye(3) * gb["box"], pbc,
+                                                 gb["cutoff"], gb["n"])
+    occ = int(batch_build_atom_grid(
+        pos_g, torch.eye(3, device=dev) * gb["box"], pbc, dims_g, radius_g,
+        8).counts_max.max())
+    cases = (("grid branch", pos_g, numbers_g, gb["box"], gb["cutoff"],
+              int(np.ceil((occ + 2) / 8)) * 8),
+             ("128 x 2000", pos9, numbers, cfg["box"], cfg["cutoff"], None))
+    names = {"grid branch": "grid branch ", "128 x 2000": ""}
+    for case, p, z, box_c, cut_c, cap_c in cases:
+        cell_c = torch.eye(3, device=dev) * box_c
+        dims_c, radius_c, cap_est = estimate_grid_geometry(
+            np.eye(3) * box_c, pbc, cut_c, p.shape[1])
+        cap_c = cap_est if cap_c is None else cap_c
+        window_out = batch_grid_dftd3(p, z, cell_c, pbc, cut_c, *tables, a1,
+                                      a2, s8, cap=cap_c)
+        window_ms = cuda_time_ms(lambda: batch_grid_dftd3(
+            p, z, cell_c, pbc, cut_c, *tables, a1, a2, s8, cap=cap_c), reps=3)
+        g_c = batch_build_atom_grid(p, cell_c, pbc, dims_c, radius_c, cap_c)
+        cctx = {"systems": p.shape[0], "n": p.shape[1], "volume": box_c ** 3,
+                "cutoff": cut_c, "mesh": tables[3].shape[1]}
+        for engine in ("block", "pallas"):
+            kernel = OVERFLOW_ENGINES[engine]
+            keys = [f"{kernel}_{b}" for b in ("cn", "d3_direct", "chain")]
+            label = (f"19c batch_grid_dftd3(engine={engine!r}) {names[case]}"
+                     f"{p.shape[0]} x {p.shape[1]} at {cut_c} A (cap {cap_c})")
+
+            def run(engine=engine):
+                return batch_grid_dftd3(p, z, cell_c, pbc, cut_c, *tables, a1,
+                                        a2, s8, cap=cap_c, engine=engine)
+
+            def loop(engine=engine):
+                outs = [grid_dftd3(system_grid(g_c, i), z[i], *tables, cut_c,
+                                   a1, a2, s8, engine=engine)
+                        for i in range(p.shape[0])]
+                return tuple(torch.stack(o) for o in zip(*outs))
+
+            capture = install_capture()
+            out, counts = drive(label, run, keys)
+            capture.restore()
+            if {k: v for k, v in counts.items() if v} != {k: 1 for k in keys}:
+                raise AssertionError(f"{label}: launches {counts}")
+            ref, loop_counts = drive(f"{label}, per-system loop", loop, keys)
+            check_forces(label, out[1])
+            for what, want in (("the per-system loop", ref),
+                               ("kernel 1 batched", window_out)):
+                errs = [_scale_error(a, r) for a, r in zip(out, want)]
+                fbar = BATCH_WINDOW_FORCE_BARS[case]
+                phase(f"{label} vs {what}: max |diff| / scale energies "
+                      f"{errs[0]:.3e}, CNs {errs[2]:.3e} (bar "
+                      f"{BATCH_WINDOW_RTOL:g}), forces {errs[1]:.3e} (bar "
+                      f"{fbar:g})")
+                if max(errs[0], errs[2]) > BATCH_WINDOW_RTOL or \
+                        errs[1] > fbar:
+                    raise AssertionError(f"{label} vs {what}: above its bar")
+            ms = cuda_time_ms(run, reps=3)
+            loop_ms = cuda_time_ms(loop, reps=3)
+            dev_ms = device_time_ms(run, reps=3)
+            loop_dev = device_time_ms(loop, reps=1)
+            phase(f"{label}: {ms:.3f} ms a call, device {_ms(dev_ms)}, 3 "
+                  f"launches; the per-system loop {loop_ms:.3f} ms, device "
+                  f"{_ms(loop_dev)}, "
+                  f"{sum(loop_counts[k] for k in keys)} launches; kernel 1 "
+                  f"batched {window_ms:.3f} ms (CUDA events, median of 3)")
+            del out, ref
+            for key, row in replay_batch(capture.calls, label,
+                                         cctx).items():
+                rows.setdefault(f"{key} batched", (key, row, 1))
+            del capture
+        del window_out, g_c
+        torch.cuda.empty_cache()
+
+    # -- 19d: f64 on the card takes the plain versions; other cards --------
+    pos_np, cell_np, num_s, q_np, rcov, r4r2, cna, c6 = \
+        composite.build_system()
+    d3_c = compact_d3_elements(num_s, rcov, r4r2, c6, cna)
+
+    def routes(device, dtype):
+        pos_t = torch.as_tensor(pos_np, dtype=dtype, device=device)
+        cell_t = torch.as_tensor(cell_np, dtype=dtype, device=device)
+        q_t = torch.as_tensor(q_np, dtype=dtype, device=device)
+        g = composite.build_grid(pos_t, cell_t)
+        return {
+            "grid_dftd3": lambda: grid_dftd3(g, *d3_c, composite.CUTOFF,
+                                             composite.D3_A1,
+                                             composite.D3_A2,
+                                             composite.D3_S8),
+            "dense_dftd3": lambda: dense_dftd3(
+                pos_t, d3_c[0], cell_np, composite.CUTOFF, *d3_c[1:],
+                composite.D3_A1, composite.D3_A2, composite.D3_S8),
+            "pme_reciprocal_space": lambda: pme_reciprocal_space(
+                pos_t, q_t, cell_t, composite.ALPHA,
+                mesh_dimensions=(32, 32, 32), compute_forces=True),
+        }
+
+    cpu = routes("cpu", torch.float64)
+    card = routes(dev, torch.float64)
+    card32 = routes(dev, torch.float32)
+    for name in cpu:
+        want = cpu[name]()
+        reset_launch_counts()
+        got = card[name]()
+        torch.cuda.synchronize()
+        if any(launch_counts.values()):
+            raise AssertionError(f"19d f64 {name} launched {launch_counts}")
+        err = max(_scale_error(a, b) for a, b in zip(got, want))
+        reset_launch_counts()
+        card32[name]()
+        torch.cuda.synchronize()
+        launched = sorted(k for k, v in launch_counts.items() if v)
+        phase(f"19d {name} f64 on the card vs the CPU: max |diff| / scale "
+              f"{err:.3e} (bar {F64_ROUTE_RTOL:g}), 0 launches; in f32 it "
+              f"launches {launched}")
+        if not (err <= F64_ROUTE_RTOL and launched):
+            raise AssertionError(f"19d {name}: f64 route or f32 launches "
+                                 "wrong")
+    if torch.cuda.device_count() > 1:
+        dev1 = torch.device("cuda", 1)
+        out1 = routes(dev1, torch.float32)["grid_dftd3"]()
+        out0 = card32["grid_dftd3"]()
+        err = _scale_error(out1[1], out0[1].to(dev1))
+        phase(f"19d grid_dftd3 on {dev1} vs {dev}: forces {err:.3e}")
+        if out1[1].device != dev1 or err > KERNEL_RTOL:
+            raise AssertionError("19d: the kernels on cuda:1 disagree")
+    else:
+        phase("19d a kernel call on cuda:1: skipped, this machine has "
+              f"{torch.cuda.device_count()} CUDA device")
+    phase(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -3727,6 +4159,10 @@ def main():
     # phases 17 and 18 lost its device events (PERF.md section 7) ---------
     rows18 = run_batch_window(dev)
 
+    # -- phase 19: overflowing windows, kernels 7 and 8 batched, the f64 and
+    # device routes; before phase 17 for the same reason -------------------
+    rows19 = run_overflow(dev)
+
     # -- phase 17: the multi-rank paths and the MLIP forward ---------------
     run_parallel(dev, {
         "pos": pos, "cell": cell, "q": q, "alpha": alpha, "cutoff": cutoff,
@@ -3757,6 +4193,10 @@ def main():
             kernels.append({"name": key, "route": "cuda", "source": source,
                             "replaces": replaces, "launches": launches,
                             **row})
+    for name, (key, row, launches) in sorted(rows19.items()):
+        source, replaces = KERNEL_SOURCES[key.split("[")[0]]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches, **row})
     missing = set(KERNEL_SOURCES) - {k.split("[")[0] for k in listed}
     if missing:
         raise AssertionError(f"kernel table lacks {sorted(missing)}")

@@ -33,7 +33,11 @@
 // warps' queues, with the rows at an odd stride so lane-strided reads do
 // not collide in the banks.  The wrapper picks G
 // (kernels/chunk_sweep.py:super_chunk_cells) so that this fits the 227 KB
-// a block may use.
+// a block may use; where one own cell and its window do not fit, G is 1 and
+// the block stages slices (chunk_slices: m_s own slots over blocks along
+// gridDim.z, w_s candidates one slice after another, each slice's j sums
+// flushed before the next); a plan without slices runs an instantiation
+// whose offsets fold to 0 (kSliced false).
 //
 // Design: distance test first (kernel 1's recipe, window_sweep.cu), in the
 // steps kernel 7 shares (pair_bodies.cuh: sweep_chunk, run_queued).  One
@@ -56,6 +60,10 @@
 // and output (own into [n_out, cz, cy, cx, cap], j into [n_j, ez, ey, ex,
 // cap]).
 //
+// Batches.  One launch sweeps the n_sys systems of a batched grid: blockIdx.y
+// is the system, each system's planes follow the last system's (own, cand,
+// lf, cfeat and the outputs); a single grid runs as n_sys = 1.
+//
 // Interface: C, for ctypes.  Pointers are device pointers into contiguous
 // float32 tensors allocated by the Python wrapper; own_out and j_out must be
 // zero on entry.  Returns the cudaError_t of the launch.
@@ -71,40 +79,37 @@ using namespace pair_bodies;
 
 using D3CoulombSeparate = D3CoulombBody<true, false>;
 
-// Shared memory of one block: the staged chunk, the own-side and j-side
-// sums (floats) and the warps' queues (kQueue ints a warp).
+// Shared memory of one block staging m_s own slots and w_s candidates: own
+// scalars, rows and sums, candidate scalars, rows and j sums (floats) and
+// the warps' queues (kQueue ints a warp).
 template <class Body>
-__host__ __device__ inline size_t chunk_smem_bytes(int g, int cap, int rx,
-                                                   int nf) {
-  const size_t m = static_cast<size_t>(g) * cap;
-  const size_t w = static_cast<size_t>(g + 2 * rx) * cap;
+__host__ __device__ inline size_t chunk_smem_bytes(int m_s, int w_s, int nf) {
   const size_t fs = feat_stride(nf);
-  return sizeof(float) *
-             (Body::kOwn * m + m * fs + Body::kCand * w + w * fs +
-              Body::kOut * m + Body::kJ * w) +
+  return sizeof(float) * ((Body::kOwn + fs + Body::kOut) * m_s +
+                          (Body::kCand + fs + Body::kJ) * w_s) +
          sizeof(int) * kWideWarps * kQueue;
 }
 
-template <class Body>
+// kSliced: a plan that stages the chunk or its window in slices.  Without
+// it the own and candidate offsets fold to 0 and the window is one slice.
+template <class Body, bool kSliced>
 __global__ void __launch_bounds__(kWideThreads)
     chunk_kernel(const float* __restrict__ own, const float* __restrict__ cand,
                  const float* __restrict__ lf, const float* __restrict__ cfeat,
                  float* __restrict__ own_out, float* __restrict__ j_out,
                  int cz, int cy, int cx, int rz, int ry, int rx, int cap,
-                 int g_cells, int nf, int n_off, Params p) {
+                 int g_cells, int nf, int n_off, int m_s, int w_s, Params p) {
   extern __shared__ float smem[];
-  const int m = g_cells * cap;
-  const int w = (g_cells + 2 * rx) * cap;
   const int fstride = feat_stride(nf);
   const int ey = cy + 2 * ry;
   const int ex = cx + 2 * rx;
-  float* os = smem;                            // [kOwn][m]
-  float* ls = os + Body::kOwn * m;             // [m][fstride]
-  float* cs = ls + m * fstride;                // [kCand][w]
-  float* cf = cs + Body::kCand * w;            // [w][fstride]
-  float* oacc = cf + w * fstride;              // [kOut][m]
-  float* jacc = oacc + Body::kOut * m;         // [kJ][w]
-  int* queues = reinterpret_cast<int*>(jacc + Body::kJ * w);
+  float* os = smem;                            // [kOwn][m_s]
+  float* ls = os + Body::kOwn * m_s;           // [m_s][fstride]
+  float* cs = ls + m_s * fstride;              // [kCand][w_s]
+  float* cf = cs + Body::kCand * w_s;          // [w_s][fstride]
+  float* oacc = cf + w_s * fstride;            // [kOut][m_s]
+  float* jacc = oacc + Body::kOut * m_s;       // [kJ][w_s]
+  int* queues = reinterpret_cast<int*>(jacc + Body::kJ * w_s);
 
   const int n_chunks = cx / g_cells;
   const int chunk = blockIdx.x % n_chunks;
@@ -117,67 +122,73 @@ __global__ void __launch_bounds__(kWideThreads)
   if (!home) half_offset(oi - 1, ry, dz, dy);
   const int64_t ext_plane = static_cast<int64_t>(cz + 2 * rz) * ey * ex * cap;
   const int64_t own_plane = static_cast<int64_t>(cz) * cy * cx * cap;
+  // this block's system: its planes follow those of the systems before it
+  const int64_t sys = blockIdx.y;
+  own += sys * Body::kOwn * own_plane;
+  cand += sys * Body::kCand * ext_plane;
+  if (Body::kWide) {
+    lf += sys * own_plane * nf;
+    cfeat += sys * ext_plane * nf;
+  }
+  own_out += sys * Body::kOut * own_plane;
+  j_out += sys * Body::kJ * ext_plane;
+  // the chunk's own slots [i0, i0 + m) (blockIdx.z: a slice of them where
+  // the chunk does not fit) against its window, w_s candidates at a time
+  const int m_all = g_cells * cap;
+  const int w_all = (g_cells + 2 * rx) * cap;
+  const int i0 = kSliced ? blockIdx.z * m_s : 0;
+  const int m = kSliced ? min(m_s, m_all - i0) : m_all;
   const int64_t own0 =
-      ((static_cast<int64_t>(z) * cy + y) * cx + chunk * g_cells) * cap;
+      ((static_cast<int64_t>(z) * cy + y) * cx + chunk * g_cells) * cap + i0;
   const int64_t cand0 =
       ((static_cast<int64_t>(z + rz + dz) * ey + (y + ry + dy)) * ex +
        chunk * g_cells) * cap;
-  const int warp = threadIdx.x >> 5;
-  for (int t = threadIdx.x; t < Body::kOwn * m; t += blockDim.x) {
-    const int f = t / m;
-    os[t] = own[f * own_plane + own0 + (t - f * m)];
+  int* qbuf = queues + (threadIdx.x >> 5) * kQueue;
+  stage_own<Body>(own, lf, own_plane, own0, m, nf, fstride, os, ls, oacc);
+  // the window's slices (one without kSliced: c0 = 0, w = w_all)
+  const int n_slices = kSliced ? (w_all + w_s - 1) / w_s : 1;
+  for (int s = 0; s < n_slices; ++s) {
+    const int c0 = kSliced ? s * w_s : 0;
+    const int w = kSliced ? min(w_s, w_all - c0) : w_all;
+    if (s > 0) __syncthreads();  // the previous slice is flushed
+    stage_cand<Body>(cand, cfeat, ext_plane, cand0 + c0, w, nf, fstride, cs,
+                     cf);
+    for (int t = threadIdx.x; t < Body::kJ * w; t += blockDim.x)
+      jacc[t] = 0.0f;
+    __syncthreads();
+    // kernel 8 tests every own slot, parked ones too
+    sweep_chunk<Body, kWideWarps, false>(p, os, m, i0, ls, cs, w, c0, cf,
+                                         fstride, cap, rx, home, 0.0f, qbuf,
+                                         oacc, jacc, w);
+    flush_j<Body::kJ>(jacc, w, j_out, ext_plane, cand0 + c0);
   }
-  for (int t = threadIdx.x; t < Body::kCand * w; t += blockDim.x) {
-    const int f = t / w;
-    cs[t] = cand[f * ext_plane + cand0 + (t - f * w)];
-  }
-  if (Body::kWide) {
-    for (int t = threadIdx.x; t < m * nf; t += blockDim.x) {
-      const int r = t / nf;
-      ls[r * fstride + (t - r * nf)] = lf[(own0 + r) * nf + (t - r * nf)];
-    }
-    for (int t = threadIdx.x; t < w * nf; t += blockDim.x) {
-      const int r = t / nf;
-      cf[r * fstride + (t - r * nf)] = cfeat[(cand0 + r) * nf + (t - r * nf)];
-    }
-  }
-  for (int t = threadIdx.x; t < Body::kOut * m + Body::kJ * w;
-       t += blockDim.x)
-    oacc[t] = 0.0f;  // oacc and jacc
-  __syncthreads();
-
-  // kernel 8 tests every own slot, parked ones too
-  sweep_chunk<Body, kWideWarps, false>(p, os, m, ls, cs, w, cf, fstride, cap,
-                                       rx, home, 0.0f, queues + warp * kQueue,
-                                       oacc, jacc, w);
-  __syncthreads();
-  // one global atomic per own slot and output: the offsets of a row run in
-  // different blocks
-  for (int t = threadIdx.x; t < Body::kOut * m; t += blockDim.x) {
-    const float v = oacc[t];
-    const int k = t / m;
-    if (v != 0.0f) atomicAdd(&own_out[k * own_plane + own0 + (t - k * m)], v);
-  }
-  flush_j<Body::kJ>(jacc, w, j_out, ext_plane, cand0);
+  flush_own<Body::kOut>(oacc, m, own_out, own_plane, own0);
 }
 
 template <class Body>
 cudaError_t launch(const float* own, const float* cand, const float* lf,
                    const float* cfeat, float* own_out, float* j_out, int cz,
                    int cy, int cx, int rz, int ry, int rx, int cap, int g,
-                   int nf, const Params& p, cudaStream_t stream) {
-  // queue entries pack (own index << 16 | candidate index)
-  if (g <= 0 || cx % g || (g + 2 * rx) * cap > 0xffff)
-    return cudaErrorInvalidValue;
+                   int nf, int n_sys, int m_s, int w_s, const Params& p,
+                   cudaStream_t stream) {
+  if (g <= 0 || cx % g) return cudaErrorInvalidValue;
   const int n_off = 1 + ry + rz * (2 * ry + 1);
   const int blocks = cz * cy * n_off * (cx / g);
-  if (blocks == 0 || cap == 0) return cudaSuccess;
-  const size_t smem = chunk_smem_bytes<Body>(g, cap, rx, nf);
-  const cudaError_t e = allow_smem(chunk_kernel<Body>, smem);
+  if (blocks == 0 || cap == 0 || n_sys == 0) return cudaSuccess;
+  // the staging plan (kernels/chunk_sweep.py:chunk_slices): at most the
+  // chunk's own slots and its window's candidates
+  m_s = min(m_s, g * cap);
+  w_s = min(w_s, (g + 2 * rx) * cap);
+  const int n_split = (g * cap + m_s - 1) / m_s;
+  if (!plan_ok(n_sys, m_s, w_s, n_split)) return cudaErrorInvalidValue;
+  const size_t smem = chunk_smem_bytes<Body>(m_s, w_s, nf);
+  const bool sliced = m_s < g * cap || w_s < (g + 2 * rx) * cap;
+  auto* kernel = sliced ? chunk_kernel<Body, true> : chunk_kernel<Body, false>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  chunk_kernel<Body><<<blocks, kWideThreads, smem, stream>>>(
-      own, cand, lf, cfeat, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, g,
-      nf, n_off, p);
+  kernel<<<dim3(blocks, n_sys, n_split), kWideThreads, smem, stream>>>(
+      own, cand, lf, cfeat, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, g, nf,
+      n_off, m_s, w_s, p);
   return cudaGetLastError();
 }
 
@@ -185,19 +196,23 @@ cudaError_t launch(const float* own, const float* cand, const float* lf,
 
 // body: 0 = CN, 1 = D3 direct (zm-wide), 2 = CN chain, 3 = Coulomb, 4 = D3
 // direct + Coulomb (separate force channels).  nf = 2 * zm for the D3
-// bodies (lf and cfeat rows), 0 otherwise; g = G, a divisor of cx.
+// bodies (lf and cfeat rows), 0 otherwise; g = G, a divisor of cx; n_sys
+// systems of a batched grid (1 for one grid); m_s own slots and w_s
+// candidates a block stages at once (the whole chunk and window: G * cap
+// and (G + 2 rx) * cap).
 extern "C" int nv_chunk_sweep(int body, const float* own, const float* cand,
                               const float* lf, const float* cfeat,
                               float* own_out, float* j_out, int cz, int cy,
                               int cx, int rz, int ry, int rx, int cap, int g,
-                              int nf, float cutoff_sq, float a1, float a2,
-                              float s6, float s8, float k1, float k3,
-                              float alpha, float ccutoff_sq, void* stream) {
+                              int nf, int n_sys, int m_s, int w_s,
+                              float cutoff_sq, float a1, float a2, float s6,
+                              float s8, float k1, float k3, float alpha,
+                              float ccutoff_sq, void* stream) {
   const Params p{cutoff_sq, a1, a2, s6, s8, k1, k3, alpha, ccutoff_sq, nf / 2, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(B)                                                            \
   launch<B>(own, cand, lf, cfeat, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, \
-            g, nf, p, st)
+            g, nf, n_sys, m_s, w_s, p, st)
   switch (body) {
     case 0: return LAUNCH(CnBody);
     case 1: return LAUNCH(D3DirectBody<true>);

@@ -492,26 +492,30 @@ __device__ __forceinline__ void run_queued(const Params& p, const float* os,
   }
 }
 
-// The distance-first sweep of one staged chunk (kernels 7 and 8): m own
-// slots of m / cap consecutive own x-cells against a merged candidate
-// window of w = m + 2 * rx * cap slots (extended x-cells from the chunk's
-// first own cell minus rx).  The block's kWarps warps take the own slots in
-// turn; a warp tests its slot against the 2 rx + 1 x-cells around the slot's
-// cell (window cells gl .. gl + 2 rx for own cell gl), 32 candidates at a
-// time, r^2 rounded as the plain version rounds it against Body::reach_sq;
-// the home row keeps candidates past the own slot (flat window index >
-// own index + rx * cap: the own cell's later slots and the rx cells to its
+// The distance-first sweep of one staged chunk (kernels 7 and 8): own slots
+// of g consecutive own x-cells against their merged candidate window of
+// (g + 2 rx) * cap slots (extended x-cells from the chunk's first own cell
+// minus rx).  The block stages m own slots from the chunk's slot i0 on and
+// w candidates from the window's slot c0 on: the whole chunk and window
+// where they fit, slices of them where they do not (the wrappers' plans).
+// The block's kWarps warps take the staged own slots in turn; a warp tests
+// its slot (chunk slot i, cell gl = i / cap) against the staged candidates
+// of the 2 rx + 1 x-cells around its cell (window cells gl .. gl + 2 rx),
+// 32 at a time, r^2 rounded as the plain version rounds it against
+// Body::reach_sq; the home row keeps candidates past the own slot (window
+// slot > i + rx * cap: the own cell's later slots and the rx cells to its
 // right).  Pairs further than rx cells apart in x lie beyond the cutoff.
 // The hits of all of a warp's slots feed one queue (a slot meets only ~10
-// pairs an offset), and whenever 32 wait each lane runs the body on one of
-// them; the queue is drained before returning.  With kParked, an own slot
-// with |px| >= parked is skipped without a test: the wrapper passes
-// DISPLACE / 2 (grid.py: empty slots and padding atoms lie beyond it) only
-// where such a slot can meet no candidate in reach, and +inf otherwise.
+// pairs an offset), entries in staged indices, and whenever 32 wait each
+// lane runs the body on one of them; the queue is drained before
+// returning.  With kParked, an own slot with |px| >= parked is skipped
+// without a test: the wrapper passes DISPLACE / 2 (grid.py: empty slots and
+// padding atoms lie beyond it) only where such a slot can meet no candidate
+// in reach, and +inf otherwise.
 template <class Body, int kWarps, bool kParked>
 __device__ __forceinline__ void sweep_chunk(const Params& p, const float* os,
-                                            int m, const float* ls,
-                                            const float* cs, int w,
+                                            int m, int i0, const float* ls,
+                                            const float* cs, int w, int c0,
                                             const float* cf, int fstride,
                                             int cap, int rx, bool home,
                                             float parked, int* qbuf,
@@ -520,23 +524,25 @@ __device__ __forceinline__ void sweep_chunk(const Params& p, const float* os,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const float reach = Body::reach_sq(p);
-  const int tri = rx * cap;  // home: keep cand_flat > own_flat + rx * cap
+  const int tri = rx * cap;  // home: keep window slot > own slot + rx * cap
   WarpQueue queue{qbuf, 0};
-  for (int i = warp; i < m; i += kWarps) {
-    const float ox = os[i];
+  for (int ii = warp; ii < m; ii += kWarps) {
+    const float ox = os[ii];
     if (kParked && !(fabsf(ox) < parked)) continue;  // warp-uniform
-    const float oy = os[m + i], oz = os[2 * m + i];
+    const float oy = os[m + ii], oz = os[2 * m + ii];
+    const int i = i0 + ii;
     const int gl = i / cap;
-    const int j0 = home ? i + tri + 1 : gl * cap;
-    const int j1 = (gl + 2 * rx + 1) * cap;
-    for (int c0 = j0; c0 < j1; c0 += 32) {
-      const int c = c0 + lane;
+    // this slot's candidates, in staged indices
+    const int j0 = max(home ? i + tri + 1 : gl * cap, c0) - c0;
+    const int j1 = min((gl + 2 * rx + 1) * cap, c0 + w) - c0;
+    for (int cr = j0; cr < j1; cr += 32) {
+      const int c = cr + lane;
       bool hit = false;
       if (c < j1) {
         const float d2 = dist2(cs[c] - ox, cs[w + c] - oy, cs[2 * w + c] - oz);
         hit = inside(d2, reach);
       }
-      queue.push(hit, i << 16 | c);
+      queue.push(hit, ii << 16 | c);
       if (queue.full())
         run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc,
                          jstride);
@@ -546,6 +552,70 @@ __device__ __forceinline__ void sweep_chunk(const Params& p, const float* os,
     run_queued<Body>(p, os, m, ls, cs, w, cf, fstride, queue, oacc, jacc,
                      jstride);
 }
+
+// Stage m own slots from own slot own0 (scalars os [kOwn][m], and with the
+// zm-wide body its rows ls [m][fstride] from lf) into shared memory and zero
+// their sums oacc [kOut][m]; stage_cand likewise w candidates from extended
+// slot cand0 (cs [kCand][w], rows cf [w][fstride] from cfeat).
+template <class Body>
+__device__ __forceinline__ void stage_own(const float* own, const float* lf,
+                                          int64_t own_plane, int64_t own0,
+                                          int m, int nf, int fstride,
+                                          float* os, float* ls, float* oacc) {
+  for (int t = threadIdx.x; t < Body::kOwn * m; t += blockDim.x) {
+    const int f = t / m;
+    os[t] = own[f * own_plane + own0 + (t - f * m)];
+  }
+  if (Body::kWide) {
+    for (int t = threadIdx.x; t < m * nf; t += blockDim.x) {
+      const int r = t / nf;
+      ls[r * fstride + (t - r * nf)] = lf[(own0 + r) * nf + (t - r * nf)];
+    }
+  }
+  for (int t = threadIdx.x; t < Body::kOut * m; t += blockDim.x) oacc[t] = 0.0f;
+}
+
+template <class Body>
+__device__ __forceinline__ void stage_cand(const float* cand,
+                                           const float* cfeat,
+                                           int64_t ext_plane, int64_t cand0,
+                                           int w, int nf, int fstride,
+                                           float* cs, float* cf) {
+  for (int t = threadIdx.x; t < Body::kCand * w; t += blockDim.x) {
+    const int f = t / w;
+    cs[t] = cand[f * ext_plane + cand0 + (t - f * w)];
+  }
+  if (Body::kWide) {
+    for (int t = threadIdx.x; t < w * nf; t += blockDim.x) {
+      const int r = t / nf;
+      cf[r * fstride + (t - r * nf)] = cfeat[(cand0 + r) * nf + (t - r * nf)];
+    }
+  }
+}
+
+// After a barrier, adds the block's own sums oacc [kOut][m] into own_out[k *
+// plane + base + t]: one global atomic per nonzero slot and output (the
+// offsets of a row run in different blocks).
+template <int kOut>
+__device__ __forceinline__ void flush_own(const float* oacc, int m,
+                                          float* own_out, int64_t plane,
+                                          int64_t base) {
+  __syncthreads();
+  for (int t = threadIdx.x; t < kOut * m; t += blockDim.x) {
+    const float v = oacc[t];
+    const int k = t / m;
+    if (v != 0.0f) atomicAdd(&own_out[k * plane + base + (t - k * m)], v);
+  }
+}
+
+// Checks of a staging plan shared by kernels 7 and 8: queue entries pack
+// (own index << 16 | candidate index), so the staged counts must stay below
+// 2^15 and 2^16; at most 65,535 systems and own slices (grid y and z).
+inline bool plan_ok(int n_sys, int m_s, int w_s, int n_split) {
+  return n_sys >= 0 && n_sys <= 65535 && m_s >= 1 && m_s < 0x8000 &&
+         w_s >= 1 && w_s <= 0xffff && n_split >= 1 && n_split <= 65535;
+}
+
 // After a barrier, adds the block's shared j sums jacc[kJ][n] into
 // j_out[k * plane + base + t]: one global atomic per nonzero slot and output.
 template <int kJ>

@@ -48,13 +48,30 @@
 // far away) costs its distance tests and nothing else.  The own-side sum
 // stays in registers, reduced with one warp shuffle per output and own slot;
 // j-side sums go to shared memory (atomics) and are flushed once per cell
-// with one global atomic per candidate slot and output.  Where the windows
-// do not fit in 227 KB, the block stages them in groups that do.  The
-// global j atomics make the j-side sum order vary from run to run; that sets
+// with one global atomic per candidate slot and output.  The global j
+// atomics make the j-side sum order vary from run to run; that sets
 // the on-card tolerance against the plain version.  What bounds it now
 // (PERF.md): the bodies run on full warps and are no longer most of
 // the time; the per-cell work around them (staging, the distance tests,
 // each own slot's drain and reduction) is.
+//
+// Windows that overflow shared memory.  Where a cell's windows do not fit
+// in 227 KB, the block stages them in groups of ncs slots one after
+// another, each group flushed before the next: whole windows where each
+// fits, and where one window alone exceeds ncs (a cell of thousands of
+// slots: one cell a system at dims 1^3), slices of it, a group ending part
+// of the way through a window and the next starting at that slot
+// (tests/test_torch_pair_queue.py:window_groups mirrors the loop).  Across
+// slices the home row's i < j rule is kept by absolute slot (hoff), each
+// slice's j sums go to their own offset in j_out, and the own-side sums
+// stay in oacc.  The wrapper computes the plan (window_plan: ncs and opb,
+// the own slots a block takes); the launcher only checks that it fits, and
+// runs a plan that needs no slice on an instantiation without the slice
+// bookkeeping (kSliced false), as fast as a kernel that never slices.  Where a
+// window overflows and the cells of the launch leave SMs idle (one cell
+// of one system: one block, one SM), the cell's own slots are split over
+// blocks along gridDim.z: each block writes its own slots' sums, and all
+// add j sums with the same global atomics, so no new atomics are needed.
 //
 // Batches.  One launch sweeps the n_sys systems of a batched grid (the
 // per-system grids of grid.batch_build_atom_grid, one geometry): block
@@ -100,11 +117,36 @@ __device__ __forceinline__ int64_t window(int w, int z, int y, int x, int rz,
          cap;
 }
 
-// Where window w sits among the candidates of a group staged from window w0
-// on.
+// Where window w sits among the candidates of a group of whole windows
+// staged from window w0 on.
 __device__ __forceinline__ int staged_offset(int w, int w0, int rx, int cap) {
   return w0 == 0 && w > 0 ? (rx + 1) * cap + (w - 1) * (2 * rx + 1) * cap
                           : (w - w0) * (2 * rx + 1) * cap;
+}
+
+// Segment k of a staging group (tests/test_torch_pair_queue.py:
+// window_groups): window w0 + k, whole, at staged_offset; with kSliced, k =
+// 0 is window w0 from its slot l0 on (seg0 slots) and k >= 1 the whole
+// window w0 + k after it (every window after the home row has (2*rx+1)*cap
+// slots).  Gives the segment's first extended slot, its length and its
+// offset among the group's staged candidates.
+template <bool kSliced>
+__device__ __forceinline__ int64_t segment(int k, int w0, int l0, int seg0,
+                                           int z, int y, int x, int rz,
+                                           int ry, int rx, int ey, int ex,
+                                           int cap, int& len, int& off) {
+  const int64_t base = window(w0 + k, z, y, x, rz, ry, rx, ey, ex, cap, len);
+  if (!kSliced) {
+    off = staged_offset(w0 + k, w0, rx, cap);
+    return base;
+  }
+  if (k == 0) {
+    len = seg0;
+    off = 0;
+    return base + l0;
+  }
+  off = seg0 + (k - 1) * len;
+  return base;
 }
 
 // One pop of the warp's queue: each lane runs the body on its entry (a
@@ -125,17 +167,25 @@ __device__ __forceinline__ void run_queued(const Params& p, const float* o,
   for (int k = 0; k < Body::kJ; ++k) atomicAdd(&jacc[k * ncs + c], jo[k]);
 }
 
-template <class Body>
+// kSliced: a plan that splits the cell's own slots over blocks or cuts a
+// window into slices.  Without it (every window fits and a block takes the
+// whole cell) the block stages groups of whole windows with no slice
+// bookkeeping (staged_offset, the home bound cap or 0): the slice offsets
+// kept live across the sweep cost 3-15% a pass on the 109,744-atom main
+// path (NVIDIA H100 80GB HBM3 at 700 W; PERF.md), the D3 direct body at
+// 64 registers.
+template <class Body, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     sweep_kernel(const float* __restrict__ own, const float* __restrict__ cand,
                  float* __restrict__ own_out, float* __restrict__ j_out,
                  int cz, int cy, int cx, int rz, int ry, int rx, int cap,
-                 int n_cand, const float* __restrict__ lf, Params p, int ncs) {
+                 int n_cand, const float* __restrict__ lf, Params p, int ncs,
+                 int opb) {
   extern __shared__ float smem[];
   float* cs = smem;                                // [n_cand][ncs]
   float* jacc = cs + n_cand * ncs;                 // [kJ][ncs]
-  float* oacc = jacc + Body::kJ * ncs;             // [kOut][cap]
-  int* queues = reinterpret_cast<int*>(oacc + Body::kOut * cap);
+  float* oacc = jacc + Body::kJ * ncs;             // [kOut][opb]
+  int* queues = reinterpret_cast<int*>(oacc + Body::kOut * opb);
 
   const int cell = blockIdx.x;
   const int x = cell % cx;
@@ -152,38 +202,62 @@ __global__ void __launch_bounds__(kThreads)
   if (lf) lf += sys * own_plane * 2 * p.zm;
   own_out += sys * Body::kOut * own_plane;
   j_out += sys * Body::kJ * ext_plane;
+  // this block's own slots [i0, i1) of the cell, their sums oacc[k][i - i0]
+  const int i0 = kSliced ? blockIdx.z * opb : 0;
+  const int i1 = kSliced ? min(cap, i0 + opb) : cap;
+  const int n_own = i1 - i0;
+  const int ostride = kSliced ? opb : cap;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_win = 1 + ry + rz * (2 * ry + 1);
+  const int win_len = (2 * rx + 1) * cap;  // every window after the home row
   const float reach = Body::reach_sq(p);
   WarpQueue queue{queues + warp * kQueue, 0};
 
-  for (int t = threadIdx.x; t < Body::kOut * cap; t += kThreads) oacc[t] = 0.0f;
+  for (int t = threadIdx.x; t < Body::kOut * n_own; t += kThreads) {
+    const int k = kSliced ? t / n_own : 0;
+    oacc[kSliced ? k * ostride + (t - k * n_own) : t] = 0.0f;
+  }
 
-  // windows [w0, w1), staged back to back: all of them where they fit
-  for (int w0 = 0, w1; w0 < n_win; w0 = w1) {
-    int staged = 0, len;
-    for (w1 = w0; w1 < n_win; ++w1) {
-      window(w1, z, y, x, rz, ry, rx, ey, ex, cap, len);
-      if (staged + len > ncs) break;
-      staged += len;
+  // Staging groups of at most ncs slots: whole windows [w0, w1), as many
+  // as fit; with kSliced, from window w0's slot l0 on, the rest of w0 (or,
+  // where that exceeds ncs, a slice of ncs slots of it) and as many whole
+  // windows after it as fit.
+  for (int w0 = 0, l0 = 0; w0 < n_win;) {
+    int len0, seg0 = 0, staged = 0, w1 = w0;
+    if (kSliced) {
+      window(w0, z, y, x, rz, ry, rx, ey, ex, cap, len0);
+      seg0 = min(len0 - l0, ncs);
+      staged = seg0;
+      w1 = w0 + 1;
+      if (l0 + seg0 == len0)
+        for (; w1 < n_win && staged + win_len <= ncs; ++w1) staged += win_len;
+    } else {
+      for (; w1 < n_win; ++w1) {
+        window(w1, z, y, x, rz, ry, rx, ey, ex, cap, len0);
+        if (staged + len0 > ncs) break;
+        staged += len0;
+      }
     }
     const int nw = w1 - w0;
     __syncthreads();  // the previous group is done with cs and jacc
     for (int fw = warp; fw < n_cand * nw; fw += kWarps) {
       const int f = fw / nw;
-      const int w = w0 + fw - f * nw;
-      const int off = staged_offset(w, w0, rx, cap);
-      const int64_t base = window(w, z, y, x, rz, ry, rx, ey, ex, cap, len);
+      int len, off;
+      const int64_t base = segment<kSliced>(fw - f * nw, w0, l0, seg0, z, y, x,
+                                            rz, ry, rx, ey, ex, cap, len, off);
       const float* src = cand + f * ext_plane + base;
       for (int l = lane; l < len; l += 32) cs[f * ncs + off + l] = src[l];
     }
     for (int t = threadIdx.x; t < Body::kJ * ncs; t += kThreads) jacc[t] = 0.0f;
     __syncthreads();
 
-    // the home row's centre cell keeps only slot pairs i < j
-    const int home_end = w0 == 0 ? cap : 0;
-    for (int i = warp; i < cap; i += kWarps) {
+    // the home row's centre cell (window 0's first cap slots) keeps only
+    // slot pairs i < j: staged candidate c < home_end is home slot c + hoff
+    const int hoff = w0 == 0 ? (kSliced ? l0 : 0) : cap;
+    const int home_end = kSliced ? max(0, cap - hoff) : (w0 == 0 ? cap : 0);
+    for (int i = i0 + warp; i < i1; i += kWarps) {
+      const int ih = kSliced ? i - hoff : i;  // keep c + hoff > i
       const int64_t own_slot = static_cast<int64_t>(cell) * cap + i;
       float o[Body::kOwn];
 #pragma unroll
@@ -198,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
         if (r < rounds) {
           const int c = r * 32 + lane;
           bool hit = false;
-          if (c < staged && !(c < home_end && c <= i)) {
+          if (c < staged && !(c < home_end && c <= ih)) {
             const float d2 = dist2(cs[c] - o[0], cs[ncs + c] - o[1],
                                    cs[2 * ncs + c] - o[2]);
             hit = inside(d2, reach);
@@ -212,25 +286,33 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < Body::kOut; ++k) {
         float v = acc[k];
         for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-        if (lane == 0) oacc[k * cap + i] += v;
+        if (lane == 0) oacc[k * ostride + (i - i0)] += v;
       }
     }
     __syncthreads();
     for (int kw = warp; kw < Body::kJ * nw; kw += kWarps) {
       const int k = kw / nw;
-      const int w = w0 + kw - k * nw;
-      const int off = staged_offset(w, w0, rx, cap);
-      const int64_t base = window(w, z, y, x, rz, ry, rx, ey, ex, cap, len);
+      int len, off;
+      const int64_t base = segment<kSliced>(kw - k * nw, w0, l0, seg0, z, y, x,
+                                            rz, ry, rx, ey, ex, cap, len, off);
       for (int l = lane; l < len; l += 32) {
         const float v = jacc[k * ncs + off + l];
         if (v != 0.0f) atomicAdd(&j_out[k * ext_plane + base + l], v);
       }
     }
+    if (kSliced && l0 + seg0 < len0) {
+      l0 += seg0;  // the next group goes on in window w0
+    } else {
+      w0 = w1;
+      l0 = 0;
+    }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < Body::kOut * cap; t += kThreads) {
-    const int k = t / cap;
-    own_out[k * own_plane + static_cast<int64_t>(cell) * cap + (t - k * cap)] = oacc[t];
+  for (int t = threadIdx.x; t < Body::kOut * n_own; t += kThreads) {
+    const int k = t / n_own;
+    const int i = t - k * n_own;
+    own_out[k * own_plane + static_cast<int64_t>(cell) * cap + i0 + i] =
+        oacc[k * ostride + i];
   }
 }
 
@@ -238,25 +320,27 @@ template <class Body>
 cudaError_t launch(const float* own, const float* cand, float* own_out,
                    float* j_out, int cz, int cy, int cx, int rz, int ry, int rx,
                    int cap, int n_cand, const float* lf, const Params& p,
-                   int n_sys, cudaStream_t stream) {
+                   int n_sys, int ncs, int opb, cudaStream_t stream) {
   const int ncells = cz * cy * cx;
-  if (n_sys > 65535) return cudaErrorInvalidValue;  // gridDim.y
-  if (ncells == 0 || cap == 0 || n_sys <= 0) return cudaSuccess;
-  // every window staged at once where that fits, else the most that fits
-  const int total = (rx + 1) * cap + (ry + rz * (2 * ry + 1)) * (2 * rx + 1) * cap;
-  const size_t fixed =
-      sizeof(float) * Body::kOut * cap + sizeof(int) * kWarps * kQueue;
-  const size_t per = sizeof(float) * (n_cand + Body::kJ);
-  int ncs = total;
-  if (fixed + per * ncs > kMaxSmem) ncs = static_cast<int>((kMaxSmem - fixed) / per);
+  if (ncells == 0 || cap == 0 || n_sys == 0) return cudaSuccess;
+  if (n_sys < 0 || ncs < 1 || opb < 1 || opb > cap)
+    return cudaErrorInvalidValue;
+  const int n_split = (cap + opb - 1) / opb;
+  if (n_sys > 65535 || n_split > 65535) return cudaErrorInvalidValue;
+  // the staging plan (kernels/window_sweep.py:window_plan): ncs slots a
+  // group, opb own slots a block; allow_smem refuses more than 227 KB
+  const size_t smem = sizeof(float) * ((n_cand + Body::kJ) * static_cast<size_t>(ncs) +
+                                       Body::kOut * static_cast<size_t>(opb)) +
+                      sizeof(int) * kWarps * kQueue;
   const int n_win = 1 + ry + rz * (2 * ry + 1);
-  if (ncs < (n_win > 1 ? 2 * rx + 1 : rx + 1) * cap)
-    return cudaErrorInvalidConfiguration;  // one window must fit
-  const size_t smem = fixed + per * ncs;
-  const cudaError_t e = allow_smem(sweep_kernel<Body>, smem);
+  const bool sliced =
+      opb < cap || ncs < (n_win > 1 ? 2 * rx + 1 : rx + 1) * cap;
+  auto* kernel = sliced ? sweep_kernel<Body, true> : sweep_kernel<Body, false>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  sweep_kernel<Body><<<dim3(ncells, n_sys), kThreads, smem, stream>>>(
-      own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p, ncs);
+  kernel<<<dim3(ncells, n_sys, n_split), kThreads, smem, stream>>>(
+      own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, p, ncs,
+      opb);
   return cudaGetLastError();
 }
 
@@ -265,19 +349,20 @@ cudaError_t launch(const float* own, const float* cand, float* own_out,
 // body: 0 = CN, 1 = D3 direct, 2 = CN chain, 3 = Coulomb, 4 = D3 direct +
 // Coulomb (separate force channels), 5 = D3 direct + Coulomb (combined).
 // n_sys: the systems of a batched grid swept by this launch (1 for one
-// grid).
+// grid); ncs: candidate slots a staging group holds; opb: own slots a block
+// takes (cap: the whole cell).
 extern "C" int nv_window_sweep(int body, const float* own, const float* cand,
                                const float* lf, float* own_out, float* j_out,
                                int cz, int cy, int cx, int rz, int ry, int rx,
                                int cap, int n_cand, float cutoff_sq, float a1,
                                float a2, float s6, float s8, float k1, float k3,
                                float alpha, float ccutoff_sq, int zm, int mesh,
-                               int n_sys, void* stream) {
+                               int n_sys, int ncs, int opb, void* stream) {
   const Params p{cutoff_sq, a1, a2, s6, s8, k1, k3, alpha, ccutoff_sq, zm, mesh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(B) \
   launch<B>(own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, \
-            p, n_sys, st)
+            p, n_sys, ncs, opb, st)
   switch (body) {
     case 0: return LAUNCH(CnBody);
     case 1: return LAUNCH(D3DirectBody<false>);

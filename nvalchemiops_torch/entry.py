@@ -151,10 +151,9 @@ def _dryrun_domain_decomposition(n_devices: int, dev) -> None:
     PME at the JAX dry run's shapes: 400 atoms in a ``4 n`` A box at 4 A,
     a ``(8 n)^3`` mesh, ``2 n`` systems x 64 atoms in 8 A boxes at 16^3.
 
-    The grid bins at two cells per cutoff (``2 n`` cells a side, radius 2,
-    slabs of 2 cells): at ``n = 1`` the JAX geometry holds all 400 atoms
-    in one cell, and one 3-cell window of that cell (cap 1,336) exceeds
-    what kernel 1 stages in shared memory."""
+    The grid is the JAX dry run's (``target_occupancy=0.3``, one cell per
+    cutoff): at ``n = 1`` all 400 atoms in one cell of cap 1,336, whose
+    windows kernel 1 stages in slices of its shared memory."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from nvalchemiops_torch.grid import build_atom_grid, estimate_grid_geometry
@@ -177,8 +176,7 @@ def _dryrun_domain_decomposition(n_devices: int, dev) -> None:
     cell = t(np.eye(3) * box)
     pbc = np.array([True] * 3)
     dims, radius, cap = estimate_grid_geometry(
-        np.eye(3) * box, pbc, cutoff, n, target_occupancy=0.3,
-        bins_per_cutoff=2)
+        np.eye(3) * box, pbc, cutoff, n, target_occupancy=0.3)
     grid = build_atom_grid(pos, cell, pbc, dims, radius, cap)
     if dims[0] % n_devices:
         raise RuntimeError(f"grid {dims} does not split over {n_devices}")

@@ -53,15 +53,12 @@ from nvalchemiops_torch.grid import (
     gather_rows_from_grid,
     scatter_rows_to_grid,
     scatter_to_grid,
-    system_grid,
 )
 from nvalchemiops_torch.kernels.chunk_sweep import (
     chunk_sweep, super_chunk_cells,
 )
 from nvalchemiops_torch.kernels.row_sweep import row_sweep
-from nvalchemiops_torch.kernels.window_sweep import (
-    SweepParams, window_sweep, window_sweep_batch,
-)
+from nvalchemiops_torch.kernels.window_sweep import SweepParams, window_sweep
 from nvalchemiops_torch.neighborlist.neighbor_utils import unpack_shifts
 from nvalchemiops_torch.stencil import (
     extend_stencil, scatter_to_stencil, stencil_cn_chain_forces,
@@ -202,25 +199,21 @@ def _sweep(grid, engine, block_g, body, own, cand, params, lf=None,
     """One pass on the engine's kernel: ``"window"`` (kernel 1, factored
     mesh features), ``"pallas"`` (kernel 7) or ``"block"`` (kernel 8; G =
     ``block_g`` or the card's pick), the last two with zm-wide features.
-    On a batched grid the window engine sweeps every system in one launch
-    and returns ``[F, B, ..]`` views; the other engines take one system's
-    grid and raise on a batched one."""
+    On a batched grid the kernel sweeps every system in one launch and the
+    outputs come back as ``[F, B, ..]`` views."""
     if engine == "window":
-        if not _system_axes(grid):
-            return window_sweep(body, grid.radius, own, cand, params, lf=lf)
-        own_out, j_out = window_sweep_batch(body, grid.radius, own, cand,
-                                            params, lf=lf)
-        return own_out.transpose(0, 1), j_out.transpose(0, 1)
+        out = window_sweep(body, grid.radius, own, cand, params, lf=lf)
+    elif engine == "pallas":
+        out = row_sweep(body, grid.radius, own, cand, params, lf=lf, cf=cf)
+    else:
+        g_cells = block_g or super_chunk_cells(
+            body, grid.dims[2], grid.cap, grid.radius[2],
+            0 if lf is None else lf.shape[-1])
+        out = chunk_sweep(body, grid.radius, own, cand, params, g_cells,
+                          lf=lf, cf=cf)
     if _system_axes(grid):
-        raise ValueError(f"engine {engine!r} sweeps one system's grid; a "
-                         "batched grid takes engine 'window'")
-    if engine == "pallas":
-        return row_sweep(body, grid.radius, own, cand, params, lf=lf, cf=cf)
-    g_cells = block_g or super_chunk_cells(
-        body, grid.dims[2], grid.cap, grid.radius[2],
-        0 if lf is None else lf.shape[-1])
-    return chunk_sweep(body, grid.radius, own, cand, params, g_cells, lf=lf,
-                       cf=cf)
+        return tuple(t.transpose(0, 1) for t in out)
+    return out
 
 
 def _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params, engine="window",
@@ -320,7 +313,7 @@ def _d3_pass2_direct(grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl,
     else:
         if q is not None:
             cand_cols.append(q[1])
-        cand = torch.stack(cand_cols)
+        cand = _stack(grid, cand_cols)
         cf = _wide_rows(e_ext, edc_ext, z_ext, lf.shape[-1] // 2)
     acc, jacc = _sweep(grid, engine, block_g, body, _stack(grid, own_cols),
                        cand, params, lf=lf, cf=cf)
@@ -666,11 +659,12 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
 
     The systems share the grid geometry estimated from ``cells[0]``; the
     grid is built once for the batch (:func:`grid.batch_build_atom_grid`).
-    On the window engine (the default, and ``engine="xla"``) each D3 pass
-    is one launch of kernel 1 over every system (three launches a call for
-    any B), and the folds, feature planes and per-system sums carry the
-    system axis; ``engine="block"``, ``"pallas"`` and ``"hybrid"`` run
-    :func:`grid_dftd3` on each system's part, in a loop over systems.
+    On the window (the default, and ``engine="xla"``), block and pallas
+    engines each D3 pass is one launch of the engine's kernel (1, 8 or 7)
+    over every system (three launches a call for any B), and the folds,
+    feature planes and per-system sums carry the system axis.
+    ``engine="hybrid"`` raises, as the JAX function does: it needs a
+    ``StencilGrid``, which this function does not take.
     ``positions [B, n, 3]``, ``numbers [B, n]`` (0 = padding atom),
     ``cells`` ``[3, 3]`` or ``[B, 3, 3]``; ``target_occupancy`` sizes the
     estimated slot capacity, and ``cap`` overrides it, as in the JAX
@@ -680,27 +674,24 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
     """
     _check_engine("batch_grid_dftd3", engine,
                   (None, "window", "xla", "block", "pallas", "hybrid"))
-    b, n = positions.shape[0], positions.shape[1]
+    if engine == "hybrid":
+        raise ValueError("engine='hybrid' requires a StencilGrid (stencil=...)")
+    n = positions.shape[1]
     cells_np = np.asarray(_np(cells), dtype=np.float64)
     dims, radius, cap_est = estimate_grid_geometry(
         cells_np if cells_np.ndim == 2 else cells_np[0], pbc, cutoff, n,
         target_occupancy=target_occupancy)
     g = batch_build_atom_grid(positions, cells, pbc, dims, radius,
                               cap_est if cap is None else cap)
-    numbers_np = _np(numbers)
-    if engine in (None, "window", "xla"):
-        _, _, planes, _ = _d3_inputs(g, numbers_np, rcov, r4r2, c6ab,
-                                     cn_ref_elem)
-        params = SweepParams(cutoff=float(cutoff), a1=float(a1),
-                             a2=float(a2), s6=float(s6), s8=float(s8),
-                             k1=float(k1), k3=float(k3))
-        e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(g, *planes, params)
-        f1, f2, f3, coord_num = gather_rows_from_grid(
-            g, (fx_pl, fy_pl, fz_pl, cn_pl))
-        return (e_pl.sum(dim=(1, 2, 3, 4)), torch.stack([f1, f2, f3], dim=-1),
-                coord_num)
-    outs = [grid_dftd3(system_grid(g, i), numbers_np[i], rcov, r4r2, c6ab,
-                       cn_ref_elem, cutoff, a1, a2, s8, s6=s6, k1=k1, k3=k3,
-                       engine=engine)
-            for i in range(b)]
-    return tuple(torch.stack(o) for o in zip(*outs))
+    _, _, planes, _ = _d3_inputs(g, _np(numbers), rcov, r4r2, c6ab,
+                                 cn_ref_elem)
+    params = SweepParams(cutoff=float(cutoff), a1=float(a1), a2=float(a2),
+                         s6=float(s6), s8=float(s8), k1=float(k1),
+                         k3=float(k3))
+    engine = "window" if engine in (None, "xla") else engine
+    e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(g, *planes, params,
+                                                     engine)
+    f1, f2, f3, coord_num = gather_rows_from_grid(
+        g, (fx_pl, fy_pl, fz_pl, cn_pl))
+    return (e_pl.sum(dim=(1, 2, 3, 4)), torch.stack([f1, f2, f3], dim=-1),
+            coord_num)

@@ -1,10 +1,13 @@
 # SPDX-License-Identifier: Apache-2.0
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Each wrapper takes the plain version for tensors on the CPU and launches
-its CUDA kernel (csrc/) for tensors on a CUDA device; it never falls back
-from one to the other.  ``launch_counts`` counts kernel launches per
-wrapper, so a run can show that the main path went through the kernels.
+Each wrapper launches its CUDA kernel (csrc/) for float32 tensors on a
+CUDA device, on that card, and takes its plain version for every other
+tensor (on the CPU, or of another dtype on the card), on the tensor's
+device (``build.launches_kernel``); it never falls back from one to the
+other.  ``launch_counts`` counts kernel launches per wrapper and body
+(a batched grid's launch under the same key), so a run can show that the
+main path went through the kernels.
 """
 
 launch_counts = {
@@ -13,11 +16,6 @@ launch_counts = {
     "window_sweep_chain": 0,
     "window_sweep_coulomb": 0,
     "window_sweep_d3_direct_coulomb": 0,
-    "window_sweep_batch_cn": 0,
-    "window_sweep_batch_d3_direct": 0,
-    "window_sweep_batch_chain": 0,
-    "window_sweep_batch_coulomb": 0,
-    "window_sweep_batch_d3_direct_coulomb": 0,
     "windowed_spread": 0,
     "windowed_gather_grad": 0,
     "dense_pairs_cn": 0,

@@ -14,6 +14,7 @@ unchanged one is reused.  Importing this module builds nothing; a missing
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -41,9 +42,9 @@ _F = ctypes.c_float
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int)
 _SIGNATURES = {
     "nv_window_sweep": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] * 9
-                       + [_I, _I, _I, _P],
-    "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 8 + [_P],
-    "nv_chunk_sweep": [_I] + [_P] * 6 + [_I] * 9 + [_F] * 9 + [_P],
+                       + [_I] * 5 + [_P],
+    "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 12 + [_F] * 8 + [_P],
+    "nv_chunk_sweep": [_I] + [_P] * 6 + [_I] * 12 + [_F] * 9 + [_P],
     "nv_stencil_sweep": [_I] + [_P] * 3 + [_I] * 8 + [_F] * 3 + [_P],
     "nv_windowed_gather_grad": [_P] * 6 + [_I] * 4 + [_P],
     "nv_windowed_spread": [_P] * 3 + [_I] * 4 + [_P],
@@ -51,6 +52,7 @@ _SIGNATURES = {
                       + [ctypes.POINTER(_I), _P],
     "nv_separable_spread": [_P] * 5 + [_I] * 10 + [_P],
     "nv_separable_gather": [_P] * 6 + [_I] * 8 + [_P],
+    "nv_set_device": [_I],
 }
 
 def find_nvcc() -> str:
@@ -150,14 +152,24 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def launches_kernel(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` launches its CUDA kernel: for a CUDA
+    tensor of ``KERNEL_DTYPE`` (float32), on any card.  A CPU tensor, or a
+    CUDA tensor of another dtype, takes the plain version on its own
+    device; any other device raises.  The route is decided by device and
+    dtype alone, before any build: a failed build or launch raises, it is
+    never rerouted."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.is_cuda and t.dtype == KERNEL_DTYPE
+
+
 def check_cuda_tensors(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on CUDA
-    device 0, the device the library's runtime launches on."""
+    """Raise unless every tensor is a contiguous float32 tensor on the
+    first tensor's CUDA device."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if dev.index not in (None, 0):
-        raise ValueError(f"{name}: the kernels run on cuda:0, got {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
@@ -166,6 +178,19 @@ def check_cuda_tensors(name: str, *tensors) -> None:
                              f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+@contextlib.contextmanager
+def on_device(t: torch.Tensor):
+    """Context of a launch for ``t``: ``t``'s card is PyTorch's current
+    device and the library runtime's, so the launch and the runtime's
+    calls before it (``cudaFuncSetAttribute`` for shared memory) act on
+    that card, on its current stream."""
+    with torch.cuda.device(t.device):
+        index = torch.cuda.current_device()
+        check_launch(f"cudaSetDevice({index})",
+                     load_library().nv_set_device(index))
+        yield
 
 
 def current_stream(t: torch.Tensor) -> int:

@@ -26,7 +26,10 @@ body                   own / candidate features                 own   j
 ``lf [cz, cy, cx, cap, 2 zm]`` are the own left rows ``[l0 | l1c]``, ``cf
 [ez, ey, ex, cap, 2 zm]`` the candidates' zm-wide rows ``[rf | rfdc]``, as
 the JAX engine takes them.  G must divide cx; :func:`super_chunk_cells`
-picks one for the card's shared memory.
+picks one for the card's shared memory, and where one own cell and its
+window do not fit, a block stages slices of them (:func:`chunk_slices`).
+On a batched grid every array takes a leading system axis and one launch
+sweeps the B systems.
 """
 
 from __future__ import annotations
@@ -35,13 +38,16 @@ import torch
 
 from nvalchemiops_torch.kernels import launch_counts
 from nvalchemiops_torch.kernels.build import (
-    check_cuda_tensors, check_launch, current_stream, load_library,
+    check_cuda_tensors, check_launch, current_stream, launches_kernel,
+    load_library, on_device,
 )
 from nvalchemiops_torch.kernels.window_sweep import (
-    BODY_FNS, SweepParams, check_wide, halfspace_zy,
+    BODY_FNS, QUEUE, SMEM_BYTES, SweepParams, halfspace_zy, per_system,
+    stage_slices, wide_batched,
 )
 
-__all__ = ["BODIES", "chunk_sweep", "chunk_sweep_plain", "super_chunk_cells"]
+__all__ = ["BODIES", "chunk_slices", "chunk_sweep", "chunk_sweep_plain",
+           "super_chunk_cells"]
 
 #: body name -> (C body id, n_own (= n_cand), n_out, n_j)
 BODIES = {
@@ -52,28 +58,33 @@ BODIES = {
     "d3_direct_coulomb": (4, 6, 9, 8),
 }
 
-#: shared memory one block may use on the H100 (227 KB)
-SMEM_BYTES = 232448
-#: the kernel's warps a block and the ints of each warp's pair queue
-#: (csrc/pair_bodies.cuh: kWideWarps, kQueue)
-WARPS, QUEUE = 8, 64
+#: the kernel's warps a block (csrc/pair_bodies.cuh: kWideWarps)
+WARPS = 8
 
 
-def chunk_smem_bytes(body: str, g: int, cap: int, rx: int, nf: int) -> int:
+def chunk_smem_bytes(body: str, g: int, cap: int, rx: int, nf: int,
+                     own_slots: int | None = None,
+                     cand_slots: int | None = None) -> int:
     """Shared memory of one block (csrc/chunk_sweep.cu:chunk_smem_bytes):
-    the staged chunk, the own and j sums and the warps' queues."""
+    ``own_slots`` staged own slots of a chunk of ``g`` cells (its ``g *
+    cap``: the whole chunk) and ``cand_slots`` candidates of its window
+    (``(g + 2 rx) * cap``: the whole window), their sums and the warps'
+    queues."""
     _, n_feat, n_out, n_j = BODIES[body]
-    m, w = g * cap, (g + 2 * rx) * cap
+    m = g * cap if own_slots is None else own_slots
+    w = (g + 2 * rx) * cap if cand_slots is None else cand_slots
     fs = (nf | 1) if nf else 0
-    return 4 * (n_feat * m + m * fs + n_feat * w + w * fs + n_out * m
-                + n_j * w + WARPS * QUEUE)
+    return 4 * ((n_feat + fs + n_out) * m + (n_feat + fs + n_j) * w
+                + WARPS * QUEUE)
 
 
 def super_chunk_cells(body: str, cx: int, cap: int, rx: int,
                       nf: int = 0) -> int:
     """G for the card: a divisor of cx whose chunk fits one block's shared
     memory, with M = G*cap closest to 128 own rows (ties: the smaller),
-    so a block's 8 warps get 16 rows each with few idle lanes left over."""
+    so a block's 8 warps get 16 rows each with few idle lanes left over;
+    1 where one own cell and its window do not fit (:func:`chunk_slices`
+    then stages them in slices)."""
     best = None
     for g in range(1, cx + 1):
         if cx % g or chunk_smem_bytes(body, g, cap, rx, nf) > SMEM_BYTES:
@@ -81,56 +92,81 @@ def super_chunk_cells(body: str, cx: int, cap: int, rx: int,
         key = (abs(g * cap - 128), g)
         if best is None or key < best[0]:
             best = (key, g)
-    if best is None:
-        raise ValueError(f"chunk_sweep[{body}]: one x-cell (cap {cap}, rx "
-                         f"{rx}, {nf} feature columns) exceeds a block's "
-                         "shared memory")
-    return best[1]
+    return 1 if best is None else best[1]
+
+
+def chunk_slices(body: str, g: int, cap: int, rx: int,
+                 nf: int = 0) -> tuple[int, int]:
+    """``(own slots, candidates)`` a block stages at once for chunks of
+    ``g`` cells: the whole chunk and window where they fit, else slices of
+    both (:func:`window_sweep.stage_slices`): the chunk's own slots over
+    blocks, its window one slice after another."""
+    m, w = g * cap, (g + 2 * rx) * cap
+    if chunk_smem_bytes(body, g, cap, rx, nf) <= SMEM_BYTES:
+        return m, w
+    _, n_feat, n_out, n_j = BODIES[body]
+    fs = (nf | 1) if nf else 0
+    return stage_slices(4 * (n_feat + fs + n_out), 4 * (n_feat + fs + n_j),
+                        SMEM_BYTES - 4 * WARPS * QUEUE, m, w)
 
 
 def chunk_sweep(body: str, radius, own, cand, params: SweepParams, g_cells,
-                lf=None, cf=None):
+                lf=None, cf=None, plan=None):
     """Run one pass body over the grid by super-chunks of ``g_cells`` cells:
-    CUDA kernel on a CUDA device, the plain version
-    (:func:`chunk_sweep_plain`) on the CPU."""
-    check_wide("chunk_sweep", BODIES, body, radius, own, cand, lf, cf)
-    cx = own.shape[3]
+    the CUDA kernel for float32 CUDA tensors (on their card), else the
+    plain version (:func:`chunk_sweep_plain`) on the tensors' device.
+
+    One grid's planes or a batched grid's, with a leading system axis
+    (``own [B, n_own, ..]``, ``cand``, ``lf``, ``cf``): the B systems then
+    run in one launch and the outputs carry the axis too.  ``plan``
+    replaces :func:`chunk_slices`'s ``(own slots, candidates)``."""
+    own_b, cand_b, lf_b, cf_b, single = wide_batched(
+        "chunk_sweep", BODIES, body, radius, own, cand, lf, cf)
+    cx = own_b.shape[4]
     if g_cells < 1 or cx % g_cells:
         raise ValueError(f"G={g_cells} must divide cx={cx}")
-    if own.device.type == "cpu":
+    if not launches_kernel(own_b):
         return chunk_sweep_plain(body, radius, own, cand, params, g_cells, lf,
                                  cf)
     wide = body.startswith("d3_direct")
-    check_cuda_tensors("chunk_sweep", own, cand, *((lf, cf) if wide else ()))
+    check_cuda_tensors("chunk_sweep", own_b, cand_b,
+                       *((lf_b, cf_b) if wide else ()))
     body_id, _, n_out, n_j = BODIES[body]
-    _, cz, cy, cx, cap = own.shape
+    n_sys, _, cz, cy, cx, cap = own_b.shape
     rz, ry, rx = radius
-    nf = lf.shape[-1] if wide else 0
-    if chunk_smem_bytes(body, g_cells, cap, rx, nf) > SMEM_BYTES:
-        raise ValueError(f"chunk_sweep[{body}]: G={g_cells} exceeds a "
-                         "block's shared memory (see super_chunk_cells)")
-    own_out = torch.zeros((n_out, cz, cy, cx, cap), dtype=own.dtype,
+    nf = lf_b.shape[-1] if wide else 0
+    m_s, w_s = plan or chunk_slices(body, g_cells, cap, rx, nf)
+    own_out = torch.zeros((n_sys, n_out, cz, cy, cx, cap), dtype=own.dtype,
                           device=own.device)
-    j_out = torch.zeros((n_j,) + tuple(cand.shape[1:]), dtype=own.dtype,
-                        device=own.device)
+    j_out = torch.zeros((n_sys, n_j) + tuple(cand_b.shape[2:]),
+                        dtype=own.dtype, device=own.device)
     p = params
-    err = load_library().nv_chunk_sweep(
-        body_id, own.data_ptr(), cand.data_ptr(),
-        lf.data_ptr() if wide else None, cf.data_ptr() if wide else None,
-        own_out.data_ptr(), j_out.data_ptr(), cz, cy, cx, rz, ry, rx, cap,
-        g_cells, nf, p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8, p.k1, p.k3,
-        p.alpha, p.ccutoff * p.ccutoff, current_stream(own))
+    with on_device(own_b):
+        err = load_library().nv_chunk_sweep(
+            body_id, own_b.data_ptr(), cand_b.data_ptr(),
+            lf_b.data_ptr() if wide else None,
+            cf_b.data_ptr() if wide else None, own_out.data_ptr(),
+            j_out.data_ptr(), cz, cy, cx, rz, ry, rx, cap, g_cells, nf,
+            n_sys, m_s, w_s, p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8,
+            p.k1, p.k3, p.alpha, p.ccutoff * p.ccutoff, current_stream(own_b))
     check_launch(f"chunk_sweep[{body}]", err)
     launch_counts[f"chunk_sweep_{body}"] += 1
-    return own_out, j_out
+    return (own_out[0], j_out[0]) if single else (own_out, j_out)
 
 
 def chunk_sweep_plain(body: str, radius, own, cand, params: SweepParams,
                       g_cells, lf=None, cf=None):
     """Plain PyTorch version of :func:`chunk_sweep` (any device/dtype): the
     same super-chunk enumeration, materializing each offset's ``[cz, cy,
-    cx/G, M, W]`` pair blocks."""
-    check_wide("chunk_sweep", BODIES, body, radius, own, cand, lf, cf)
+    cx/G, M, W]`` pair blocks; a batched grid's planes run as the loop over
+    its systems."""
+    return per_system(lambda o, c, l, f: _chunk_plain(
+        body, radius, o, c, params, g_cells, l, f),
+        *wide_batched("chunk_sweep", BODIES, body, radius, own, cand, lf, cf))
+
+
+def _chunk_plain(body, radius, own, cand, params, g_cells, lf, cf):
+    """:func:`chunk_sweep_plain` on one grid's planes."""
     _, n_own, n_out, n_j = BODIES[body]
     _, cz, cy, cx, cap = own.shape
     rz, ry, rx = radius

@@ -37,7 +37,8 @@ import torch
 
 from nvalchemiops_torch.kernels import launch_counts
 from nvalchemiops_torch.kernels.build import (
-    check_cuda_tensors, check_launch, current_stream, load_library,
+    check_cuda_tensors, check_launch, current_stream, launches_kernel,
+    load_library, on_device,
 )
 from nvalchemiops_torch.kernels.window_sweep import SweepParams
 
@@ -85,11 +86,12 @@ def _check(body, feats, cells, combos, lw):
 
 def dense_pairs(body: str, feats, cells, combos, params: SweepParams,
                 lw=None):
-    """Run one pass body over every tile pair of every system: CUDA kernel
-    on a CUDA device, :func:`dense_pairs_plain` on the CPU.  Returns
-    ``out [n_out, S, n_pad]``."""
+    """Run one pass body over every tile pair of every system: the CUDA
+    kernel for float32 CUDA tensors (on their card), else
+    :func:`dense_pairs_plain` on the tensors' device.  Returns ``out
+    [n_out, S, n_pad]``."""
     _check(body, feats, cells, combos, lw)
-    if feats.device.type == "cpu":
+    if not launches_kernel(feats):
         return dense_pairs_plain(body, feats, cells, combos, params, lw)
     check_cuda_tensors("dense_pairs", feats, cells,
                        *([lw] if lw is not None else []))
@@ -103,11 +105,13 @@ def dense_pairs(body: str, feats, cells, combos, params: SweepParams,
     combo_arr = (ctypes.c_int * _MAX_COMBOS)(*(bits + [0] * (_MAX_COMBOS
                                                             - len(bits))))
     p = params
-    err = load_library().nv_dense_pairs(
-        body_id, feats.data_ptr(), cells.data_ptr(),
-        lw.data_ptr() if lw is not None else None, out.data_ptr(),
-        s_count, n_pad, n_feat, p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8,
-        p.k1, p.k3, mesh, zm, len(bits), combo_arr, current_stream(feats))
+    with on_device(feats):
+        err = load_library().nv_dense_pairs(
+            body_id, feats.data_ptr(), cells.data_ptr(),
+            lw.data_ptr() if lw is not None else None, out.data_ptr(),
+            s_count, n_pad, n_feat, p.cutoff * p.cutoff, p.a1, p.a2, p.s6,
+            p.s8, p.k1, p.k3, mesh, zm, len(bits), combo_arr,
+            current_stream(feats))
     check_launch(f"dense_pairs[{body}]", err)
     launch_counts[f"dense_pairs_{body}"] += 1
     return out

@@ -35,7 +35,8 @@ import torch
 
 from nvalchemiops_torch.kernels import launch_counts
 from nvalchemiops_torch.kernels.build import (
-    check_cuda_tensors, check_launch, current_stream, load_library,
+    check_cuda_tensors, check_launch, current_stream, launches_kernel,
+    load_library, on_device,
 )
 from nvalchemiops_torch.types import INDEX_DTYPE
 
@@ -264,8 +265,9 @@ def separable_spread_plain(gidx, w, q, mesh_dims):
 
 def separable_spread(gidx, w, q, mesh_dims):
     """Spread ``q [B, N]`` onto ``[B, nx, ny, nz]`` meshes through the
-    stencil: CUDA kernel on a CUDA device (slabs of :func:`spread_plan`,
-    every mesh point written by its owner), plain version on the CPU.  The
+    stencil: the CUDA kernel for float32 CUDA tensors, on their card (slabs
+    of :func:`spread_plan`, every mesh point written by its owner), else
+    the plain version on the tensors' device.  The
     stencil's indices are consecutive mod n along each axis, as
     ``spline._stencil`` builds them; the kernel finds an atom's x-points
     from the first.  The kernel sums in fixed point, so two launches on
@@ -274,7 +276,7 @@ def separable_spread(gidx, w, q, mesh_dims):
     if tuple(q.shape) != tuple(w.shape[:2]):
         raise ValueError(f"separable_spread: q {tuple(q.shape)} must be "
                          f"[B, N] = {tuple(w.shape[:2])}")
-    if w.device.type == "cpu":
+    if not launches_kernel(w):
         return separable_spread_plain(gidx, w, q, mesh_dims)
     check_cuda_tensors("separable_spread", w, q)
     _check_index("separable_spread", gidx, w)
@@ -283,11 +285,12 @@ def separable_spread(gidx, w, q, mesh_dims):
     plan = spread_plan((nx, ny, nz), order, b)
     xbase = gidx[:, :, 0, 0].contiguous()      # what the kernel's scan reads
     mesh = torch.empty((b, nx, ny, nz), dtype=w.dtype, device=w.device)
-    err = load_library().nv_separable_spread(
-        gidx.data_ptr(), xbase.data_ptr(), w.data_ptr(), q.data_ptr(),
-        mesh.data_ptr(),
-        b, n, order, nx, ny, nz, plan.planes, plan.rows, plan.x_slabs,
-        plan.y_slabs, current_stream(w))
+    with on_device(w):
+        err = load_library().nv_separable_spread(
+            gidx.data_ptr(), xbase.data_ptr(), w.data_ptr(), q.data_ptr(),
+            mesh.data_ptr(),
+            b, n, order, nx, ny, nz, plan.planes, plan.rows, plan.x_slabs,
+            plan.y_slabs, current_stream(w))
     check_launch("separable_spread", err)
     launch_counts["separable_spread"] += 1
     return mesh
@@ -328,15 +331,16 @@ def separable_gather_plain(mesh, gidx, w, dw=None):
 def separable_gather(mesh, gidx, w, dw=None):
     """Interpolate ``mesh [B, nx, ny, nz]`` at the stencils: ``val [B, N]``,
     or ``(val, grad [B, N, 3])`` with derivative weights ``dw`` (one pass
-    for the value and the three derivative gathers).  CUDA kernel on a CUDA
-    device (rows staged in shared memory or read through L2, as
-    :func:`gather_plan` decides; each output written once in a fixed order,
-    so two launches give the same bits), plain version on the CPU."""
+    for the value and the three derivative gathers).  The CUDA kernel for
+    float32 CUDA tensors, on their card (rows staged in shared memory or
+    read through L2, as :func:`gather_plan` decides; each output written
+    once in a fixed order, so two launches give the same bits), else the
+    plain version on the tensors' device."""
     _check("separable_gather", gidx, w, dw)
     if mesh.dim() != 4 or mesh.shape[0] != w.shape[0]:
         raise ValueError(f"separable_gather: mesh {tuple(mesh.shape)} must "
                          "be [B, nx, ny, nz]")
-    if w.device.type == "cpu":
+    if not launches_kernel(w):
         return separable_gather_plain(mesh, gidx, w, dw)
     check_cuda_tensors("separable_gather", mesh, w,
                        *([dw] if dw is not None else []))
@@ -353,11 +357,13 @@ def separable_gather(mesh, gidx, w, dw=None):
     val = torch.empty((b, n), dtype=w.dtype, device=w.device)
     grad = (torch.empty((b, n, 3), dtype=w.dtype, device=w.device)
             if dw is not None else None)
-    err = load_library().nv_separable_gather(
-        mesh.data_ptr(), gidx.data_ptr(), w.data_ptr(),
-        dw.data_ptr() if dw is not None else None, val.data_ptr(),
-        grad.data_ptr() if grad is not None else None,
-        b, n, order, nx, ny, nz, plan.lanes, plan.slices, current_stream(w))
+    with on_device(w):
+        err = load_library().nv_separable_gather(
+            mesh.data_ptr(), gidx.data_ptr(), w.data_ptr(),
+            dw.data_ptr() if dw is not None else None, val.data_ptr(),
+            grad.data_ptr() if grad is not None else None,
+            b, n, order, nx, ny, nz, plan.lanes, plan.slices,
+            current_stream(w))
     check_launch("separable_gather", err)
     launch_counts["separable_gather"] += 1
     return (val, grad) if dw is not None else val

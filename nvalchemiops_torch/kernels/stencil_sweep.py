@@ -36,7 +36,8 @@ import torch
 
 from nvalchemiops_torch.kernels import launch_counts
 from nvalchemiops_torch.kernels.build import (
-    check_cuda_tensors, check_launch, current_stream, load_library,
+    check_cuda_tensors, check_launch, current_stream, launches_kernel,
+    load_library, on_device,
 )
 from nvalchemiops_torch.kernels.window_sweep import BODY_FNS, SweepParams
 
@@ -93,11 +94,11 @@ def _geometry(body, dims, radius, ext, own):
 
 
 def stencil_sweep(body: str, dims, radius, ext, own, params: SweepParams):
-    """Run one body over every (own voxel, offset) pair: CUDA kernel on a
-    CUDA device, the plain version (:func:`stencil_sweep_plain`) on the
-    CPU."""
+    """Run one body over every (own voxel, offset) pair: the CUDA kernel for
+    float32 CUDA tensors (on their card), else the plain version
+    (:func:`stencil_sweep_plain`) on the tensors' device."""
     _geometry(body, dims, radius, ext, own)
-    if own.device.type == "cpu":
+    if not launches_kernel(own):
         return stencil_sweep_plain(body, dims, radius, ext, own, params)
     check_cuda_tensors("stencil_sweep", ext, own)
     body_id, _, n_out = BODIES[body]
@@ -106,10 +107,11 @@ def stencil_sweep(body: str, dims, radius, ext, own, params: SweepParams):
                       device=own.device)
     rz, ry, rx = radius
     p = params
-    err = load_library().nv_stencil_sweep(
-        body_id, ext.data_ptr(), own.data_ptr(), out.data_ptr(), cz, cy, cx,
-        rz, ry, rx, PLAN[body][0], stencil_slices(body, radius),
-        p.cutoff * p.cutoff, p.k1, p.alpha, current_stream(own))
+    with on_device(own):
+        err = load_library().nv_stencil_sweep(
+            body_id, ext.data_ptr(), own.data_ptr(), out.data_ptr(), cz, cy,
+            cx, rz, ry, rx, PLAN[body][0], stencil_slices(body, radius),
+            p.cutoff * p.cutoff, p.k1, p.alpha, current_stream(own))
     check_launch(f"stencil_sweep[{body}]", err)
     launch_counts[f"stencil_sweep_{body}"] += 1
     return out

@@ -32,9 +32,12 @@ interior planes, ``cand [n_cand, ez, ey, ex, cap]`` extended planes.  The
 result is ``(own_out [n_out, cz, cy, cx, cap], j_out [n_j, ez, ey, ex,
 cap])``; the caller folds ``j_out`` with ``grid.fold_halo``.  Parameters are
 runtime floats (:class:`SweepParams`): no rebuild per parameter set.
-:func:`window_sweep_batch` sweeps the B systems of a batched grid in one
-launch: every array takes a leading system axis (``own [B, n_own, ..]``,
-``cand [B, n_cand, ..]``, ``lf [B, ..]``, and the outputs likewise).
+On a batched grid every array takes a leading system axis (``own [B,
+n_own, ..]``, ``cand [B, n_cand, ..]``, ``lf [B, ..]``, and the outputs
+likewise) and one launch sweeps the B systems.  Where the candidate
+windows of a cell do not fit a block's shared memory, the kernel stages
+them in groups of slots, and cuts a window that alone exceeds them into
+slices (:func:`window_plan`).
 
 The bodies match the JAX window bodies term for term (grid_d3.py:1380-1387,
 :1465-1571, :1612-1625; grid.py:900-928), including the displacement
@@ -50,13 +53,14 @@ import torch
 
 from nvalchemiops_torch.kernels import launch_counts
 from nvalchemiops_torch.kernels.build import (
-    check_cuda_tensors, check_launch, current_stream, load_library,
+    check_cuda_tensors, check_launch, current_stream, launches_kernel,
+    load_library, on_device,
 )
 from nvalchemiops_torch.mathops.math import erfc_approx
 
 __all__ = ["SweepParams", "BODIES", "window_sweep", "window_sweep_plain",
-           "window_sweep_batch", "window_sweep_batch_plain", "body_outputs",
-           "BODY_FNS", "halfspace_zy"]
+           "window_plan", "body_outputs", "BODY_FNS",
+           "halfspace_zy"]
 
 #: body name -> (C body id, n_own, n_out, n_j); the D3 bodies have 6 (7 with
 #: the charge) + 2*mesh candidate features, the others as many as own
@@ -158,86 +162,165 @@ def check_wide(name, bodies, body, radius, own, cand, lf, cf):
                              "2*zm]")
 
 
-def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None):
-    """Run one pass body over the grid: CUDA kernel on a CUDA device, the
-    plain version (:func:`window_sweep_plain`) on the CPU."""
-    _check(body, radius, own, cand, lf)
-    if own.device.type == "cpu":
-        return window_sweep_plain(body, radius, own, cand, params, lf)
-    out = _launch("window_sweep", body, radius, own[None], cand[None],
-                  params, None if lf is None else lf[None])
-    launch_counts[f"window_sweep_{body}"] += 1
-    return out[0][0], out[1][0]
-
-
-def _check_batch(body, radius, own, cand, lf):
+def batched(name, check, own, cand, *rows):
+    """The planes of a sweep with a leading system axis (one grid: B = 1):
+    ``own``, ``cand`` and the optional feature ``rows`` (None stays None),
+    the first system's shapes checked by ``check(own, cand, *rows)``;
+    returns ``(own, cand, *rows, single)``, ``single`` where they came
+    without the axis."""
+    single = own.dim() == 5
+    if single:
+        own, cand = own[None], cand[None]
+        rows = tuple(None if r is None else r[None] for r in rows)
     if own.dim() != 6 or cand.dim() != 6 or cand.shape[0] != own.shape[0] \
-            or (lf is not None and lf.shape[0] != own.shape[0]):
-        raise ValueError("batched planes must be own [B, n_own, cz, cy, cx, "
-                         "cap], cand [B, n_cand, ez, ey, ex, cap] and lf [B, "
-                         "cz, cy, cx, cap, 2*zm] with one B")
+            or any(r is not None and r.shape[0] != own.shape[0]
+                   for r in rows):
+        raise ValueError(f"{name}: batched planes must be own [B, n_own, cz, "
+                         "cy, cx, cap], cand [B, n_cand, ez, ey, ex, cap] and "
+                         "feature rows [B, cz, cy, cx, cap, 2*zm] with one B")
     if own.shape[0] > 65535:
         raise ValueError(f"at most 65,535 systems a launch, got "
                          f"{own.shape[0]}")
-    _check(body, radius, own[0], cand[0], None if lf is None else lf[0])
+    check(own[0], cand[0], *(None if r is None else r[0] for r in rows))
+    return (own, cand, *rows, single)
 
 
-def window_sweep_batch(body: str, radius, own, cand, params: SweepParams,
-                       lf=None):
-    """One pass body over every system of a batched grid in one launch
-    (blocks over cells and systems): CUDA kernel on a CUDA device, the plain
-    version (:func:`window_sweep_batch_plain`) on the CPU.  Arrays carry a
-    leading system axis; returns ``(own_out [B, n_out, ..], j_out [B, n_j,
-    ..])``."""
-    _check_batch(body, radius, own, cand, lf)
-    if own.device.type == "cpu":
-        return window_sweep_batch_plain(body, radius, own, cand, params, lf)
-    out = _launch("window_sweep_batch", body, radius, own, cand, params, lf)
-    launch_counts[f"window_sweep_batch_{body}"] += 1
-    return out
-
-
-def window_sweep_batch_plain(body: str, radius, own, cand,
-                             params: SweepParams, lf=None):
-    """Plain version of :func:`window_sweep_batch`: the per-system loop of
-    :func:`window_sweep_plain`."""
-    _check_batch(body, radius, own, cand, lf)
-    outs = [window_sweep_plain(body, radius, own[b], cand[b], params,
-                               None if lf is None else lf[b])
+def per_system(fn, own, cand, *rows_single):
+    """A plain version's loop over the systems of :func:`batched`'s planes
+    ``(own, cand, *rows, single)``: ``fn(own, cand, *rows)`` on each
+    system's planes, the outputs stacked (one grid: its own outputs)."""
+    *rows, single = rows_single
+    outs = [fn(own[b], cand[b], *(None if r is None else r[b] for r in rows))
             for b in range(own.shape[0])]
+    if single:
+        return outs[0]
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-def _launch(name, body, radius, own, cand, params, lf):
+def wide_batched(name, bodies, body, radius, own, cand, lf, cf):
+    """:func:`batched` for kernels 7 and 8 (:func:`check_wide`); returns
+    ``(own, cand, lf, cf, single)``."""
+    return batched(name, lambda o, c, l, f: check_wide(
+        name, bodies, body, radius, o, c, l, f), own, cand, lf, cf)
+
+
+def stage_slices(own_bytes: int, cand_bytes: int, budget: int, m: int,
+                 w: int) -> tuple[int, int]:
+    """Own slots and candidates a block of kernel 7 or 8 stages at once
+    where a chunk of ``m`` own slots and its window of ``w`` candidates do
+    not fit ``budget`` bytes of shared memory: half the budget to own slots
+    (``own_bytes`` each, at most m), the rest to candidates (``cand_bytes``
+    each, at most w)."""
+    m_s = min(m, 0x7fff, max(1, budget // 2 // own_bytes))
+    w_s = min(w, 0xffff, (budget - m_s * own_bytes) // cand_bytes)
+    if w_s < 1:
+        raise ValueError(f"one own slot and one candidate exceed {budget} "
+                         "bytes of shared memory")
+    return m_s, w_s
+
+
+#: shared memory one block may use on the H100 (227 KB), for kernels 1, 7
+#: and 8; the ints of each warp's pair queue (csrc/pair_bodies.cuh: kQueue)
+SMEM_BYTES = 232448
+QUEUE = 64
+#: kernel 1's warps a block (csrc/window_sweep.cu: kWarps)
+WARPS = 8
+
+
+def window_lengths(radius, cap: int) -> list[int]:
+    """Slots of each candidate window of an own cell, in the kernel's order:
+    the home row from the centre cell on, then every half-space row."""
+    rz, ry, rx = radius
+    return [(rx + 1) * cap] + [(2 * rx + 1) * cap] * (ry + rz * (2 * ry + 1))
+
+
+def window_plan(body: str, radius, cap: int, n_cand: int,
+                params: SweepParams, blocks: int = 0,
+                n_sm: int = 0) -> tuple[int, int]:
+    """Kernel 1's staging plan ``(slots, own)``: the candidate slots a
+    staging group holds in shared memory and the own slots a block takes.
+
+    Every window at once where that fits, else the most slots that fit
+    (the kernel cuts the windows into groups of them, a window that
+    exceeds them into slices).  A block takes the whole cell unless
+    its own sums would fill more than a quarter of the 227 KB, or a window
+    alone exceeds the slots while the launch's ``blocks`` (cells times
+    systems) leave some of the card's ``n_sm`` SMs idle; the cell's slots
+    are then split evenly over blocks (the grid's third axis), at least
+    4 own slots a warp."""
+    n_out, n_j = body_outputs(body, params)
+    lens = window_lengths(radius, cap)
+
+    def fit(own):
+        fixed = 4 * (n_out * own + WARPS * QUEUE)
+        return min(sum(lens), (SMEM_BYTES - fixed) // (4 * (n_cand + n_j)))
+
+    split = -(-cap // (SMEM_BYTES // 4 // (4 * n_out)))
+    if fit(-(-cap // split)) < max(lens) and 0 < blocks < n_sm:
+        split = max(split, min(-(-n_sm // blocks), -(-cap // (4 * WARPS))))
+    own = -(-cap // split)
+    return fit(own), own
+
+
+def _planes(body, radius, own, cand, lf):
+    """Kernel 1's :func:`batched` planes ``(own, cand, lf, single)``."""
+    return batched("window_sweep", lambda o, c, l: _check(
+        body, radius, o, c, l), own, cand, lf)
+
+
+def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None,
+                 plan=None):
+    """Run one pass body over the grid: the CUDA kernel for float32 CUDA
+    tensors (on their card), else the plain version
+    (:func:`window_sweep_plain`) on the tensors' device.
+
+    One grid's planes (``own [n_own, cz, cy, cx, cap]``, ``cand``, ``lf``)
+    or a batched grid's, with a leading system axis (``own [B, n_own,
+    ..]``): the B systems then run in one launch and the outputs carry the
+    axis too.  ``plan`` replaces :func:`window_plan`'s ``(slots, own)``."""
+    own_b, cand_b, lf_b, single = _planes(body, radius, own, cand, lf)
+    if not launches_kernel(own_b):
+        return window_sweep_plain(body, radius, own, cand, params, lf)
+    out = _launch(body, radius, own_b, cand_b, params, lf_b, plan)
+    launch_counts[f"window_sweep_{body}"] += 1
+    return (out[0][0], out[1][0]) if single else out
+
+
+def _launch(body, radius, own, cand, params, lf, plan):
     """Launch kernel 1 over the systems of ``own [B, ..]``; returns
     ``(own_out [B, ..], j_out [B, ..])``."""
-    check_cuda_tensors(name, own, cand, *([lf] if lf is not None else []))
+    check_cuda_tensors("window_sweep", own, cand,
+                       *([lf] if lf is not None else []))
     body_id = BODIES[body][0]
     if body == "d3_direct_coulomb" and params.combine_forces:
         body_id = 5
     n_out, n_j = body_outputs(body, params)
-    n_sys, _, cz, cy, cx, cap = own.shape
+    n_sys, n_cand, cz, cy, cx, cap = own.shape[:1] + cand.shape[1:2] \
+        + own.shape[2:]
     rz, ry, rx = radius
     ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
+    slots, own_slots = plan or window_plan(
+        body, radius, cap, n_cand, params, n_sys * cz * cy * cx,
+        torch.cuda.get_device_properties(own.device).multi_processor_count)
     own_out = torch.empty((n_sys, n_out, cz, cy, cx, cap), dtype=own.dtype,
                           device=own.device)
     j_out = torch.zeros((n_sys, n_j, ez, ey, ex, cap), dtype=own.dtype,
                         device=own.device)
-    n_cand = cand.shape[1]
     base = 7 if body == "d3_direct_coulomb" else 6
     mesh = (n_cand - base) // 2 if body.startswith("d3_direct") else 0
     zm = lf.shape[-1] // 2 if lf is not None else 0
     p = params
-    err = load_library().nv_window_sweep(
-        body_id, own.data_ptr(), cand.data_ptr(),
-        lf.data_ptr() if lf is not None else None,
-        own_out.data_ptr(), j_out.data_ptr(),
-        cz, cy, cx, rz, ry, rx, cap, n_cand,
-        p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8, p.k1,
-        p.k3, p.alpha, p.ccutoff * p.ccutoff, zm, mesh, n_sys,
-        current_stream(own),
-    )
-    check_launch(f"{name}[{body}]", err)
+    with on_device(own):
+        err = load_library().nv_window_sweep(
+            body_id, own.data_ptr(), cand.data_ptr(),
+            lf.data_ptr() if lf is not None else None,
+            own_out.data_ptr(), j_out.data_ptr(),
+            cz, cy, cx, rz, ry, rx, cap, n_cand,
+            p.cutoff * p.cutoff, p.a1, p.a2, p.s6, p.s8, p.k1,
+            p.k3, p.alpha, p.ccutoff * p.ccutoff, zm, mesh, n_sys, slots,
+            own_slots, current_stream(own),
+        )
+    check_launch(f"window_sweep[{body}]", err)
     return own_out, j_out
 
 
@@ -415,10 +498,12 @@ def halfspace_zy(rz: int, ry: int):
 
 def window_sweep_plain(body: str, radius, own, cand, params: SweepParams,
                        lf=None):
-    """Plain PyTorch version of :func:`window_sweep` (any device/dtype)."""
-    _check(body, radius, own, cand, lf)
-    return cell_windows_plain(BODY_FNS[body], radius, own, cand, params,
-                              *body_outputs(body, params), lf=lf)
+    """Plain PyTorch version of :func:`window_sweep` (any device/dtype); a
+    batched grid's planes run as the loop over its systems."""
+    n_out, n_j = body_outputs(body, params)
+    return per_system(lambda o, c, l: cell_windows_plain(
+        BODY_FNS[body], radius, o, c, params, n_out, n_j, lf=l),
+        *_planes(body, radius, own, cand, lf))
 
 
 def cell_windows_plain(fn, radius, own, cand, params, n_out, n_j, lf=None,

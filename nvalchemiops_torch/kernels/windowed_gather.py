@@ -21,7 +21,8 @@ import torch
 
 from nvalchemiops_torch.kernels import launch_counts
 from nvalchemiops_torch.kernels.build import (
-    check_cuda_tensors, check_launch, current_stream, load_library,
+    check_cuda_tensors, check_launch, current_stream, launches_kernel,
+    load_library, on_device,
 )
 
 __all__ = [
@@ -54,20 +55,21 @@ def spread_windows_plain(smat, q_t, w_win: int):
 
 def spread_windows(smat, q_t, w_win: int):
     """Per-tile spread windows ``[t, W, W*W]`` from ``smat`` and slot
-    charges ``q_t [t, cap]``: CUDA kernel on a CUDA device, plain version
-    on the CPU."""
+    charges ``q_t [t, cap]``: the CUDA kernel for float32 CUDA tensors (on
+    their card), else the plain version on the tensors' device."""
     t, cap, kw = smat.shape
     if kw % w_win or kw // w_win < 3 or tuple(q_t.shape) != (t, cap):
         raise ValueError(f"spread_windows: smat {tuple(smat.shape)} / q_t "
                          f"{tuple(q_t.shape)} do not match W={w_win}")
-    if smat.device.type == "cpu":
+    if not launches_kernel(smat):
         return spread_windows_plain(smat, q_t, w_win)
     _cuda_checks("spread_windows", w_win, smat, q_t)
     out = torch.empty((t, w_win, w_win * w_win), dtype=smat.dtype,
                       device=smat.device)
-    err = load_library().nv_windowed_spread(
-        smat.data_ptr(), q_t.data_ptr(), out.data_ptr(), t, cap, kw, w_win,
-        current_stream(smat))
+    with on_device(smat):
+        err = load_library().nv_windowed_spread(
+            smat.data_ptr(), q_t.data_ptr(), out.data_ptr(), t, cap, kw,
+            w_win, current_stream(smat))
     check_launch("spread_windows", err)
     launch_counts["windowed_spread"] += 1
     return out
@@ -94,14 +96,15 @@ def gather_grad_planes_plain(smat, win, w_win: int):
 
 def gather_grad_planes(smat, win, w_win: int):
     """``(val, gx, gy, gz)`` planes ``[t, cap]`` from ``smat [t, cap, 6W]``
-    and potential windows ``win [t, W, W*W]``: CUDA kernel on a CUDA
-    device, plain version on the CPU."""
+    and potential windows ``win [t, W, W*W]``: the CUDA kernel for float32
+    CUDA tensors (on their card), else the plain version on the tensors'
+    device."""
     t, cap, kw = smat.shape
     if kw != 6 * w_win or tuple(win.shape) != (t, w_win, w_win * w_win):
         raise ValueError(f"gather_grad_planes: smat {tuple(smat.shape)} / win "
                          f"{tuple(win.shape)} do not match W={w_win} with "
                          "gradient blocks")
-    if smat.device.type == "cpu":
+    if not launches_kernel(smat):
         return gather_grad_planes_plain(smat, win, w_win)
     _cuda_checks("gather_grad_planes", w_win, smat, win)
     if smat.data_ptr() % 16 or win.data_ptr() % 16:
@@ -110,9 +113,10 @@ def gather_grad_planes(smat, win, w_win: int):
                          "tensors")
     outs = [torch.empty((t, cap), dtype=smat.dtype, device=smat.device)
             for _ in range(4)]
-    err = load_library().nv_windowed_gather_grad(
-        smat.data_ptr(), win.data_ptr(), *(o.data_ptr() for o in outs),
-        t, cap, kw, w_win, current_stream(smat))
+    with on_device(smat):
+        err = load_library().nv_windowed_gather_grad(
+            smat.data_ptr(), win.data_ptr(), *(o.data_ptr() for o in outs),
+            t, cap, kw, w_win, current_stream(smat))
     check_launch("gather_grad_planes", err)
     launch_counts["windowed_gather_grad"] += 1
     return tuple(outs)

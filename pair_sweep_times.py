@@ -33,6 +33,16 @@ path (tile capacity 1) and the 1,024-atom composite on the dense engine
 or one a stencil row) with the batched call cut to 1, 4, 16, 32 and 64
 systems (the change tree only).
 
+``--main-path`` times the main path's kernels only (kernels 1, 7, 8 and
+2 above), and ``--walls N`` first prints the host wall time of the main
+path's public calls, as phase 4 of ``chip_smoke.py`` makes them (grid
+build, ``grid_dftd3`` on the window, block and pallas engines,
+``grid_coulomb_energy_forces``, ``pme_reciprocal_space``): the median of N
+calls after a warm-up, each from a synchronized card to the end of a
+synchronize, beside its CUDA-event time and its kernel launches; and,
+where the tree has it, the host cost of one entry into
+``kernels.build.on_device`` (the launch context of every wrapper).
+
 ``--tree DIR`` imports ``nvalchemiops_torch`` from another checkout (for
 instance the parent commit, unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists), whose kernels build into that checkout's own
@@ -140,6 +150,81 @@ def main_path_calls(dev):
         ("grid_dftd3_coulomb block d3", bf_d3, f_d3),
         ("grid_dftd3_coulomb block coulomb", bf_c, f_c))}
     return calls, label, errors
+
+
+def main_path_walls(dev, reps, tree):
+    """Host wall ms of the main path's public calls (median of ``reps``
+    after a warm-up, synchronized before and after each), their CUDA-event
+    ms and kernel launches a call; then the host us of one entry into
+    ``on_device`` (mean of 100,000), where the tree has it."""
+    import statistics
+    import time
+
+    from nvalchemiops_torch import composite, grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.interactions.electrostatics import pme
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.spline_windowed import observed_tile_capacity
+
+    (pos_np, cell_np, numbers, charges, rcov, r4r2, cna,
+     c6) = composite.build_system(chip_smoke.FULL_N_REP)
+    numbers, rcov, r4r2, c6, cna = grid_d3.compact_d3_elements(
+        numbers, rcov, r4r2, c6, cna)
+    pos = torch.as_tensor(pos_np, dtype=torch.float32, device=dev)
+    cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(charges, dtype=torch.float32, device=dev)
+    pbc = np.array([True] * 3)
+    cutoff, alpha = composite.CUTOFF, composite.ALPHA
+    dims, radius, cap, origin = grid.choose_grid_geometry(pos, cell, pbc,
+                                                          cutoff)
+    g = grid.build_atom_grid(pos, cell, pbc, dims, radius, cap, origin=origin)
+    d3 = (numbers, rcov, r4r2, c6, cna, cutoff, composite.D3_A1,
+          composite.D3_A2, composite.D3_S8)
+    tile_cap = observed_tile_capacity(pos, cell, chip_smoke.FULL_MESH)
+    calls = {
+        "grid_build": lambda: grid.build_atom_grid(pos, cell, pbc, dims,
+                                                   radius, cap,
+                                                   origin=origin),
+        "grid_dftd3 window": lambda: grid_d3.grid_dftd3(g, *d3),
+        "grid_dftd3 block": lambda: grid_d3.grid_dftd3(g, *d3,
+                                                       engine="block"),
+        "grid_dftd3 pallas": lambda: grid_d3.grid_dftd3(g, *d3,
+                                                        engine="pallas"),
+        "grid_coulomb_energy_forces": lambda: grid.grid_coulomb_energy_forces(
+            g, q, cutoff, alpha),
+        "pme_reciprocal_space": lambda: pme.pme_reciprocal_space(
+            pos, q, cell, alpha, mesh_dimensions=chip_smoke.FULL_MESH,
+            compute_forces=True, tile_capacity=tile_cap),
+    }
+    for name, fn in calls.items():
+        before = sum(launch_counts.values())
+        fn()
+        torch.cuda.synchronize()
+        launches = sum(launch_counts.values()) - before
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps({
+            "tree": tree, "call": name, "wall_ms": statistics.median(walls),
+            "wall_ms_min": min(walls), "reps": reps,
+            "event_ms": chip_smoke.cuda_time_ms(fn, reps=reps),
+            "launches": launches}), flush=True)
+    from nvalchemiops_torch.kernels import build
+
+    if hasattr(build, "on_device") and pos.is_cuda:
+        n = 100000
+        with build.on_device(pos):
+            pass
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with build.on_device(pos):
+                pass
+        us = (time.perf_counter() - t0) / n * 1e6
+        print(json.dumps({"tree": tree, "on_device_us": us}), flush=True)
 
 
 def gather_key(smat, win, w_win):
@@ -335,6 +420,11 @@ def main():
     ap.add_argument("--gather-paths", action="store_true",
                     help="time kernel 6 on every path at several batch "
                          "sizes (change tree only)")
+    ap.add_argument("--main-path", action="store_true",
+                    help="time only the main path's kernels")
+    ap.add_argument("--walls", type=int, default=0, metavar="N",
+                    help="first print the host wall time of the main "
+                         "path's public calls, median of N")
     ap.add_argument("--profiler-check", type=int, default=0, metavar="N",
                     help="first time one call N times and count the "
                          "profiler runs that lost their device events")
@@ -357,14 +447,20 @@ def main():
     build_library()
     dev = torch.device("cuda", 0)
     print(card, flush=True)
+    if args.walls:
+        main_path_walls(dev, args.walls, tree)
     main, label, engine_errors = main_path_calls(dev)
     if args.engine_errors:
         print(json.dumps({"tree": tree, "engine_errors": engine_errors}),
               flush=True)
-    batch = windowed_batch_calls(dev)
-    crystal, crystal_label = crystal_calls(dev)
-    gathers = gather_calls(dev)
-    calls = {**main, **batch, **dense_calls(dev), **crystal, **gathers}
+    if args.main_path:
+        batch, crystal, crystal_label, gathers, dense = {}, {}, "", {}, {}
+    else:
+        batch = windowed_batch_calls(dev)
+        crystal, crystal_label = crystal_calls(dev)
+        gathers = gather_calls(dev)
+        dense = dense_calls(dev)
+    calls = {**main, **batch, **dense, **crystal, **gathers}
     if args.profiler_check:
         fn, a, kw = calls["windowed_gather_grad W=12"]
         lost = len(chip_smoke.LOST_PROFILES)

@@ -1,16 +1,17 @@
 # SPDX-License-Identifier: Apache-2.0
-"""``batch_grid_dftd3`` on the window engine as one batched sweep (kernel
-1's ``window_sweep_batch``: one launch a pass for every system) against
-the port's per-system loop and the JAX package's ``batch_grid_dftd3``, on
-the CPU.
+"""``batch_grid_dftd3`` as one batched sweep a pass on every grid engine
+(kernel 1 on ``"window"``, 8 on ``"block"``, 7 on ``"pallas"``: one launch
+a pass for every system) against the port's per-system loop and the JAX
+package's ``batch_grid_dftd3``, on the CPU.
 
-On CPU tensors the batched wrapper runs its plain version, the per-system
-loop of ``window_sweep_plain``, so the batched call must give the bits of
-``grid_dftd3`` run on each system's part of the batch grid.  Against JAX
+On CPU tensors each kernel wrapper runs its plain version, for a batched
+grid the per-system loop of the single-grid plain version, so the batched
+call must give the bits of ``grid_dftd3`` run on each system's part of the
+batch grid on the same engine.  Against JAX
 ``batch_grid_dftd3(engine="xla")`` the energies, forces and CNs agree
-within rtol 1e-9 in f64.  The systems hold padding atoms (``numbers ==
-0``) and take per-system ``[B, 3, 3]`` cells (a shared grid geometry from
-``cells[0]``), fully periodic and with an open axis.
+within rtol 1e-9 in f64 on every engine.  The systems hold padding atoms
+(``numbers == 0``) and take per-system ``[B, 3, 3]`` cells (a shared grid
+geometry from ``cells[0]``), fully periodic and with an open axis.
 """
 
 import functools
@@ -32,6 +33,8 @@ CUTOFF = 3.8
 RTOL = 1e-9
 #: (name, pbc): fully periodic and an open y axis
 PBCS = (("periodic", (True, True, True)), ("open_y", (True, False, True)))
+#: the grid engines with a batched kernel
+ENGINES = ("window", "block", "pallas")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,15 +67,15 @@ def _args(pbc, dtype=torch.float64):
             *synthetic_tables(seed=61), A1, A2, S8)
 
 
-def _loop(args):
-    """``grid_dftd3`` (window engine) on each system's part of the batch
-    grid that ``batch_grid_dftd3`` builds."""
+def _loop(args, engine="window"):
+    """``grid_dftd3`` on ``engine`` on each system's part of the batch grid
+    that ``batch_grid_dftd3`` builds."""
     pos, numbers, cells, pbc, cutoff = args[:5]
     dims, radius, cap = tgrid.estimate_grid_geometry(
         cells[0].numpy(), pbc, cutoff, pos.shape[1])
     g = tgrid.batch_build_atom_grid(pos, cells, pbc, dims, radius, cap)
     outs = [td3.grid_dftd3(tgrid.system_grid(g, i), numbers[i], *args[5:9],
-                           cutoff, *args[9:], engine="window")
+                           cutoff, *args[9:], engine=engine)
             for i in range(pos.shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))
 
@@ -87,23 +90,25 @@ def _jax(pbc):
     return tuple(np.asarray(a) for a in out)
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("name,pbc", PBCS)
-def test_batched_sweep_equals_the_per_system_loop(name, pbc):
-    """The batched call (window engine, and ``engine="xla"`` which runs
-    it) gives the per-system loop's bits: energies [B], forces [B, n, 3]
-    and CNs [B, n]."""
+def test_batched_sweep_equals_the_per_system_loop(name, pbc, engine):
+    """The batched call (and on the window engine ``engine="xla"``, which
+    runs it) gives the per-system loop's bits: energies [B], forces [B, n,
+    3] and CNs [B, n]."""
     args = _args(pbc)
-    want = _loop(args)
-    for engine in ("window", "xla"):
-        got = td3.batch_grid_dftd3(*args, engine=engine)
+    want = _loop(args, engine)
+    for eng in (engine, "xla") if engine == "window" else (engine,):
+        got = td3.batch_grid_dftd3(*args, engine=eng)
         assert [tuple(a.shape) for a in got] == [(3,), (3, 110, 3), (3, 110)]
         for a, w in zip(got, want):
-            assert torch.equal(a, w), engine
+            assert torch.equal(a, w), eng
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("name,pbc", PBCS)
-def test_batched_sweep_matches_jax(name, pbc):
-    got = td3.batch_grid_dftd3(*_args(pbc))
+def test_batched_sweep_matches_jax(name, pbc, engine):
+    got = td3.batch_grid_dftd3(*_args(pbc), engine=engine)
     for a, w, what in zip(got, _jax(pbc), ("energy", "forces", "cn")):
         assert_close(a, w, RTOL, err_msg=what)
     # padding atoms carry no force and no CN
@@ -155,13 +160,13 @@ def _planes(seed, b=2, cz=2, cy=3, cx=3, cap=8, radius=(1, 1, 1), n_own=4):
 
 
 def test_batch_wrapper_is_the_per_system_plain_loop():
-    """On the CPU ``window_sweep_batch`` runs its plain version, each system
-    equal to ``window_sweep_plain`` on its planes; the CN and chain bodies
-    at one system and at three."""
+    """On the CPU ``window_sweep`` on a batched grid's planes runs its plain
+    version, each system equal to ``window_sweep_plain`` on its planes; the
+    CN and chain bodies at one system and at three."""
     params = ws.SweepParams(cutoff=2.5)
     for b in (1, 3):
         own, cand = _planes(7, b=b)
-        got = ws.window_sweep_batch("cn", (1, 1, 1), own, cand, params)
+        got = ws.window_sweep("cn", (1, 1, 1), own, cand, params)
         assert got[0].shape == (b, 1) + own.shape[2:]
         assert got[1].shape == (b, 1) + cand.shape[2:]
         for i in range(b):
@@ -170,7 +175,7 @@ def test_batch_wrapper_is_the_per_system_plain_loop():
             assert torch.equal(got[0][i], want[0])
             assert torch.equal(got[1][i], want[1])
     own, cand = _planes(8, b=2, n_own=5)
-    got = ws.window_sweep_batch_plain("chain", (1, 1, 1), own, cand, params)
+    got = ws.window_sweep_plain("chain", (1, 1, 1), own, cand, params)
     want = ws.window_sweep("chain", (1, 1, 1), own[1], cand[1], params)
     assert torch.equal(got[0][1], want[0]) and torch.equal(got[1][1], want[1])
 
@@ -179,24 +184,28 @@ def test_batch_wrapper_rejects_bad_shapes():
     params = ws.SweepParams(cutoff=2.5)
     own, cand = _planes(9, b=2)
     with pytest.raises(ValueError, match="one B"):
-        ws.window_sweep_batch("cn", (1, 1, 1), own, cand[:1], params)
+        ws.window_sweep("cn", (1, 1, 1), own, cand[:1], params)
     with pytest.raises(ValueError, match="one B"):
-        ws.window_sweep_batch("cn", (1, 1, 1), own[0], cand[0], params)
+        ws.window_sweep("cn", (1, 1, 1), own, cand[0], params)
     with pytest.raises(ValueError, match="do not extend"):
-        ws.window_sweep_batch("cn", (1, 2, 1), own, cand, params)
+        ws.window_sweep("cn", (1, 2, 1), own, cand, params)
     with pytest.raises(ValueError, match="unknown sweep body"):
-        ws.window_sweep_batch("d4", (1, 1, 1), own, cand, params)
+        ws.window_sweep("d4", (1, 1, 1), own, cand, params)
 
 
 def test_batch_grid_dftd3_rejects_an_unknown_engine():
     with pytest.raises(ValueError, match="unknown engine"):
         td3.batch_grid_dftd3(*_args((True, True, True)), engine="mosaic")
+    # the hybrid engine needs a stencil, which the batched entry never has
+    with pytest.raises(ValueError, match="StencilGrid"):
+        td3.batch_grid_dftd3(*_args((True, True, True)), engine="hybrid")
 
 
 @pytest.mark.parametrize("engine", ["pallas", "block"])
-def test_other_engines_refuse_a_batched_grid(engine):
-    """Only the window engine sweeps a batched grid; the others take one
-    system's grid and raise rather than run the window engine."""
+def test_batched_grid_runs_each_engine_per_system(engine):
+    """Kernels 7 and 8 take a batched grid's planes with the system axis,
+    as kernel 1 does: ``_sweep`` on the batch grid returns ``[F, B, ..]``,
+    each system equal to the sweep of its own grid's planes."""
     pos, numbers, cells = _systems()
     pbc = np.array([True, True, True])
     dims, radius, cap = tgrid.estimate_grid_geometry(cells[0], pbc, CUTOFF,
@@ -204,8 +213,17 @@ def test_other_engines_refuse_a_batched_grid(engine):
     g = tgrid.batch_build_atom_grid(torch.as_tensor(pos),
                                     torch.as_tensor(cells), pbc, dims,
                                     radius, cap)
-    own = td3._stack(g, [tgrid._interior(g, g.ext_px)] * 4)
-    cand = td3._stack(g, [g.ext_px] * 4)
-    with pytest.raises(ValueError, match="batched grid takes engine"):
-        td3._sweep(g, engine, None, "cn", own, cand,
-                   ws.SweepParams(cutoff=CUTOFF))
+    own = td3._stack(g, [tgrid._interior(g, g.ext_px),
+                         tgrid._interior(g, g.ext_py),
+                         tgrid._interior(g, g.ext_pz),
+                         torch.ones_like(tgrid._interior(g, g.ext_px))])
+    cand = td3._stack(g, [g.ext_px, g.ext_py, g.ext_pz,
+                          torch.ones_like(g.ext_px)])
+    params = ws.SweepParams(cutoff=CUTOFF)
+    got = td3._sweep(g, engine, None, "cn", own, cand, params)
+    assert got[0].shape == (1, 3) + own.shape[2:]
+    for i in range(3):
+        gi = tgrid.system_grid(g, i)
+        want = td3._sweep(gi, engine, None, "cn", own[i], cand[i], params)
+        assert torch.equal(got[0][:, i], want[0])
+        assert torch.equal(got[1][:, i], want[1])

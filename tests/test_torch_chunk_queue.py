@@ -79,49 +79,63 @@ def offsets(radius):
                              for dz, dy in ws.halfspace_zy(rz, ry)]
 
 
-def chunk_pairs(radius, own, cand, g_cells, reach, tested_only):
+def chunk_pairs(radius, own, cand, g_cells, reach, tested_only,
+                slices=None):
     """Every (own flat slot, candidate flat slot, offset) the sweep meets
     in range: with ``tested_only`` the kernel's tests (the 2*rx + 1 x-cells
     around each own slot's cell), else the plain version's whole merged
     window; the home offset keeps candidates past the own slot.  All rows
-    and chunks at once."""
+    and chunks at once.  ``slices = (own slots, candidates)`` stages each
+    chunk in slices as the kernel does (each own slot's tested range
+    clipped to the staged candidate slice, in staged indices)."""
     _, cz, cy, cx, cap = own.shape
     rz, ry, rx = radius
     _, ez, ey, ex, _ = cand.shape
     g = int(g_cells)
-    nch, m, w = cx // g, g * cap, (g + 2 * rx) * cap
+    nch, m_all, w_all = cx // g, g * cap, (g + 2 * rx) * cap
+    m_s, w_s = slices or (m_all, w_all)
     z = torch.arange(cz)[:, None, None]
     y = torch.arange(cy)[None, :, None]
     ch = torch.arange(nch)[None, None, :]
-    own0 = ((z * cy + y) * cx + ch * g) * cap              # [cz, cy, nch]
-    own_idx = own0[..., None] + torch.arange(m)            # [.., m]
-    i = torch.arange(m)[:, None]
-    c = torch.arange(w)[None, :]
-    gl = i // cap
     own_f = own.reshape(own.shape[0], -1)
     cand_f = cand.reshape(cand.shape[0], -1)
     found = []
-    for k, (dz, dy, home) in enumerate(offsets(radius)):
-        cand0 = (((z + rz + dz) * ey + (y + ry + dy)) * ex + ch * g) * cap
-        cand_idx = cand0[..., None] + torch.arange(w)      # [.., w]
-        keep = torch.ones((m, w), dtype=torch.bool)
-        if home:
-            keep &= c > i + rx * cap
-        if tested_only:
-            keep &= (c >= gl * cap) & (c < (gl + 2 * rx + 1) * cap)
-        d = [cand_f[a][cand_idx][..., None, :] - own_f[a][own_idx][..., None]
-             for a in range(3)]
-        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]       # [.., m, w]
-        hit = keep & (d2 > 1e-20) & (d2 < reach)
-        zz, yy, cc, ii, jj = torch.nonzero(hit, as_tuple=True)
-        found.append(torch.stack([
-            own_idx[zz, yy, cc, ii], cand_idx[zz, yy, cc, jj],
-            torch.full_like(ii, k), ii, jj], dim=1))
+    for i0 in range(0, m_all, m_s):
+        m = min(m_s, m_all - i0)
+        own0 = ((z * cy + y) * cx + ch * g) * cap + i0     # [cz, cy, nch]
+        own_idx = own0[..., None] + torch.arange(m)        # [.., m]
+        i = i0 + torch.arange(m)[:, None]
+        gl = i // cap
+        for c0 in range(0, w_all, w_s):
+            w = min(w_s, w_all - c0)
+            c = torch.arange(w)[None, :]
+            for k, (dz, dy, home) in enumerate(offsets(radius)):
+                cand0 = (((z + rz + dz) * ey + (y + ry + dy)) * ex
+                         + ch * g) * cap + c0
+                cand_idx = cand0[..., None] + torch.arange(w)  # [.., w]
+                if tested_only:
+                    j0 = torch.clamp(i + rx * cap + 1 if home else gl * cap,
+                                     min=c0) - c0
+                    j1 = torch.clamp((gl + 2 * rx + 1) * cap,
+                                     max=c0 + w) - c0
+                    keep = (c >= j0) & (c < j1)
+                else:
+                    keep = torch.ones((m, w), dtype=torch.bool)
+                    if home:
+                        keep &= c0 + c > i + rx * cap
+                d = [cand_f[a][cand_idx][..., None, :]
+                     - own_f[a][own_idx][..., None] for a in range(3)]
+                d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]   # [.., m, w]
+                hit = keep & (d2 > 1e-20) & (d2 < reach)
+                zz, yy, cc, ii, jj = torch.nonzero(hit, as_tuple=True)
+                found.append(torch.stack([
+                    own_idx[zz, yy, cc, ii], cand_idx[zz, yy, cc, jj],
+                    torch.full_like(ii, k), i0 + ii, c0 + jj], dim=1))
     return torch.cat(found)
 
 
 def emulate_chunk(body, radius, own, cand, params, g_cells, lf=None,
-                  cf=None):
+                  cf=None, slices=None):
     """Kernel 8's partition and queues in torch: each own slot tested
     against the 2*rx + 1 x-cells around its cell, the hits queued (a warp
     pops its slots' hits 32 at a time and sums both sides in shared memory:
@@ -131,7 +145,8 @@ def emulate_chunk(body, radius, own, cand, params, g_cells, lf=None,
     in the chunk, candidate index in the merged window)."""
     _, n_out, n_j = cs.BODIES[body][1:]
     visits = chunk_pairs(radius, own, cand, g_cells,
-                         reach_sq(body, params), tested_only=True)
+                         reach_sq(body, params), tested_only=True,
+                         slices=slices)
     own_f = own.reshape(own.shape[0], -1)
     cand_f = cand.reshape(cand.shape[0], -1)
     own_out = torch.zeros((n_out, own_f.shape[1]), dtype=own.dtype)
@@ -224,9 +239,10 @@ def _unpack(args, kwargs):
     return body, radius, own, cand, params, g_cells, lf, cf
 
 
-def check_call(body, radius, own, cand, params, g_cells, lf, cf):
+def check_call(body, radius, own, cand, params, g_cells, lf, cf,
+               slices=None):
     own_out, j_out, visits = emulate_chunk(body, radius, own, cand, params,
-                                           g_cells, lf, cf)
+                                           g_cells, lf, cf, slices)
     rows = [tuple(v) for v in visits[:, :3].tolist()]
     assert len(rows) == len(set(rows))             # each pair queued once
     want = chunk_pairs(radius, own, cand, g_cells, reach_sq(body, params),
@@ -270,17 +286,21 @@ def test_chunk_queue_visits_each_pair_once_and_sums_to_plain(case):
         assert len(visits) > 0
 
 
-@pytest.mark.parametrize("which", ["G = 1", "G = cx"])
+@pytest.mark.parametrize("which", ["G = 1", "G = cx", "G = 1 in slices",
+                                   "G = cx in slices"])
 def test_chunk_queue_at_every_chunk_width(which):
     """The same enumeration with G = 1 and with one chunk a row (G = cx):
-    the merged window's edge cells move, the pairs do not."""
+    the merged window's edge cells move, the pairs do not; nor where the
+    block stages the chunk in slices (own slots cut mid-cell, the window at
+    an odd slot), as where one cell and its window do not fit."""
     g, numbers, q, tab = grid_case(63, 350, 16.0, 5.0)
     calls = chunk_calls(g, numbers, q, tab, 5.0, 4.5)
-    cx = g.dims[2]
-    width = 1 if which == "G = 1" else cx
+    cx, cap = g.dims[2], g.cap
+    width = 1 if which.startswith("G = 1") else cx
+    slices = (cap // 2 + 3, cap + 7) if which.endswith("slices") else None
     for args, kwargs in (calls[0], calls[1], calls[4], calls[9]):
         body, radius, own, cand, params, _, lf, cf = _unpack(args, kwargs)
-        check_call(body, radius, own, cand, params, width, lf, cf)
+        check_call(body, radius, own, cand, params, width, lf, cf, slices)
 
 
 def test_chunk_fused_reach_is_the_larger_cutoff():

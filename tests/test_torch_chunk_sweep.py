@@ -143,15 +143,20 @@ def test_grid_coulomb_block_f32_matches_jax_block_interpret():
 
 
 def test_super_chunk_cells_fits_shared_memory():
-    """G divides cx, fits a block's 227 KB, and prefers ~128 own rows."""
+    """G divides cx, fits a block's 227 KB, and prefers ~128 own rows;
+    where one cell and its window do not fit, G is 1 and the block stages
+    slices of both (``chunk_slices``) within 227 KB."""
     assert cs.super_chunk_cells("coulomb", 16, 40, 1) == 4      # M = 160
     assert cs.super_chunk_cells("d3_direct", 16, 40, 1, 30) == 4
     g85 = cs.super_chunk_cells("d3_direct_coulomb", 16, 40, 1, 170)
     assert g85 == 2 and cs.chunk_smem_bytes(
         "d3_direct_coulomb", 4, 40, 1, 170) > cs.SMEM_BYTES
     assert cs.super_chunk_cells("cn", 7, 16, 2) == 7            # M = 112
-    with pytest.raises(ValueError, match="shared memory"):
-        cs.super_chunk_cells("d3_direct", 4, 200, 3, 170)
+    assert cs.super_chunk_cells("d3_direct", 4, 200, 3, 170) == 1
+    m_s, w_s = cs.chunk_slices("d3_direct", 1, 200, 3, 170)
+    assert m_s < 200 and w_s < 7 * 200
+    assert cs.chunk_smem_bytes("d3_direct", 1, 200, 3, 170, m_s,
+                               w_s) <= cs.SMEM_BYTES
     own = torch.zeros(4, 2, 2, 6, 8, dtype=torch.float64)
     cand = torch.zeros(4, 4, 4, 8, 8, dtype=torch.float64)
     with pytest.raises(ValueError, match="must divide"):

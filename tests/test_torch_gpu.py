@@ -148,19 +148,30 @@ def test_d3_direct_kernel_with_live_cn_derivatives(cuda):
             _close(fa, fb)
 
 
-def test_wrappers_refuse_float64_on_cuda(cuda):
+def test_wrappers_run_float64_on_cuda_plain(cuda):
+    """A float64 CUDA tensor takes the plain version on the card: the
+    wrapper launches nothing and returns the plain version's result on the
+    card (the kernels are float32)."""
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
     from nvalchemiops_torch.kernels import window_sweep as ws
     from nvalchemiops_torch.kernels import windowed_gather as wg
 
-    own = torch.zeros(4, 2, 2, 2, 8, dtype=torch.float64, device=cuda)
-    cand = torch.zeros(4, 4, 4, 4, 8, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="takes torch.float32"):
-        ws.window_sweep("cn", (1, 1, 1), own, cand,
-                        ws.SweepParams(cutoff=3.0))
-    smat = torch.zeros(8, 16, 72, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="takes torch.float32"):
-        wg.spread_windows(smat, torch.zeros(8, 16, dtype=torch.float64,
-                                            device=cuda), 12)
+    rng = np.random.default_rng(5)
+    cand = torch.as_tensor(rng.uniform(0.0, 6.0, (4, 4, 4, 4, 8)),
+                           device=cuda)
+    own = cand[:, 1:3, 1:3, 1:3].contiguous()
+    params = ws.SweepParams(cutoff=3.0)
+    smat = torch.as_tensor(rng.normal(size=(8, 16, 72)), device=cuda)
+    q_t = torch.as_tensor(rng.normal(size=(8, 16)), device=cuda)
+    reset_launch_counts()
+    got = ws.window_sweep("cn", (1, 1, 1), own, cand, params)
+    spread = wg.spread_windows(smat, q_t, 12)
+    assert not any(launch_counts.values()), launch_counts
+    want = ws.window_sweep_plain("cn", (1, 1, 1), own, cand, params)
+    assert all(t.device.type == "cuda" and t.dtype == torch.float64
+               for t in (*got, spread))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(spread, wg.spread_windows_plain(smat, q_t, 12))
 
 
 def test_composite_accuracy_on_card(cuda):
@@ -1522,8 +1533,8 @@ XLA_ROUTES = {
     "grid coulomb": ("window_sweep_coulomb",),
     "fused": ("window_sweep_cn", "window_sweep_d3_direct_coulomb",
               "window_sweep_chain"),
-    "batch grid": ("window_sweep_batch_cn", "window_sweep_batch_d3_direct",
-                   "window_sweep_batch_chain"),
+    "batch grid": ("window_sweep_cn", "window_sweep_d3_direct",
+                   "window_sweep_chain"),
     "batch dense": ("dense_pairs_cn", "dense_pairs_direct",
                     "dense_pairs_chain"),
     "neighbor count": (),
@@ -1690,9 +1701,10 @@ def _batch_window_case(device, seed=61, b=3, n=1500, box=16.0, cutoff=6.0):
             np.array([True] * 3), cutoff, *tab, 0.42, 4.1, 1.7)
 
 
-def _per_system_loop(args):
-    """``grid_dftd3`` (one kernel-1 launch a pass and system) on each
-    system's part of the batch grid that ``batch_grid_dftd3`` builds."""
+def _per_system_loop(args, engine="window"):
+    """``grid_dftd3`` on ``engine`` (one kernel launch a pass and system)
+    on each system's part of the batch grid that ``batch_grid_dftd3``
+    builds."""
     from nvalchemiops_torch import grid
     from nvalchemiops_torch.interactions.dispersion import grid_d3
 
@@ -1701,57 +1713,58 @@ def _per_system_loop(args):
         cells[0].cpu().numpy(), pbc, cutoff, pos.shape[1])
     g = grid.batch_build_atom_grid(pos, cells, pbc, dims, radius, cap)
     outs = [grid_d3.grid_dftd3(grid.system_grid(g, i), numbers[i],
-                               *args[5:9], cutoff, *args[9:],
-                               engine="window")
+                               *args[5:9], cutoff, *args[9:], engine=engine)
             for i in range(pos.shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-def test_batched_window_kernel_matches_plain_and_the_loop(cuda):
-    """``batch_grid_dftd3`` on the card makes exactly three kernel-1
-    launches (one a pass, every system in each) and none per system; each
+#: engine -> its kernel's wrapper, as ``grid_d3`` imports it
+BATCH_ENGINES = {"window": "window_sweep", "block": "chunk_sweep",
+                 "pallas": "row_sweep"}
+
+
+@pytest.mark.parametrize("engine", list(BATCH_ENGINES))
+def test_batched_kernels_match_plain_and_the_loop(cuda, engine):
+    """``batch_grid_dftd3`` on the card makes exactly three launches of the
+    engine's kernel (1, 8 or 7; one a pass, every system in each); each
     captured batched launch agrees with its plain version (the per-system
-    loop of ``window_sweep_plain``) and with per-system kernel-1 launches on
-    the same planes; the outputs agree with the per-system loop."""
+    loop of the plain version) and with per-system launches on the same
+    planes; the outputs agree with the per-system loop."""
     from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.kernels import chunk_sweep as cs
     from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import row_sweep as rs
     from nvalchemiops_torch.kernels import window_sweep as ws
 
+    name = BATCH_ENGINES[engine]
+    kern, plain = {"window_sweep": (ws.window_sweep, ws.window_sweep_plain),
+                   "row_sweep": (rs.row_sweep, rs.row_sweep_plain),
+                   "chunk_sweep": (cs.chunk_sweep, cs.chunk_sweep_plain),
+                   }[name]
     args = _batch_window_case(cuda)
-    calls = {}
-    orig = grid_d3.window_sweep_batch
-
-    def capture(body, *a, **kw):
-        calls.setdefault(body, (a, kw))
-        return orig(body, *a, **kw)
-
-    grid_d3.window_sweep_batch = capture
-    try:
-        reset_launch_counts()
-        got = grid_d3.batch_grid_dftd3(*args)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in launch_counts.items() if v}
-    finally:
-        grid_d3.window_sweep_batch = orig
-    assert counts == {"window_sweep_batch_cn": 1,
-                      "window_sweep_batch_d3_direct": 1,
-                      "window_sweep_batch_chain": 1}, counts
-    assert sorted(calls) == ["chain", "cn", "d3_direct"]
-    for body, (a, kw) in calls.items():
-        radius, own, cand, params = a
-        out_k = ws.window_sweep_batch(body, radius, own, cand, params, **kw)
-        out_p = ws.window_sweep_batch_plain(body, radius, own, cand, params,
-                                            **kw)
-        lf = kw.get("lf")
-        loop = [ws.window_sweep(body, radius, own[i], cand[i], params,
-                                lf=None if lf is None else lf[i])
+    calls = []
+    reset_launch_counts()
+    seen = _record([(grid_d3, name)], lambda: calls.append(
+        grid_d3.batch_grid_dftd3(*args, engine=engine)))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts.items() if v}
+    assert counts == {f"{name}_{b}": 1 for b in ("cn", "d3_direct",
+                                                  "chain")}, counts
+    got = calls[0]
+    for (_, body), (a, kw) in seen.items():
+        out_k = kern(body, *a, **kw)
+        out_p = plain(body, *a, **kw)
+        own = a[1]
+        per = {k: kw[k] for k in ("lf", "cf") if kw.get(k) is not None}
+        loop = [kern(body, a[0], own[i], a[2][i], *a[3:],
+                     **{k: v[i] for k, v in per.items()})
                 for i in range(own.shape[0])]
         torch.cuda.synchronize()
         for k in range(2):
             for f in range(out_k[k].shape[1]):
                 _close(out_k[k][:, f], out_p[k][:, f])
                 _close(out_k[k][:, f], torch.stack([o[k][f] for o in loop]))
-    want = _per_system_loop(args)
+    want = _per_system_loop(args, engine)
     for a, w in zip(got, want):
         assert torch.isfinite(a).all()
         _close(a, w)
@@ -1775,3 +1788,186 @@ def test_train_step_on_card_matches_cpu_f64(cuda):
     for f in new64._fields:
         a, b = getattr(new32, f).double().cpu(), getattr(new64, f)
         assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item(), f
+
+
+# ---------------------------------------------------------------------------
+# Windows that overflow shared memory, the f64 route and other cards
+# ---------------------------------------------------------------------------
+
+
+def _every_sweep_body(cuda, seed=13, zmax=16, n=1500, box=22.0, cutoff=5.0):
+    """The calls of kernels 1, 7 and 8 on every body on one grid (zm = 85
+    at zmax 16): ``{(wrapper, body): (args, kwargs)}``."""
+    from nvalchemiops_torch import grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    g, numbers, q, tab, cutoff = _grid_case(cuda, seed, zmax, n, box, cutoff)
+    d3 = (*tab, cutoff, 0.42, 4.1, 1.7)
+
+    def run():
+        for engine in ("window", "pallas", "block"):
+            grid_d3.grid_dftd3(g, numbers, *d3, engine=engine)
+        for engine in ("window", "block"):
+            grid_d3.grid_dftd3_coulomb(g, numbers, q, *d3,
+                                       coulomb_cutoff=0.8 * cutoff,
+                                       alpha=0.35, engine=engine)
+            grid.grid_coulomb_energy_forces(g, q, cutoff, 0.35,
+                                            engine=engine)
+
+    seen = _record([(grid_d3, "window_sweep"), (grid_d3, "row_sweep"),
+                    (grid_d3, "chunk_sweep"), (grid, "window_sweep"),
+                    (grid, "chunk_sweep")], run)
+    return g, seen
+
+
+@pytest.mark.parametrize("kernel", ["window_sweep", "row_sweep",
+                                    "chunk_sweep"])
+def test_sliced_kernels_match_plain(cuda, kernel):
+    """Kernels 1, 7 and 8 with slicing forced through the wrapper's plan
+    on a small grid, every body: kernel 1 stages cap + 7 slots a group
+    (every window cut in slices, the home row's centre cell too) and splits
+    each cell's own slots over two blocks; kernels 7 and 8 stage cap / 2 +
+    3 own slots (cut mid-cell, over blocks) against cap + 7 candidates at
+    a time.  Each against its plain version."""
+    import dataclasses
+
+    from nvalchemiops_torch.kernels import chunk_sweep as cs
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import row_sweep as rs
+    from nvalchemiops_torch.kernels import window_sweep as ws
+
+    kern, plain = {"window_sweep": (ws.window_sweep, ws.window_sweep_plain),
+                   "row_sweep": (rs.row_sweep, rs.row_sweep_plain),
+                   "chunk_sweep": (cs.chunk_sweep, cs.chunk_sweep_plain),
+                   }[kernel]
+    g, seen = _every_sweep_body(cuda)
+    cap = g.cap
+    plan = ((cap + 7, cap // 2 + 1) if kernel == "window_sweep"
+            else (cap // 2 + 3, cap + 7))
+    calls = [(body, a, kw) for (name, body), (a, kw) in seen.items()
+             if name == kernel]
+    if kernel == "window_sweep":
+        body, a, kw = next(c for c in calls if c[0] == "d3_direct_coulomb")
+        calls.append((body, a[:3] + (dataclasses.replace(
+            a[3], combine_forces=not a[3].combine_forces),) + a[4:], kw))
+    bodies = {"window_sweep": ws.BODIES, "row_sweep": rs.BODIES,
+              "chunk_sweep": cs.BODIES}[kernel]
+    assert {c[0] for c in calls} == set(bodies)
+    for body, a, kw in calls:
+        before = launch_counts[f"{kernel}_{body}"]
+        out_k = kern(body, *a, plan=plan, **kw)
+        assert launch_counts[f"{kernel}_{body}"] == before + 1
+        out_p = plain(body, *a, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(out_k, out_p):
+            for fx, fy in zip(x, y):
+                _close(fx, fy)
+
+
+def _dryrun_grid(device, dtype=torch.float32):
+    """The JAX dry run's grid: 400 atoms in a 4 A box at 4 A, occupancy
+    0.3 (dims 1^3, cap 1,336), zmax-4 tables."""
+    from nvalchemiops_torch import grid
+
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0, 4.0, (400, 3))
+    tab = _d3_tables(rng)
+    numbers = rng.integers(1, 5, 400).astype(np.int32)
+    cell = np.eye(3) * 4.0
+    dims, radius, cap = grid.estimate_grid_geometry(cell, [True] * 3, 4.0,
+                                                    400, 0.3)
+    g = grid.build_atom_grid(torch.as_tensor(pos, dtype=dtype, device=device),
+                             torch.as_tensor(cell, dtype=dtype,
+                                             device=device),
+                             [True] * 3, dims, radius, cap)
+    return g, numbers, tab
+
+
+def test_cap_1336_runs_every_engine_against_plain(cuda):
+    """The dry run's one cell of cap 1,336: ``grid_dftd3`` on the window,
+    block and pallas engines on the card (their windows overflow shared
+    memory, so each kernel stages slices), every kernel call against its
+    plain version, the engines' forces against each other."""
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    g, numbers, tab = _dryrun_grid(cuda)
+    assert g.cap == 1336 and tuple(g.dims) == (1, 1, 1)
+    outs = {}
+
+    def run():
+        for engine in ("window", "block", "pallas"):
+            outs[engine] = grid_d3.grid_dftd3(g, numbers, *tab, 4.0, 0.42,
+                                              4.1, 1.7, engine=engine)
+
+    seen = _record([(grid_d3, "window_sweep"), (grid_d3, "row_sweep"),
+                    (grid_d3, "chunk_sweep")], run)
+    assert len(seen) == 9
+    _replay(seen)
+    for engine in ("block", "pallas"):
+        assert torch.isfinite(outs[engine][1]).all()
+        err = (outs[engine][1] - outs["window"][1]).abs().max().item()
+        assert err <= 1e-4 * outs["window"][1].abs().max().item(), engine
+
+
+def _route_calls(device, dtype=torch.float64):
+    """The kernel routes on one input each: ``grid_dftd3`` on the three
+    grid engines, ``dense_dftd3`` and the single-system
+    ``pme_reciprocal_space`` (windowed)."""
+    from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+    from nvalchemiops_torch.interactions.electrostatics.pme import (
+        pme_reciprocal_space,
+    )
+
+    c = _xla_case(device, dtype)
+    d3 = (*c["tab"], 3.4, 0.42, 4.1, 1.7)
+    calls = {f"grid_dftd3 {e}": (lambda e=e: grid_d3.grid_dftd3(
+        c["g"], c["numbers"], *d3, engine=e)) for e in ("window", "block",
+                                                       "pallas")}
+    calls["dense_dftd3"] = lambda: dense_d3.dense_dftd3(
+        c["pos"], c["numbers"], c["cell"], 5.0, *d3[:4], 0.42, 4.1, 1.7)
+    calls["pme_reciprocal_space"] = lambda: pme_reciprocal_space(
+        c["pos"], c["q"], torch.as_tensor(c["cell"], dtype=dtype,
+                                          device=device), 0.35,
+        mesh_dimensions=(16, 16, 16), compute_forces=True)
+    return calls
+
+
+@pytest.mark.parametrize("entry", ["grid_dftd3 window", "grid_dftd3 block",
+                                   "grid_dftd3 pallas", "dense_dftd3",
+                                   "pme_reciprocal_space"])
+def test_f64_routes_on_card_match_cpu(cuda, entry):
+    """f64 inputs on the card take the plain versions there: no kernel
+    launches, and the outputs match the same call on CPU tensors within
+    1e-10 of scale; f32 inputs of the same call launch kernels."""
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+
+    ref = _route_calls("cpu")[entry]()
+    reset_launch_counts()
+    got = _route_calls(cuda)[entry]()
+    torch.cuda.synchronize()
+    assert not any(launch_counts.values()), launch_counts
+    _close_cpu(tuple(got), tuple(ref), rtol=1e-10)
+    reset_launch_counts()
+    _route_calls(cuda, torch.float32)[entry]()
+    assert any(launch_counts.values()), entry
+
+
+def test_kernel_runs_on_a_second_card():
+    """A kernel wrapper given tensors on cuda:1 launches there (its runtime
+    calls act on that card) and agrees with its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda", 1)
+    g, numbers, q, tab, cutoff = _grid_case(dev, 14, 4)
+    reset_launch_counts()
+    seen = _record([(grid_d3, "window_sweep"), (grid_d3, "row_sweep")],
+                   lambda: [grid_d3.grid_dftd3(g, numbers, *tab, cutoff,
+                                               0.42, 4.1, 1.7, engine=e)
+                            for e in ("window", "pallas")])
+    assert launch_counts["window_sweep_d3_direct"] == 1
+    assert launch_counts["row_sweep_d3_direct"] == 1
+    assert all(a[1].device == dev for a, _ in seen.values())
+    _replay(seen)

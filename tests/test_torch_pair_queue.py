@@ -23,7 +23,9 @@ import torch
 
 from nvalchemiops_torch import grid
 from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+from nvalchemiops_torch.kernels import chunk_sweep as cs
 from nvalchemiops_torch.kernels import dense_pairs as dp
+from nvalchemiops_torch.kernels import row_sweep as rs
 from nvalchemiops_torch.kernels import window_sweep as ws
 
 
@@ -276,16 +278,28 @@ def cell_windows(radius, dims, cap):
             for dz, dy, x0, n in rows]
 
 
-def stage_groups(windows, capacity):
-    """The windows a block stages at once: greedily, as many as fit."""
-    groups, cur, used = [], [], 0
-    for k, (_, n) in enumerate(windows):
-        if cur and used + n > capacity:
-            groups.append(cur)
-            cur, used = [], 0
-        cur.append(k)
-        used += n
-    return groups + [cur]
+def window_groups(radius, cap: int, slots: int):
+    """The staging groups of kernel 1 (csrc/window_sweep.cu: the staging loop
+    of ``sweep_kernel``, mirrored here), each a list of
+    ``(window, first slot, length, offset)`` segments of at most ``slots``
+    slots in all: from window w0's slot l0 on, the rest of w0 (or a slice of
+    ``slots`` of it) and as many whole windows after it as fit."""
+    lens = ws.window_lengths(radius, cap)
+    groups, w0, l0 = [], 0, 0
+    while w0 < len(lens):
+        seg0 = min(lens[w0] - l0, slots)
+        group, staged, w1 = [(w0, l0, seg0, 0)], seg0, w0 + 1
+        if l0 + seg0 == lens[w0]:
+            while w1 < len(lens) and staged + lens[w1] <= slots:
+                group.append((w1, 0, lens[w1], staged))
+                staged += lens[w1]
+                w1 += 1
+        groups.append(group)
+        if l0 + seg0 < lens[w0]:
+            l0 += seg0
+        else:
+            w0, l0 = w1, 0
+    return groups
 
 
 def reach_sq(body, params):
@@ -297,8 +311,9 @@ def reach_sq(body, params):
 
 def emulate_window(body, radius, own, cand, params, lf=None, capacity=None):
     """Kernel 1's partition and queues in torch: per own cell, its windows
-    staged in groups of at most ``capacity`` candidates (all at once by
-    default); per own slot, every staged candidate tested and the hits
+    staged in the groups of :func:`window_groups` of at most ``capacity``
+    candidates (all at once by default; a window longer than that in
+    slices); per own slot, every staged candidate tested and the hits
     queued in staged order (the warp pops them 32 at a time: the order and
     the batches change no sum), the body run on the queued pairs.  All
     cells at once.  Returns ``(own_out, j_out, visits)`` with every queued
@@ -313,15 +328,18 @@ def emulate_window(body, radius, own, cand, params, lf=None, capacity=None):
     wins = cell_windows(radius, (cz, cy, cx), cap)
     own_slot = torch.arange(n_cells * cap).reshape(n_cells, cap)
     own_slots, cand_slots = [], []
-    for group in stage_groups(wins, capacity or sum(n for _, n in wins)):
-        staged = torch.cat([wins[k][0][:, None] + torch.arange(wins[k][1])
-                            for k in group], dim=1)      # [cells, L]
+    groups = window_groups(radius, cap,
+                              capacity or sum(n for _, n in wins))
+    for group in groups:
+        staged = torch.cat([wins[k][0][:, None] + l0 + torch.arange(n)
+                            for k, l0, n, _ in group], dim=1)  # [cells, L]
         d = [cand_f[a][staged][:, None, :] - own_f[a][own_slot][..., None]
              for a in range(3)]
         d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]     # [cells, cap, L]
         hit = (d2 > 1e-20) & (d2 < reach)
-        if group[0] == 0:            # the centre cell keeps slot pairs i < j
-            pos = torch.arange(staged.shape[1])
+        if group[0][0] == 0:         # the centre cell keeps slot pairs i < j
+            # staged candidate c is home slot c + l0, by absolute slot
+            pos = torch.arange(staged.shape[1]) + group[0][1]
             hit &= (pos[None, :] >= cap) | (pos[None, :] > torch.arange(
                 cap)[:, None])
         cell, i, k = torch.nonzero(hit, as_tuple=True)
@@ -452,15 +470,22 @@ def test_window_queue_visits_each_pair_once_and_sums_to_plain(case):
         _close(j_out, want[1])
 
 
-@pytest.mark.parametrize("capacity", ["one window", "two windows"])
+@pytest.mark.parametrize("capacity", ["one window", "two windows",
+                                      "slices of a window",
+                                      "slices of the centre cell"])
 def test_window_queue_in_staged_groups_sums_to_plain(capacity):
     """Where the windows do not fit in shared memory at once, the kernel
-    stages them in groups; the sums do not change."""
+    stages them in groups, and where one window does not fit, in slices
+    of it (the home row's centre cell cut mid-cell too); the sums do not
+    change."""
     g, _, numbers, q, tab = grid_case(7, 300, 16.0, 5.0)
     calls = window_calls(g, numbers, q, tab, 5.0, 4.5)
     _, _, _, _, cap = calls[0][0][2].shape
     rx = g.radius[2]
-    per = (2 * rx + 1) * cap * (1 if capacity == "one window" else 2)
+    per = {"one window": (2 * rx + 1) * cap,
+           "two windows": 2 * (2 * rx + 1) * cap,
+           "slices of a window": cap + 7,
+           "slices of the centre cell": cap // 2 + 1}[capacity]
     for args, kwargs in (calls[1], calls[3], calls[5], calls[8]):
         body, radius, own, cand, params = args[:5]
         lf = args[5] if len(args) > 5 else kwargs.get("lf")
@@ -489,3 +514,133 @@ def test_window_fused_reach_is_the_larger_cutoff():
         want = ws.window_sweep_plain(body, radius, own, cand, p, lf)
         _close(own_out, want[0])
         _close(j_out, want[1])
+
+
+# ---------------------------------------------------------------------------
+# The staging plans of kernels 1, 7 and 8 where a window overflows shared
+# memory
+# ---------------------------------------------------------------------------
+
+SMEM = 232448
+#: (name, cap, zm-wide row width nf): the reference's batched D3 row (128 x
+#: 2,000 atoms in 41.2 A boxes at 21.2 A: dims 1^3, zmax-16 tables) and the
+#: dry run's 400 atoms in a 4 A box at 4 A (occupancy 0.3, zmax 4)
+OVERFLOW_CAPS = (("batched D3 row", 3032, 170), ("dry run", 1336, 50))
+#: (cx, cap, rx, nf) of grids whose windows fit today: the main path (16
+#: cells a row, cap 40, zm = 15), zmax-16 tables at cap 32, a 3-cell row
+#: at cap 120 and radius 2 at cap 26
+PLANS_TODAY = ((16, 40, 1, 30), (16, 32, 1, 170), (3, 120, 1, 30),
+               (6, 26, 2, 30))
+
+
+def _kernel1_cases(cap, nf):
+    mesh = 5
+    for body in ws.BODIES:
+        base = {"d3_direct": 6, "d3_direct_coulomb": 7}.get(body)
+        n_cand = base + 2 * mesh if base else ws.BODIES[body][1]
+        for combine in ((False, True) if body == "d3_direct_coulomb"
+                        else (False,)):
+            yield body, n_cand, ws.SweepParams(cutoff=1.0, combine_forces=(
+                combine))
+
+
+def _today_slots(body, radius, cap, n_cand, params):
+    """Kernel 1's plan before slicing (the launcher's own formula): every
+    window where that fits, else the most slots that fit, refused where
+    one window did not fit (None)."""
+    n_out, n_j = ws.body_outputs(body, params)
+    lens = ws.window_lengths(radius, cap)
+    fixed = 4 * n_out * cap + 4 * 8 * 64
+    per = 4 * (n_cand + n_j)
+    ncs = sum(lens) if fixed + per * sum(lens) <= SMEM else (
+        SMEM - fixed) // per
+    return ncs if ncs >= max(lens) else None
+
+
+@pytest.mark.parametrize("name,cap,nf", OVERFLOW_CAPS)
+def test_staging_plans_fit_and_cover_every_slot(name, cap, nf):
+    """At the overflow caps every kernel gets a plan within 232,448 bytes:
+    kernel 1's groups cover each window's slots exactly once (slices of a
+    window in order, none past its end), kernels 7 and 8 stage G = 1 in
+    slices whose own and candidate ranges cover the cell and its window
+    exactly once."""
+    radius = (1, 1, 1)
+    for body, n_cand, params in _kernel1_cases(cap, nf):
+        slots, own = ws.window_plan(body, radius, cap, n_cand, params)
+        n_out, n_j = ws.body_outputs(body, params)
+        assert 4 * ((n_cand + n_j) * slots + n_out * own + 8 * 64) <= SMEM
+        # one cell of one system on a card of 132 SMs: where a window alone
+        # overflows the slots, the cell's own slots split over blocks, at
+        # least 32 each; the slots fit with them
+        slots1, own1 = ws.window_plan(body, radius, cap, n_cand, params,
+                                      blocks=1, n_sm=132)
+        if slots < max(ws.window_lengths(radius, cap)):
+            assert 32 <= own1 < cap and slots1 >= slots
+        else:
+            assert (slots1, own1) == (slots, own)
+        assert 4 * ((n_cand + n_j) * slots1 + n_out * own1 + 8 * 64) <= SMEM
+        if body.startswith("d3_direct"):     # refused before slicing
+            assert _today_slots(body, radius, cap, n_cand, params) is None
+        assert own <= cap and -(-cap // own) * own - cap < -(-cap // own)
+        lens = ws.window_lengths(radius, cap)
+        seen = [np.zeros(n, int) for n in lens]
+        for group in window_groups(radius, cap, slots):
+            assert sum(n for _, _, n, _ in group) <= slots
+            offs = [off for _, _, _, off in group]
+            assert offs == sorted(offs) and offs[0] == 0
+            for w, l0, n, _ in group:
+                seen[w][l0:l0 + n] += 1
+        assert all((s == 1).all() for s in seen)
+    for kernel, picker, slicer, smem in (
+            ("row", lambda b: rs.row_group_cells(b, 1, cap, 1, nf),
+             lambda b, g: rs.row_slices(b, g, 1, cap, 1, nf),
+             lambda b, g, m, w: rs.row_smem_bytes(b, g, 1, cap, 1, nf, m,
+                                                  w)),
+            ("chunk", lambda b: cs.super_chunk_cells(b, 1, cap, 1, nf),
+             lambda b, g: cs.chunk_slices(b, g, cap, 1, nf),
+             lambda b, g, m, w: cs.chunk_smem_bytes(b, g, cap, 1, nf, m,
+                                                    w))):
+        for body in ("d3_direct",):
+            g = picker(body)
+            assert g == 1, kernel
+            m_s, w_s = slicer(body, g)
+            assert (m_s, w_s) != (cap, 3 * cap) and smem(body, g, m_s,
+                                                         w_s) <= SMEM
+            own = np.zeros(cap, int)
+            for i0 in range(0, cap, m_s):
+                own[i0:i0 + m_s] += 1
+            cand = np.zeros(3 * cap, int)
+            for c0 in range(0, 3 * cap, w_s):
+                cand[c0:c0 + w_s] += 1
+            assert (own == 1).all() and (cand == 1).all()
+
+
+@pytest.mark.parametrize("cx,cap,rx,nf", PLANS_TODAY)
+def test_staging_plans_that_fit_stay_as_they_were(cx, cap, rx, nf):
+    """Where a cell's windows fit, kernel 1 stages the same slot count in
+    the same whole-window groups as before slicing, a block takes the
+    whole cell, and kernels 7 and 8 keep their G with the whole group and
+    window staged."""
+    radius = (rx, rx, rx)
+    for body, n_cand, params in _kernel1_cases(cap, nf):
+        today = _today_slots(body, radius, cap, n_cand, params)
+        if today is None:
+            continue
+        for blocks in (0, 1, 1000):
+            assert ws.window_plan(body, radius, cap, n_cand, params, blocks,
+                                  132) == (today, cap)
+        lens = ws.window_lengths(radius, cap)
+        for group in window_groups(radius, cap, today):
+            assert all(l0 == 0 and n == lens[w] for w, l0, n, _ in group)
+    for body in rs.BODIES:
+        width = nf if body == "d3_direct" else 0
+        g = rs.row_group_cells(body, cx, cap, rx, width)
+        assert rs.row_smem_bytes(body, g, cx, cap, rx, width) <= SMEM
+        assert rs.row_slices(body, g, cx, cap, rx, width) == (
+            g * cap, (g + 2 * rx) * cap)
+    for body in cs.BODIES:
+        width = nf if body.startswith("d3_direct") else 0
+        g = cs.super_chunk_cells(body, cx, cap, rx, width)
+        assert cs.chunk_smem_bytes(body, g, cap, rx, width) <= SMEM
+        assert cs.chunk_slices(body, g, cap, rx, width) == (
+            g * cap, (g + 2 * rx) * cap)

@@ -79,14 +79,19 @@ def offsets(radius):
                              for dz, dy in ws.halfspace_zy(rz, ry)]
 
 
-def row_pairs(radius, own, cand, g_cells, reach, parked, tested_only):
+def row_pairs(radius, own, cand, g_cells, reach, parked, tested_only,
+              slices=None):
     """Every pair the sweep meets in range, as rows (own flat slot,
     candidate flat slot, block, group, own index in the group, candidate
-    index in the group's window): with ``tested_only`` the kernel's tests
-    (own slots with ``|px| < parked``, each against the 2*rx + 1 x-cells
-    around its cell), else every own slot against the group's whole merged
-    window.  The home row keeps candidates past the own slot.  Block =
-    row * n_offsets + offset, as the kernel numbers them."""
+    index in the group's window, slice): with ``tested_only`` the kernel's
+    tests (own slots with ``|px| < parked``, each against the 2*rx + 1
+    x-cells around its cell), else every own slot against the group's whole
+    merged window.  The home row keeps candidates past the own slot.  Block
+    = row * n_offsets + offset, as the kernel numbers them.  ``slices =
+    (own slots, candidates)`` stages each group in slices as the kernel
+    does (own slices over blocks, candidate slices one after another; each
+    own slot's tested range clipped to the staged slice, in staged
+    indices); slice = own slice * candidate slices + candidate slice."""
     _, cz, cy, cx, cap = own.shape
     rz, ry, rx = radius
     _, ez, ey, ex, _ = cand.shape
@@ -98,44 +103,59 @@ def row_pairs(radius, own, cand, g_cells, reach, parked, tested_only):
     found = []
     for gi, g0 in enumerate(range(0, cx, g_cells)):
         gn = min(g_cells, cx - g0)
-        m, w = gn * cap, (gn + 2 * rx) * cap
-        own_idx = ((z * cy + y) * cx + g0)[..., None] * cap + torch.arange(m)
-        i = torch.arange(m)[:, None]
-        c = torch.arange(w)[None, :]
-        gl = i // cap
-        ox = own_f[0][own_idx]                             # [cz, cy, m]
-        live = (ox.abs() < parked)[..., None]
-        for k, (dz, dy, home) in enumerate(offs):
-            cand0 = (((z + rz + dz) * ey + (y + ry + dy)) * ex + g0) * cap
-            cand_idx = cand0[..., None] + torch.arange(w)  # [cz, cy, w]
-            keep = torch.ones((m, w), dtype=torch.bool)
-            if home:
-                keep &= c > i + rx * cap
-            if tested_only:
-                keep &= (c >= gl * cap) & (c < (gl + 2 * rx + 1) * cap)
-            d = [cand_f[a][cand_idx][..., None, :]
-                 - own_f[a][own_idx][..., None] for a in range(3)]
-            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]   # [cz, cy, m, w]
-            hit = keep & (d2 > 1e-20) & (d2 < reach) & live
-            zz, yy, ii, jj = torch.nonzero(hit, as_tuple=True)
-            block = (zz * cy + yy) * len(offs) + k
-            found.append(torch.stack([
-                own_idx[zz, yy, ii], cand_idx[zz, yy, jj], block,
-                torch.full_like(ii, gi), ii, jj], dim=1))
+        m_all, w_all = gn * cap, (gn + 2 * rx) * cap
+        m_s, w_s = slices or (m_all, w_all)
+        n_cs = -(-((g_cells + 2 * rx) * cap) // w_s)
+        for si, i0 in enumerate(range(0, m_all, m_s)):
+            m = min(m_s, m_all - i0)
+            own_idx = ((z * cy + y) * cx + g0)[..., None] * cap + i0 \
+                + torch.arange(m)
+            i = i0 + torch.arange(m)[:, None]
+            gl = i // cap
+            ox = own_f[0][own_idx]                         # [cz, cy, m]
+            live = (ox.abs() < parked)[..., None]
+            for ci, c0 in enumerate(range(0, w_all, w_s)):
+                w = min(w_s, w_all - c0)
+                cc = torch.arange(w)[None, :]
+                for k, (dz, dy, home) in enumerate(offs):
+                    cand0 = (((z + rz + dz) * ey + (y + ry + dy)) * ex
+                             + g0) * cap + c0
+                    cand_idx = cand0[..., None] + torch.arange(w)
+                    if tested_only:
+                        j0 = torch.clamp(i + rx * cap + 1 if home
+                                         else gl * cap, min=c0) - c0
+                        j1 = torch.clamp((gl + 2 * rx + 1) * cap,
+                                         max=c0 + w) - c0
+                        keep = (cc >= j0) & (cc < j1)
+                    else:
+                        keep = torch.ones((m, w), dtype=torch.bool)
+                        if home:
+                            keep &= c0 + cc > i + rx * cap
+                    d = [cand_f[a][cand_idx][..., None, :]
+                         - own_f[a][own_idx][..., None] for a in range(3)]
+                    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+                    hit = keep & (d2 > 1e-20) & (d2 < reach) & live
+                    zz, yy, ii, jj = torch.nonzero(hit, as_tuple=True)
+                    block = (zz * cy + yy) * len(offs) + k
+                    found.append(torch.stack([
+                        own_idx[zz, yy, ii], cand_idx[zz, yy, jj], block,
+                        torch.full_like(ii, gi), i0 + ii, c0 + jj,
+                        torch.full_like(ii, si * n_cs + ci)], dim=1))
     return torch.cat(found)
 
 
 def emulate_row(body, radius, own, cand, params, g_cells, lf=None, cf=None,
-                parked=PARKED):
+                parked=PARKED, slices=None):
     """Kernel 7's partition, queues and pops in torch.  The visits are
     ordered as a warp pushes them (warp = own index % warps; its slots in
     turn, candidates ascending), each warp's queue popped 32 entries at a
     time within a group; each pop's own-side terms are summed per own slot
     (the segmented reduction) before they reach the slot's sum, the j-side
-    terms added entry by entry.  Returns ``(own_out, j_out, visits)``."""
+    terms added entry by entry; with ``slices`` a queue per staged slice.
+    Returns ``(own_out, j_out, visits)``."""
     _, n_out, n_j = rs.BODIES[body][1:]
     visits = row_pairs(radius, own, cand, g_cells, params.cutoff ** 2,
-                       parked, tested_only=True)
+                       parked, tested_only=True, slices=slices)
     own_f = own.reshape(own.shape[0], -1)
     cand_f = cand.reshape(cand.shape[0], -1)
     own_out = torch.zeros((n_out, own_f.shape[1]), dtype=own.dtype)
@@ -145,10 +165,12 @@ def emulate_row(body, radius, own, cand, params, g_cells, lf=None, cf=None,
                 j_out.reshape((n_j,) + tuple(cand.shape[1:])), visits)
     assert int(visits[:, 4].max()) < 1 << 15        # own index fits the entry
     assert int(visits[:, 5].max()) < 1 << 16        # and the candidate
-    blk, gi, i, c = visits[:, 2], visits[:, 3], visits[:, 4], visits[:, 5]
+    blk, gi, i, c, sl = (visits[:, k] for k in range(2, 7))
     warps = rs.WARPS[body]
-    warp = i % warps
-    queue = (blk * (int(gi.max()) + 1) + gi) * warps + warp
+    # a warp takes staged own indices warp, warp + warps, ..
+    warp = (i % slices[0] if slices else i) % warps
+    queue = ((blk * (int(gi.max()) + 1) + gi) * (int(sl.max()) + 1)
+             + sl) * warps + warp
     order = torch.argsort(queue * (1 << 32) + i * (1 << 16) + c)
     visits, queue = visits[order], queue[order]
     _, counts = torch.unique_consecutive(queue, return_counts=True)
@@ -233,13 +255,14 @@ def _unpack(args, kwargs):
     return body, radius, own, cand, params, lf, cf
 
 
-def check_call(body, radius, own, cand, params, g_cells, lf, cf):
-    """The emulation at ``g_cells`` against the plain enumeration and the
-    plain version; returns the visits."""
+def check_call(body, radius, own, cand, params, g_cells, lf, cf,
+               slices=None):
+    """The emulation at ``g_cells`` (and ``slices``) against the plain
+    enumeration and the plain version; returns the visits."""
     dims = tuple(own.shape[1:4])
     assert rs.skips_parked(dims, radius)
     own_out, j_out, visits = emulate_row(body, radius, own, cand, params,
-                                         g_cells, lf, cf)
+                                         g_cells, lf, cf, slices=slices)
     rows = [tuple(v) for v in visits[:, :3].tolist()]
     assert len(rows) == len(set(rows))             # each pair queued once
     want = row_pairs(radius, own, cand, g_cells, params.cutoff ** 2,
@@ -273,20 +296,28 @@ CASES = {
 
 
 @pytest.mark.parametrize("width", ["one cell", "several cells",
-                                   "whole row"])
+                                   "whole row", "slices of one cell",
+                                   "slices of several cells"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_row_queue_visits_each_pair_once_and_sums_to_plain(case, width):
+    """The slices (where one cell and its window do not fit) cut a cell's
+    slots mid-cell and the window at an odd slot, and stage several
+    candidate slices a group."""
     seed, n, box, cutoff, half_empty, full_cell = CASES[case]
     g, numbers, tab = grid_case(seed, n, box, cutoff, half_empty, full_cell)
-    cx = g.dims[2]
+    cx, cap = g.dims[2], g.cap
     assert cx >= 3
-    g_cells = {"one cell": 1, "several cells": 2 if cx % 2 else cx - 1,
-               "whole row": cx}[width]
-    if width == "several cells":
+    several = 2 if cx % 2 else cx - 1
+    g_cells = {"one cell": 1, "several cells": several, "whole row": cx,
+               "slices of one cell": 1,
+               "slices of several cells": several}[width]
+    slices = (cap // 2 + 3, cap + 7) if width.startswith("slices") else None
+    if "several cells" in width:
         assert 1 < g_cells < cx and cx % g_cells   # the last group ragged
     for args, kwargs in row_calls(g, numbers, tab, cutoff):
         body, radius, own, cand, params, lf, cf = _unpack(args, kwargs)
-        visits = check_call(body, radius, own, cand, params, g_cells, lf, cf)
+        visits = check_call(body, radius, own, cand, params, g_cells, lf, cf,
+                            slices)
         assert len(visits) > 0
 
 
@@ -332,7 +363,8 @@ def test_row_shared_memory_budget():
     """``row_smem_bytes`` counts the extended row's j sums, the staged group
     and its window, the own sums and the warps' queues, as the kernel's
     does; the main path (16 cells a row, cap 40, zm = 15) stages whole rows,
-    the zmax-16 tables (zm = 85, cap 32) groups, all within 227 KB."""
+    the zmax-16 tables (zm = 85, cap 32) groups, and at cap 128 slices of
+    one cell and its window, all within 227 KB."""
     for body, (_, n_feat, n_out, n_j) in rs.BODIES.items():
         nf = 30 if body == "d3_direct" else 0
         fs = nf | 1 if nf else 0
@@ -349,5 +381,9 @@ def test_row_shared_memory_budget():
     assert 1 < g < 16
     assert rs.row_smem_bytes("d3_direct", g, 16, 32, 1, 170) <= 232448
     assert rs.row_smem_bytes("d3_direct", g + 1, 16, 32, 1, 170) > 232448
-    with pytest.raises(ValueError, match="shared memory"):
-        rs.row_group_cells("d3_direct", 16, 128, 1, 170)
+    # one cell and its window do not fit: G = 1, slices of both
+    assert rs.row_group_cells("d3_direct", 16, 128, 1, 170) == 1
+    m_s, w_s = rs.row_slices("d3_direct", 1, 16, 128, 1, 170)
+    assert m_s <= 128 and w_s < 3 * 128
+    assert rs.row_smem_bytes("d3_direct", 1, 16, 128, 1, 170, m_s,
+                             w_s) <= 232448

@@ -171,7 +171,7 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert path != build.library_path(("-Xptxas", "-v"))
     assert path.startswith(build.BUILD_DIR)
     assert sorted(os.path.basename(f) for f in build._sources()) == [
-        "chunk_sweep.cu", "dense_pairs.cu", "row_sweep.cu",
+        "chunk_sweep.cu", "dense_pairs.cu", "device.cu", "row_sweep.cu",
         "separable_spline.cu", "stencil_sweep.cu", "window_sweep.cu",
         "windowed_gather.cu"]
     assert [os.path.basename(f) for f in build._headers()] == [
