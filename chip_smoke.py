@@ -1104,7 +1104,7 @@ def drive(name, fn, expect, forbid=()):
     """Counts to 0, run ``fn`` once (CUDA-event timed, peak memory), read
     the counts; fail unless every kernel in ``expect`` launched and none in
     ``forbid`` did."""
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1115,7 +1115,7 @@ def drive(name, fn, expect, forbid=()):
     out = fn()
     b.record()
     b.synchronize()
-    counts = dict(launch_counts)
+    counts = launches()
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k in expect if not counts[k]]
     wrong = [k for k in forbid if counts[k]]
@@ -1167,7 +1167,7 @@ def run_batched_d3(dev):
     from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
         batch_grid_dftd3,
     )
-    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import LAUNCH_KEYS
     from nvalchemiops_torch.grid import (
         batch_build_atom_grid, estimate_grid_geometry,
     )
@@ -1177,7 +1177,7 @@ def run_batched_d3(dev):
     a1, a2, s8 = D3_PARAMS
     pbc = np.array([True] * 3)
     dense_keys = ["dense_pairs_cn", "dense_pairs_direct", "dense_pairs_chain"]
-    grid_keys = [k for k in launch_counts
+    grid_keys = [k for k in LAUNCH_KEYS
                  if k.startswith(("window_sweep_", "row_sweep_",
                                   "chunk_sweep_"))]
     d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
@@ -1420,9 +1420,9 @@ def run_pme(dev, f_p_full, pme_err, full_inputs):
 
 def off_path(expect):
     """Every pair-sweep launch count outside ``expect``."""
-    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import LAUNCH_KEYS
 
-    return [k for k in launch_counts
+    return [k for k in LAUNCH_KEYS
             if k.startswith(SWEEP_COUNT_PREFIXES) and k not in expect]
 
 
@@ -2421,14 +2421,14 @@ def run_dftd3(dev, full):
     from nvalchemiops_torch.interactions.dispersion.d3_data import (
         realistic_test_tables,
     )
-    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import LAUNCH_KEYS, launches
     from nvalchemiops_torch.neighborlist import (
         assert_max_neighbors, get_neighbor_list_from_neighbor_matrix,
         neighbor_list,
     )
 
     pbc = np.array([True] * 3)
-    no_kernel = list(launch_counts)
+    no_kernel = list(LAUNCH_KEYS)
     d3_bar = tuple(BAR_FACTOR * v for v in JAX_F32_BARS["d3"])
     a1, a2, s8 = composite.D3_A1, composite.D3_A2, composite.D3_S8
     real = realistic_test_tables(np.float64)
@@ -2648,7 +2648,7 @@ def run_xla_routes(dev, full):
     from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
         batch_grid_dftd3, grid_dftd3, grid_dftd3_coulomb,
     )
-    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import LAUNCH_KEYS
     from nvalchemiops_torch.neighborlist import (
         assert_max_neighbors, neighbor_list,
     )
@@ -2662,7 +2662,7 @@ def run_xla_routes(dev, full):
         ref, counts = drive(f"{label} (default engine)", default, [])
         ran = [k for k, v in counts.items() if v]
         out, xla_counts = drive(f"{label} engine='xla'", xla, ran,
-                                [k for k in launch_counts if k not in ran])
+                                [k for k in LAUNCH_KEYS if k not in ran])
         if xla_counts != counts:
             raise AssertionError(f"{label}: engine='xla' launched "
                                  f"{xla_counts}, the default {counts}")
@@ -2703,7 +2703,7 @@ def run_xla_routes(dev, full):
         name = f"{label} grid_dftd3(compute_virial=True) [{how}]"
         (_, _, _, v), _ = drive(name, lambda: grid_dftd3(
             g, *d3_args, compute_virial=True, **kw), window,
-            [k for k in launch_counts if k not in window])
+            [k for k in LAUNCH_KEYS if k not in window])
         bar = (bars["virial_no_cell"] if how == "no cell"
                else DFTD3_BARS["virial_f32_vs_f64_largest"])
         check_bar(f"{name} virial vs dftd3 f64 (Frobenius)",
@@ -2740,7 +2740,7 @@ def run_xla_routes(dev, full):
     del nm
     counts, _ = drive(f"{label} grid_neighbor_count",
                       lambda: grid_neighbor_count(g, cutoff, n), [],
-                      list(launch_counts))
+                      list(LAUNCH_KEYS))
     if not torch.equal(counts.to(num.dtype), num):
         raise AssertionError(
             f"{label}: grid_neighbor_count differs from cell_list on "
@@ -2753,7 +2753,7 @@ def run_xla_routes(dev, full):
                              dtype=torch.float32, device=dev)
     cn_g, _ = drive(f"{label} grid_coordination_numbers",
                     lambda: grid_coordination_numbers(g, rcov_a, cutoff),
-                    [], list(launch_counts))
+                    [], list(LAUNCH_KEYS))
     check_energy(f"{label} grid_coordination_numbers vs grid_dftd3 CN",
                  cn_g, cn_w, bars["cn_full_sweep"])
     for name, fn in (("grid_neighbor_count",
@@ -2995,7 +2995,7 @@ def _parallel_rank(rank, world, in_path, out_path):
     import torch.distributed as dist
 
     from nvalchemiops_torch import parallel
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
     from nvalchemiops_torch.parallel import _dist
 
     inp = torch.load(in_path, weights_only=False)
@@ -3016,7 +3016,7 @@ def _parallel_rank(rank, world, in_path, out_path):
         reset_launch_counts()
         outs[name] = fn()
         torch.cuda.synchronize()
-        counts[name] = {k: v for k, v in launch_counts.items() if v}
+        counts[name] = {k: v for k, v in launches().items() if v}
     record = {
         "rank": rank, "counts": counts, "ring": dict(_dist.ring_stats),
         "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
@@ -3277,7 +3277,7 @@ def run_training(dev):
     import tempfile
 
     from nvalchemiops_torch import entry, parallel
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
     from nvalchemiops_torch.parallel._dist import spawn_ranks
 
     single = None
@@ -3295,7 +3295,7 @@ def run_training(dev):
             if where == dev:
                 torch.cuda.synchronize()
                 peak = torch.cuda.max_memory_allocated(dev)
-                launched = {k: v for k, v in launch_counts.items() if v}
+                launched = {k: v for k, v in launches().items() if v}
                 ms = cuda_time_ms(lambda: parallel.train_step(
                     params, tables, batch, TRAIN["cutoff"]), reps=3)
                 fwd_ms = cuda_time_ms(lambda: parallel.batched_energy_forces(
@@ -3642,7 +3642,9 @@ def run_overflow(dev):
     from nvalchemiops_torch.interactions.electrostatics.pme import (
         pme_reciprocal_space,
     )
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import (
+        launch_counts, launches, reset_launch_counts,
+    )
     from nvalchemiops_torch.neighborlist import (
         assert_max_neighbors, neighbor_list,
     )
@@ -3731,7 +3733,7 @@ def run_overflow(dev):
                         coord_num_ref=cn_full, cell=cell64,
                         neighbor_matrix=nm, neighbor_matrix_shifts=sh,
                         output_dtype=None)
-    if any(launch_counts.values()):
+    if any(launches().values()):
         raise AssertionError("19b: the f64 dftd3 launched a kernel")
     phase(f"19b dry-run grid: dims {dims_d} radius {radius_d} cap {cap_d}, "
           f"occupancy {int(g_d.counts_max)}; f64 dftd3 witness over {k} "
@@ -3868,13 +3870,13 @@ def run_overflow(dev):
         reset_launch_counts()
         got = card[name]()
         torch.cuda.synchronize()
-        if any(launch_counts.values()):
-            raise AssertionError(f"19d f64 {name} launched {launch_counts}")
+        if any(launches().values()):
+            raise AssertionError(f"19d f64 {name} launched {launches()}")
         err = max(_scale_error(a, b) for a, b in zip(got, want))
         reset_launch_counts()
         card32[name]()
         torch.cuda.synchronize()
-        launched = sorted(k for k, v in launch_counts.items() if v)
+        launched = sorted(k for k, v in launches().items() if v)
         phase(f"19d {name} f64 on the card vs the CPU: max |diff| / scale "
               f"{err:.3e} (bar {F64_ROUTE_RTOL:g}), 0 launches; in f32 it "
               f"launches {launched}")
@@ -3923,7 +3925,7 @@ def main():
     from nvalchemiops_torch.interactions.electrostatics.pme import (
         pme_reciprocal_space,
     )
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
     from nvalchemiops_torch.kernels.build import build_library
     from nvalchemiops_torch.spline_windowed import observed_tile_capacity
 
@@ -3944,7 +3946,7 @@ def main():
     capture = install_capture()
     reset_launch_counts()
     forces = composite.compute_forces(torch.float32, dev)
-    small_counts = dict(launch_counts)
+    small_counts = launches()
     capture.restore()
     small_calls = capture.calls
     rel = composite.relative_errors(forces, ref)
@@ -4009,7 +4011,7 @@ def main():
     e_c, f_c = timed("coulomb", stages["coulomb"])
     e_p, f_p = timed("pme", stages["pme"])
     torch.cuda.synchronize()
-    main_counts = dict(launch_counts)
+    main_counts = launches()
     peak = torch.cuda.max_memory_allocated(dev)
     capture.restore()
     full_calls = capture.calls

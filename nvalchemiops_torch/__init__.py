@@ -14,6 +14,10 @@ The package namespace holds every subpackage of the JAX package;
 process per rank) and lacks the JAX package's training step.  Importing
 them builds and loads no kernel.
 
+``trace`` (outside ``__all__``) holds the port's counters (kernel
+launches, host reads, uploads, slot pairs) and times the entry points in
+spans while a ``torch.profiler`` session records.
+
 This package imports ``torch`` and never ``jax``.
 """
 

@@ -44,6 +44,7 @@ from nvalchemiops_torch.mathops.math import (
     apply_mat3_batched, divmod_floor,
 )
 from nvalchemiops_torch.neighborlist.neighbor_utils import pack_shifts
+from nvalchemiops_torch.trace import host_read, spanned, upload
 from nvalchemiops_torch.types import INDEX_DTYPE
 
 DISPLACE = 3.0e7
@@ -101,13 +102,15 @@ class AtomGrid:
 
 def _pbc_list(pbc):
     if isinstance(pbc, torch.Tensor):
-        pbc = pbc.cpu().numpy()
+        with host_read("grid_pbc_list", pbc.device):
+            pbc = pbc.cpu().numpy()
     return [bool(b) for b in np.asarray(pbc, dtype=bool).reshape(-1)[:3]]
 
 
 def _cell_np(cell):
     if isinstance(cell, torch.Tensor):
-        cell = cell.detach().cpu().numpy()
+        with host_read("grid_cell_np", cell.device):
+            cell = cell.detach().cpu().numpy()
     return np.asarray(cell, dtype=np.float64).reshape(3, 3)
 
 
@@ -144,14 +147,15 @@ def _bin_coords(positions, cell, pbc, dims, origin):
     leading system axes: ``positions [.., n, 3]``, ``cell [.., 3, 3]``."""
     dtype = positions.dtype
     cz, cy, cx = dims
-    pbc_t = torch.tensor(_pbc_list(pbc), device=positions.device)
-    cpd_xyz = torch.tensor([cx, cy, cz], dtype=INDEX_DTYPE,
-                           device=positions.device)
-    frac = apply_mat3_batched(positions, torch.linalg.inv(cell))
+    device = positions.device
+    pbc_t = upload(_pbc_list(pbc), device, None, "grid_pbc")
+    cpd_xyz = upload([cx, cy, cz], device, INDEX_DTYPE, "grid_dims")
+    with host_read("grid_inv", device):
+        frac = apply_mat3_batched(positions, torch.linalg.inv(cell))
     bin_pos = frac * cpd_xyz.to(dtype)
     if origin is not None:
-        bin_pos = bin_pos - torch.as_tensor(
-            origin, dtype=dtype, device=positions.device).reshape(3)
+        bin_pos = bin_pos - upload(origin, device, dtype,
+                                   "grid_origin").reshape(3)
     coords = torch.floor(bin_pos).to(INDEX_DTYPE)
     wrap, wrapped = divmod_floor(coords, cpd_xyz)
     clamped = torch.minimum(torch.clamp(coords, min=0), cpd_xyz - 1)
@@ -183,6 +187,7 @@ def _extend(plane, radius, pbc, fill, first_axis: int = 0):
     return out
 
 
+@spanned("grid_build")
 def build_atom_grid(positions, cell, pbc, dims, radius, cap,
                     origin=None) -> AtomGrid:
     """Bin, sort, fill the slot planes, and halo-extend: the batched build
@@ -192,12 +197,13 @@ def build_atom_grid(positions, cell, pbc, dims, radius, cap,
     ``origin`` (optional [3], xyz order, in bin units) shifts the periodic
     bin partition (see :func:`choose_grid_origin`).
     """
-    cell = torch.as_tensor(cell, dtype=positions.dtype,
-                           device=positions.device).reshape(3, 3)
+    cell = upload(cell, positions.device, positions.dtype,
+                  "grid_cells").reshape(3, 3)
     return system_grid(batch_build_atom_grid(
         positions[None], cell, pbc, dims, radius, cap, origin=origin), 0)
 
 
+@spanned("grid_build")
 def batch_build_atom_grid(positions, cells, pbc, dims, radius, cap,
                           origin=None) -> AtomGrid:
     """Whole-batch grid build: ``positions [B, npa, 3]`` -> an AtomGrid
@@ -212,7 +218,7 @@ def batch_build_atom_grid(positions, cells, pbc, dims, radius, cap,
     """
     b, npa, _ = positions.shape
     dtype, device = positions.dtype, positions.device
-    cells = torch.as_tensor(cells, dtype=dtype, device=device)
+    cells = upload(cells, device, dtype, "grid_cells")
     if cells.dim() == 2:
         cells = cells.reshape(1, 3, 3).expand(b, 3, 3)
     pbc_l = _pbc_list(pbc)
@@ -245,7 +251,8 @@ def batch_build_atom_grid(positions, cells, pbc, dims, radius, cap,
                               torch.full_like(rank_sorted, ncells * cap),
                               local_lin * cap + rank_sorted)
 
-    counts = torch.bincount(lin_g.long(), minlength=b * ncells)
+    with host_read("grid_bincount", device, 2):
+        counts = torch.bincount(lin_g.long(), minlength=b * ncells)
     starts = torch.cumsum(counts, 0) - counts
     ends = starts + counts
     valid = torch.arange(cap, device=device)[None, :] < counts[:, None]
@@ -610,6 +617,7 @@ def _coulomb_block_impl(grid: AtomGrid, q_plane, q_ext, cutoff: float,
     return tuple(acc[k] + fold_halo(grid, jacc[k]) for k in range(4))
 
 
+@spanned("coulomb")
 def grid_coulomb_energy_forces(grid: AtomGrid, charges, cutoff, alpha=0.0,
                                engine: str | None = None):
     """(erfc-damped) Coulomb per-atom energies and forces via the pair sweep.

@@ -35,6 +35,7 @@ from nvalchemiops_torch.interactions.dispersion.grid_d3 import (
 from nvalchemiops_torch.kernels.dense_pairs import TILE, dense_pairs
 from nvalchemiops_torch.kernels.window_sweep import SweepParams
 from nvalchemiops_torch.mathops.math import apply_mat3_batched
+from nvalchemiops_torch.trace import host_read, span, spanned, upload
 from nvalchemiops_torch.types import INDEX_DTYPE, default_device
 
 __all__ = ["BATCH_DENSE_MAX_ATOMS", "min_perpendicular_width",
@@ -144,16 +145,18 @@ def _dense_impl(positions, numbers, cells, cutoff, tables, params, combos):
     s_count, n = positions.shape[:2]
     n_pad = -(-n // TILE) * TILE
     pad = n_pad - n
-    if pad:
-        positions = torch.nn.functional.pad(positions, (0, 0, 0, pad))
-        numbers = torch.nn.functional.pad(numbers, (0, pad))
     rcov, r4r2, cna, mask, c6p = tables
-    zl = numbers.long()
-    alive = (numbers != 0).to(dtype)
-    frac = apply_mat3_batched(positions, torch.linalg.inv(cells))
-    rcov_a = rcov[zl] * alive                       # dead rows: rc = 0
-    si_a = torch.sqrt(r4r2 * _SQRT3)[zl]
-    cells9 = cells.reshape(s_count, 9).contiguous()
+    with span("d3.inputs"):
+        if pad:
+            positions = torch.nn.functional.pad(positions, (0, 0, 0, pad))
+            numbers = torch.nn.functional.pad(numbers, (0, pad))
+        zl = numbers.long()
+        alive = (numbers != 0).to(dtype)
+        with host_read("d3_dense_inv", device):
+            frac = apply_mat3_batched(positions, torch.linalg.inv(cells))
+        rcov_a = rcov[zl] * alive                   # dead rows: rc = 0
+        si_a = torch.sqrt(r4r2 * _SQRT3)[zl]
+        cells9 = cells.reshape(s_count, 9).contiguous()
 
     def sweep(body, cols, lw=None):
         feats = torch.cat([c if c.dim() == 3 else c[..., None] for c in cols],
@@ -161,34 +164,39 @@ def _dense_impl(positions, numbers, cells, cutoff, tables, params, combos):
         return dense_pairs(body, feats, cells9, combos, params, lw)
 
     # pass 1: coordination numbers
-    (cn,) = sweep("cn", [frac, rcov_a, alive])
+    with span("d3.cn"):
+        (cn,) = sweep("cn", [frac, rcov_a, alive])
 
     # per-atom features, w-prescaled: zacc = l0w_i . ew_j is C6 itself
-    lf, e, edc, w = _d3_plane_features(numbers, cn, cna, mask, c6p,
-                                       params.k3)
-    pos_w = w > 0.0
-    w_inv = torch.where(pos_w, 1.0 / torch.where(pos_w, w,
-                                                 torch.ones_like(w)),
-                        torch.zeros_like(w))
-    lw = (lf * w_inv[..., None]).contiguous()
+    with span("d3.features"):
+        lf, e, edc, w = _d3_plane_features(numbers, cn, cna, mask, c6p,
+                                           params.k3)
+        pos_w = w > 0.0
+        w_inv = torch.where(pos_w, 1.0 / torch.where(pos_w, w,
+                                                     torch.ones_like(w)),
+                            torch.zeros_like(w))
+        lw = (lf * w_inv[..., None]).contiguous()
 
     # pass 2: energy, direct forces, dE/dCN
-    e_rows, de, fx, fy, fz = sweep(
-        "direct", [frac, si_a, numbers.to(dtype), e * w_inv[..., None],
-                   edc * w_inv[..., None]], lw)
-    energy = -e_rows.sum(-1)
+    with span("d3.direct"):
+        e_rows, de, fx, fy, fz = sweep(
+            "direct", [frac, si_a, numbers.to(dtype), e * w_inv[..., None],
+                       edc * w_inv[..., None]], lw)
+        energy = -e_rows.sum(-1)
 
     # pass 3: CN chain-rule forces (dead rows masked)
-    fx3, fy3, fz3 = sweep("chain", [frac, rcov_a, alive, de * alive])
-    forces = torch.stack([fx + fx3, fy + fy3, fz + fz3], dim=-1)
-    return energy, forces[:, :n], cn[:, :n]
+    with span("d3.chain"):
+        fx3, fy3, fz3 = sweep("chain", [frac, rcov_a, alive, de * alive])
+    with span("d3.gather"):
+        forces = torch.stack([fx + fx3, fy + fy3, fz + fz3], dim=-1)
+        return energy, forces[:, :n], cn[:, :n]
 
 
 def _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device):
     """Element tables as tensors: ``(rcov, r4r2, cna, mask, c6p)`` with the
     p-major C6 rows ``c6p[z_i, p, (z, q)] = c6ab[z_i, z, p, q]``."""
     def table(a):
-        return torch.as_tensor(_np(a)).to(device=device, dtype=dtype)
+        return upload(_np(a), device, dtype, "d3_tables")
 
     rcov_t, r4r2_t, c6_t, cna_t = (table(a) for a in
                                    (rcov, r4r2, c6ab, cn_ref_elem))
@@ -231,6 +239,7 @@ def _check_combos(combos):
     return combos
 
 
+@spanned("d3")
 def dense_dftd3(positions, numbers, cell, cutoff, rcov, r4r2, c6ab,
                 cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0, k3=-4.0,
                 images: bool | None = None, combos=None,
@@ -248,22 +257,24 @@ def dense_dftd3(positions, numbers, cell, cutoff, rcov, r4r2, c6ab,
     """
     _check_dense_knobs(engine, block, interpret)
     dtype, device = positions.dtype, positions.device
-    cell = torch.as_tensor(cell, dtype=dtype, device=device).reshape(3, 3)
-    images = _resolve_images(images, cell, cutoff)
-    if combos is None:
-        combos = _image_combos(images, _np(cell) if images else None,
-                               float(cutoff))
-    else:
-        combos = _check_combos(combos)
-    numbers = torch.as_tensor(_np(numbers)).to(device=device,
-                                               dtype=INDEX_DTYPE)
+    with span("d3.inputs"):
+        cell = upload(cell, device, dtype, "d3_cells").reshape(3, 3)
+        images = _resolve_images(images, cell, cutoff)
+        if combos is None:
+            combos = _image_combos(
+                images, _np(cell, "d3_combos") if images else None,
+                float(cutoff))
+        else:
+            combos = _check_combos(combos)
+        numbers = upload(_np(numbers), device, INDEX_DTYPE, "d3_numbers")
+        tables = _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device)
     e, f, cn = _dense_impl(
-        positions[None], numbers[None], cell[None], cutoff,
-        _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device),
+        positions[None], numbers[None], cell[None], cutoff, tables,
         _params(cutoff, a1, a2, s6, s8, k1, k3), combos)
     return e[0], f[0], cn[0]
 
 
+@spanned("d3")
 def batch_dense_dftd3(positions, numbers, cells, cutoff, rcov, r4r2, c6ab,
                       cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0, k3=-4.0,
                       system_chunk: int | None = None,
@@ -287,14 +298,15 @@ def batch_dense_dftd3(positions, numbers, cells, cutoff, rcov, r4r2, c6ab,
     chunk = b if system_chunk is None else int(system_chunk)
     if chunk < 1 or b % chunk:
         raise ValueError(f"B={b} must divide by system_chunk={system_chunk}")
-    cells = torch.as_tensor(cells, dtype=dtype, device=device)
-    if cells.dim() == 2:
-        cells = cells.expand(b, 3, 3)
-    cells = cells.contiguous()
-    images, combos = _batch_combos(_np(cells), cutoff, images)
-    numbers = torch.as_tensor(_np(numbers)).to(device=device,
-                                               dtype=INDEX_DTYPE)
-    tables = _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device)
+    with span("d3.inputs"):
+        cells = upload(cells, device, dtype, "d3_cells")
+        if cells.dim() == 2:
+            cells = cells.expand(b, 3, 3)
+        cells = cells.contiguous()
+        images, combos = _batch_combos(_np(cells, "d3_combos"), cutoff,
+                                       images)
+        numbers = upload(_np(numbers), device, INDEX_DTYPE, "d3_numbers")
+        tables = _tables(rcov, r4r2, c6ab, cn_ref_elem, dtype, device)
     params = _params(cutoff, a1, a2, s6, s8, k1, k3)
     outs = [_dense_impl(positions[c:c + chunk], numbers[c:c + chunk],
                         cells[c:c + chunk], cutoff, tables, params, combos)
@@ -320,6 +332,7 @@ def batch_route(cells, pbc, cutoff, n_atoms: int) -> str:
     return "grid"
 
 
+@spanned("d3")
 def batch_dftd3(positions, numbers, cells, pbc, cutoff, rcov, r4r2, c6ab,
                 cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0, k3=-4.0,
                 engine: str = "auto", **kwargs):
@@ -333,9 +346,11 @@ def batch_dftd3(positions, numbers, cells, pbc, cutoff, rcov, r4r2, c6ab,
     (where the JAX package routes a grid-infeasible mixed-PBC batch to an
     engine that then refuses it).
     """
-    pbc_np = np.asarray(_np(pbc), dtype=bool).reshape(-1)[:3]
-    if engine == "auto":
-        engine = batch_route(cells, pbc_np, cutoff, int(positions.shape[1]))
+    with span("d3.route"):
+        pbc_np = np.asarray(_np(pbc), dtype=bool).reshape(-1)[:3]
+        if engine == "auto":
+            engine = batch_route(cells, pbc_np, cutoff,
+                                 int(positions.shape[1]))
     if engine == "dense":
         if not pbc_np.all():
             raise ValueError(

@@ -64,6 +64,7 @@ from nvalchemiops_torch.stencil import (
     extend_stencil, scatter_to_stencil, stencil_cn_chain_forces,
     stencil_coordination_numbers,
 )
+from nvalchemiops_torch.trace import host_read, span, spanned, upload
 from nvalchemiops_torch.types import INDEX_DTYPE
 
 __all__ = ["compact_d3_elements", "element_cn_ref", "element_c6_mask",
@@ -72,9 +73,12 @@ __all__ = ["compact_d3_elements", "element_cn_ref", "element_c6_mask",
 _SQRT3 = 1.7320508075688772
 
 
-def _np(a):
+def _np(a, site: str = "d3_to_numpy"):
+    """``a`` as a numpy array (a device tensor read back: a host read at
+    ``site``)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        with host_read(site, a.device):
+            return a.detach().cpu().numpy()
     return np.asarray(a)
 
 
@@ -372,24 +376,29 @@ def _grid_d3_impl(grid: AtomGrid, z_plane, z_ext, rcov_plane, rcov_ext,
     """
     px_d = _parked_px(grid, z_ext)
     if cn_plane is None:
-        cn_plane = _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params,
-                                engine, block_g)
-    lf, e_pl, edc_pl, w_plane = _d3_plane_features(
-        z_plane, cn_plane, cna_elem, mask_elem, c6p_elem, params.k3)
-    if feature_dtype is not None:
-        lf, e_pl, edc_pl = (a.to(feature_dtype).to(a.dtype)
-                            for a in (lf, e_pl, edc_pl))
-    si_plane = torch.sqrt(r4r2_plane * _SQRT3)
-    si_ext = torch.sqrt(r4r2_ext * _SQRT3)
+        with span("d3.cn"):
+            cn_plane = _d3_pass1_cn(grid, px_d, rcov_plane, rcov_ext, params,
+                                    engine, block_g)
+    with span("d3.features"):
+        lf, e_pl, edc_pl, w_plane = _d3_plane_features(
+            z_plane, cn_plane, cna_elem, mask_elem, c6p_elem, params.k3)
+        if feature_dtype is not None:
+            lf, e_pl, edc_pl = (a.to(feature_dtype).to(a.dtype)
+                                for a in (lf, e_pl, edc_pl))
+        si_plane = torch.sqrt(r4r2_plane * _SQRT3)
+        si_ext = torch.sqrt(r4r2_ext * _SQRT3)
     raw_j = [] if compute_virial else None
-    e_pl, fx, fy, fz, decn, *coul = _d3_pass2_direct(
-        grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl, edc_pl, lf,
-        params, q=q, engine=engine, block_g=block_g, raw_j=raw_j)
+    with span("d3.direct"):
+        e_pl, fx, fy, fz, decn, *coul = _d3_pass2_direct(
+            grid, px_d, z_ext, si_plane, si_ext, w_plane, e_pl, edc_pl, lf,
+            params, q=q, engine=engine, block_g=block_g, raw_j=raw_j)
     if skip_chain:
         return (e_pl, fx, fy, fz, cn_plane, decn, *coul)
-    fx3, fy3, fz3 = _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext, decn,
-                                    params, engine, block_g, raw_j=raw_j)
-    out = (e_pl, fx + fx3, fy + fy3, fz + fz3, cn_plane, *coul)
+    with span("d3.chain"):
+        fx3, fy3, fz3 = _d3_pass3_chain(grid, px_d, rcov_plane, rcov_ext,
+                                        decn, params, engine, block_g,
+                                        raw_j=raw_j)
+        out = (e_pl, fx + fx3, fy + fy3, fz + fz3, cn_plane, *coul)
     if compute_virial:
         out += (_window_virial(grid, out[1:4], raw_j[0] + raw_j[1], cell),)
     return out
@@ -443,6 +452,7 @@ def _snap_block_g(block_g, cx):
                key=lambda g: abs(g - block_g))
 
 
+@spanned("d3.inputs")
 def _d3_inputs(grid, numbers, rcov, r4r2, c6ab, cn_ref_elem, extra=()):
     """Tables on the grid's device and dtype, and the per-slot planes:
     ``(numbers, tables, planes)`` with ``planes = (z_plane, z_ext,
@@ -452,10 +462,9 @@ def _d3_inputs(grid, numbers, rcov, r4r2, c6ab, cn_ref_elem, extra=()):
     device = grid.ext_px.device
 
     def table(a):
-        return torch.as_tensor(_np(a)).to(device=device, dtype=dtype)
+        return upload(_np(a), device, dtype, "d3_tables")
 
-    numbers = torch.as_tensor(_np(numbers)).to(device=device,
-                                               dtype=INDEX_DTYPE)
+    numbers = upload(_np(numbers), device, INDEX_DTYPE, "d3_numbers")
     rcov_t, r4r2_t, c6_t, cna_t = (table(a) for a in
                                    (rcov, r4r2, c6ab, cn_ref_elem))
     mask_t = table(element_c6_mask(c6ab))
@@ -474,6 +483,7 @@ def _d3_inputs(grid, numbers, rcov, r4r2, c6ab, cn_ref_elem, extra=()):
     return numbers, rcov_t, planes, more
 
 
+@spanned("d3")
 def grid_dftd3(
     grid: AtomGrid,
     numbers,
@@ -586,12 +596,15 @@ def grid_dftd3(
         grid, *planes, params, engine, block_g=block_g,
         feature_dtype=feature_dtype if engine == "window" else None,
         compute_virial=compute_virial, cell=cell)
-    energy = e_pl.sum()
-    f1, f2, f3, coord_num = gather_rows_from_grid(
-        grid, (fx_pl, fy_pl, fz_pl, cn_pl))
-    return (energy, torch.stack([f1, f2, f3], dim=-1), coord_num, *virial)
+    with span("d3.gather"):
+        energy = e_pl.sum()
+        f1, f2, f3, coord_num = gather_rows_from_grid(
+            grid, (fx_pl, fy_pl, fz_pl, cn_pl))
+        forces = torch.stack([f1, f2, f3], dim=-1)
+    return (energy, forces, coord_num, *virial)
 
 
+@spanned("d3")
 def grid_dftd3_coulomb(
     grid: AtomGrid,
     numbers,
@@ -651,6 +664,7 @@ def grid_dftd3_coulomb(
     return energy, forces, coord_num, e_c, f_c
 
 
+@spanned("d3")
 def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
                      r4r2, c6ab, cn_ref_elem, a1, a2, s8, s6=1.0, k1=16.0,
                      k3=-4.0, target_occupancy: float = 0.66,
@@ -691,7 +705,8 @@ def batch_grid_dftd3(positions, numbers, cells, pbc, cutoff: float, rcov,
     engine = "window" if engine in (None, "xla") else engine
     e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_impl(g, *planes, params,
                                                      engine)
-    f1, f2, f3, coord_num = gather_rows_from_grid(
-        g, (fx_pl, fy_pl, fz_pl, cn_pl))
-    return (e_pl.sum(dim=(1, 2, 3, 4)), torch.stack([f1, f2, f3], dim=-1),
-            coord_num)
+    with span("d3.gather"):
+        f1, f2, f3, coord_num = gather_rows_from_grid(
+            g, (fx_pl, fy_pl, fz_pl, cn_pl))
+        return (e_pl.sum(dim=(1, 2, 3, 4)),
+                torch.stack([f1, f2, f3], dim=-1), coord_num)

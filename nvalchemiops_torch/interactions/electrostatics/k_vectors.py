@@ -22,6 +22,7 @@ import torch
 from nvalchemiops_torch.neighborlist.neighbor_utils import (
     default_device, host_array,
 )
+from nvalchemiops_torch.trace import host_read
 
 TWOPI = 2.0 * math.pi
 
@@ -91,7 +92,9 @@ def generate_k_vectors_pme(cell, mesh_dimensions, reciprocal_cell=None):
     dtype, device = cell.dtype, cell.device
     nx, ny, nz = (int(d) for d in mesh_dimensions)
     if reciprocal_cell is None:
-        reciprocal_cell = TWOPI * torch.linalg.inv(cell.transpose(-1, -2))
+        with host_read("pme_kvec_inv", device):
+            reciprocal_cell = TWOPI * torch.linalg.inv(
+                cell.transpose(-1, -2))
     else:
         reciprocal_cell = torch.as_tensor(
             reciprocal_cell, dtype=dtype, device=device).reshape(lead + (3, 3))

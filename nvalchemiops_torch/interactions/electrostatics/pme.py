@@ -65,6 +65,7 @@ from nvalchemiops_torch.mathops.matmul_dft import matmul_rfft_convolve
 from nvalchemiops_torch.spline import (
     _stencil, spline_gather, spline_gather_gradient, spline_spread,
 )
+from nvalchemiops_torch.trace import host_read, span, spanned, upload
 
 __all__ = ["pme_green_structure_factor", "pme_reciprocal_space",
            "particle_mesh_ewald", "grid_particle_mesh_ewald",
@@ -171,17 +172,20 @@ def _windowed_pme(tiles, charges, cell, alpha, spline_order: int,
                   compute_forces: bool, compute_charge_gradients: bool,
                   k_squared=None, fft_mode: str = "xla"):
     """One system through the tile-windowed pipeline on built tiles."""
-    mesh = sw.windowed_spread(tiles, charges)
-    potential = _potential(mesh, cell, alpha, tiles.mesh_dims, spline_order,
-                           k_squared, fft_mode)
-    grad_frac = None
-    if compute_forces:
-        raw, grad_frac = sw.windowed_gather(tiles, potential,
-                                            with_gradient=True)
-    else:
-        raw = sw.windowed_gather(tiles, potential)
-    return _finish(charges, raw, grad_frac, tiles.inv, alpha, cell,
-                   compute_forces, compute_charge_gradients)
+    with span("pme.spread"):
+        mesh = sw.windowed_spread(tiles, charges)
+    with span("pme.fft"):
+        potential = _potential(mesh, cell, alpha, tiles.mesh_dims,
+                               spline_order, k_squared, fft_mode)
+    with span("pme.gather"):
+        grad_frac = None
+        if compute_forces:
+            raw, grad_frac = sw.windowed_gather(tiles, potential,
+                                                with_gradient=True)
+        else:
+            raw = sw.windowed_gather(tiles, potential)
+        return _finish(charges, raw, grad_frac, tiles.inv, alpha, cell,
+                       compute_forces, compute_charge_gradients)
 
 
 def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
@@ -194,7 +198,8 @@ def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
     tiles = sw.build_mesh_tiles(positions, cell, mesh_dimensions,
                                 spline_order, cap, tile=tile,
                                 need_grad=compute_forces)
-    counts_max = int(tiles.counts_max)
+    with host_read("pme_tile_cap", positions.device):
+        counts_max = int(tiles.counts_max)
     if counts_max > cap:
         raise ValueError(f"PME mesh tile overflow: {counts_max} atoms in one "
                          f"tile, capacity {cap}; pass a larger tile_capacity")
@@ -327,6 +332,7 @@ def _batch_idx_pme(positions, charges, cell_b, alpha_b, mesh_dimensions,
     return energies, forces, charge_grads
 
 
+@spanned("pme")
 def pme_reciprocal_space(
     positions,
     charges,
@@ -367,10 +373,10 @@ def pme_reciprocal_space(
     """
     _check_pme_knobs(fft_mode, spread_engine, gather_engine)
     dtype, device = positions.dtype, positions.device
-    cell_b = torch.as_tensor(cell, dtype=dtype, device=device).reshape(
-        -1, 3, 3)
-    alpha_b = torch.broadcast_to(torch.as_tensor(
-        alpha, dtype=dtype, device=device).reshape(-1), (cell_b.shape[0],))
+    cell_b = upload(cell, device, dtype, "pme_cell").reshape(-1, 3, 3)
+    alpha_b = torch.broadcast_to(upload(alpha, device, dtype,
+                                        "pme_alpha").reshape(-1),
+                                 (cell_b.shape[0],))
     mesh_dimensions = _mesh_dims(cell_b, alpha_b, mesh_dimensions,
                                  mesh_spacing, accuracy)
     if batch_idx is not None:
@@ -387,10 +393,13 @@ def pme_reciprocal_space(
     k_squared = k_squared.reshape(tuple(k_squared.shape[-3:]))
     if sw.windowed_applicable(mesh_dimensions, spline_order):
         cap = tile_capacity or sw.mesh_tile_capacity(n, mesh_dimensions)
-        tiles = sw.build_mesh_tiles(positions, cell, mesh_dimensions,
-                                    spline_order, cap,
-                                    need_grad=compute_forces)
-        if int(tiles.counts_max) <= cap:
+        with span("pme.tiles"):
+            tiles = sw.build_mesh_tiles(positions, cell, mesh_dimensions,
+                                        spline_order, cap,
+                                        need_grad=compute_forces)
+            with host_read("pme_tile_cap", device):
+                fits = int(tiles.counts_max) <= cap
+        if fits:
             return returns(*_windowed_pme(
                 tiles, charges, cell, alpha, spline_order, compute_forces,
                 compute_charge_gradients, k_squared, fft_mode))

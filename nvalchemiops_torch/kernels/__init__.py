@@ -7,40 +7,24 @@ tensor (on the CPU, or of another dtype on the card), on the tensor's
 device (``build.launches_kernel``); it never falls back from one to the
 other.  ``launch_counts`` counts kernel launches per wrapper and body
 (a batched grid's launch under the same key), so a run can show that the
-main path went through the kernels.
+main path went through the kernels.  It is the port's one counter dict,
+``trace.counts``: the launch keys (``trace.LAUNCH_KEYS``) have no dot, and
+the other counters of ``trace.py`` are ``<family>.<name>`` keys beside
+them; :func:`launches` holds the launch counts alone.
 """
 
-launch_counts = {
-    "window_sweep_cn": 0,
-    "window_sweep_d3_direct": 0,
-    "window_sweep_chain": 0,
-    "window_sweep_coulomb": 0,
-    "window_sweep_d3_direct_coulomb": 0,
-    "windowed_spread": 0,
-    "windowed_gather_grad": 0,
-    "dense_pairs_cn": 0,
-    "dense_pairs_direct": 0,
-    "dense_pairs_chain": 0,
-    "separable_spread": 0,
-    "separable_gather": 0,
-    "row_sweep_cn": 0,
-    "row_sweep_d3_direct": 0,
-    "row_sweep_chain": 0,
-    "chunk_sweep_cn": 0,
-    "chunk_sweep_d3_direct": 0,
-    "chunk_sweep_d3_direct_coulomb": 0,
-    "chunk_sweep_chain": 0,
-    "chunk_sweep_coulomb": 0,
-    "stencil_sweep_cn": 0,
-    "stencil_sweep_chain": 0,
-    "stencil_sweep_coulomb": 0,
-}
+from nvalchemiops_torch.trace import LAUNCH_KEYS, counts as launch_counts
 
 
 def reset_launch_counts() -> None:
-    """Set every launch count to zero."""
+    """Set every count of ``launch_counts`` to zero."""
     for k in launch_counts:
         launch_counts[k] = 0
 
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+def launches() -> dict:
+    """The launch counts alone (no ``<family>.<name>`` counter): a copy."""
+    return {k: launch_counts[k] for k in LAUNCH_KEYS}
+
+
+__all__ = ["LAUNCH_KEYS", "launch_counts", "launches", "reset_launch_counts"]

@@ -42,9 +42,10 @@ from nvalchemiops_torch.kernels.build import (
     load_library, on_device,
 )
 from nvalchemiops_torch.kernels.window_sweep import (
-    BODY_FNS, QUEUE, SMEM_BYTES, SweepParams, halfspace_zy, per_system,
-    stage_slices, wide_batched,
+    BODY_FNS, QUEUE, SMEM_BYTES, SweepParams, chunk_slot_pairs,
+    halfspace_zy, per_system, stage_slices, wide_batched,
 )
+from nvalchemiops_torch.trace import count
 
 __all__ = ["BODIES", "chunk_slices", "chunk_sweep", "chunk_sweep_plain",
            "super_chunk_cells"]
@@ -151,6 +152,8 @@ def chunk_sweep(body: str, radius, own, cand, params: SweepParams, g_cells,
             p.k1, p.k3, p.alpha, p.ccutoff * p.ccutoff, current_stream(own_b))
     check_launch(f"chunk_sweep[{body}]", err)
     launch_counts[f"chunk_sweep_{body}"] += 1
+    count(f"slot_pairs.chunk_sweep_{body}",
+          chunk_slot_pairs(radius, cap, n_sys * cz * cy * cx))
     return (own_out[0], j_out[0]) if single else (own_out, j_out)
 
 

@@ -47,9 +47,10 @@ from nvalchemiops_torch.kernels.build import (
     load_library, on_device,
 )
 from nvalchemiops_torch.kernels.window_sweep import (
-    BODY_FNS, QUEUE, SMEM_BYTES, SweepParams, cell_windows_plain, per_system,
-    stage_slices, wide_batched,
+    BODY_FNS, QUEUE, SMEM_BYTES, SweepParams, cell_windows_plain,
+    chunk_slot_pairs, per_system, stage_slices, wide_batched,
 )
+from nvalchemiops_torch.trace import count
 
 __all__ = ["BODIES", "row_group_cells", "row_slices", "row_smem_bytes",
            "row_sweep", "row_sweep_plain", "skips_parked"]
@@ -160,6 +161,8 @@ def row_sweep(body: str, radius, own, cand, params: SweepParams, lf=None,
             p.k1, p.k3, parked, current_stream(own_b))
     check_launch(f"row_sweep[{body}]", err)
     launch_counts[f"row_sweep_{body}"] += 1
+    count(f"slot_pairs.row_sweep_{body}",
+          chunk_slot_pairs(radius, cap, n_sys * cz * cy * cx))
     return (own_out[0], j_out[0]) if single else (own_out, j_out)
 
 

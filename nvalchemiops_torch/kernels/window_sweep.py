@@ -47,6 +47,7 @@ validity flags.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -57,10 +58,11 @@ from nvalchemiops_torch.kernels.build import (
     load_library, on_device,
 )
 from nvalchemiops_torch.mathops.math import erfc_approx
+from nvalchemiops_torch.trace import count
 
 __all__ = ["SweepParams", "BODIES", "window_sweep", "window_sweep_plain",
            "window_plan", "body_outputs", "BODY_FNS",
-           "halfspace_zy"]
+           "halfspace_zy", "slot_pairs", "chunk_slot_pairs"]
 
 #: body name -> (C body id, n_own, n_out, n_j); the D3 bodies have 6 (7 with
 #: the charge) + 2*mesh candidate features, the others as many as own
@@ -234,6 +236,27 @@ def window_lengths(radius, cap: int) -> list[int]:
     return [(rx + 1) * cap] + [(2 * rx + 1) * cap] * (ry + rz * (2 * ry + 1))
 
 
+def slot_pairs(radius, cap: int, cells: int) -> int:
+    """Slot pairs one launch of kernel 1 tests for distance over ``cells``
+    own cells (systems x cz x cy x cx): each own slot against every slot of
+    its cell's candidate windows (:func:`window_lengths`), occupied or
+    not."""
+    return cells * cap * sum(window_lengths(radius, cap))
+
+
+def chunk_slot_pairs(radius, cap: int, cells: int) -> int:
+    """Slot pairs one launch of kernel 7 or 8 tests for distance over
+    ``cells`` own cells: each own slot against the 2 rx + 1 x-cells around
+    its cell in every half-space row, and in the home row the slots after
+    its own up to rx cells to its right (csrc/pair_bodies.cuh:
+    ``sweep_chunk``); own slots that kernel 7 skips as parked are not
+    subtracted."""
+    rz, ry, rx = radius
+    half = (ry + rz * (2 * ry + 1)) * (2 * rx + 1) * cap * cap
+    home = (rx + 1) * cap * cap - cap * (cap + 1) // 2
+    return cells * (home + half)
+
+
 def window_plan(body: str, radius, cap: int, n_cand: int,
                 params: SweepParams, blocks: int = 0,
                 n_sm: int = 0) -> tuple[int, int]:
@@ -283,6 +306,9 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None,
         return window_sweep_plain(body, radius, own, cand, params, lf)
     out = _launch(body, radius, own_b, cand_b, params, lf_b, plan)
     launch_counts[f"window_sweep_{body}"] += 1
+    count(f"slot_pairs.window_sweep_{body}",
+          slot_pairs(radius, own_b.shape[-1],
+                     own_b.shape[0] * math.prod(own_b.shape[2:5])))
     return (out[0][0], out[1][0]) if single else out
 
 

@@ -34,6 +34,7 @@ from nvalchemiops_torch.kernels.windowed_gather import (
 )
 from nvalchemiops_torch.mathops.math import apply_mat3
 from nvalchemiops_torch.spline import _local_weights
+from nvalchemiops_torch.trace import host_read, upload
 from nvalchemiops_torch.types import INDEX_DTYPE
 
 __all__ = [
@@ -71,8 +72,8 @@ def mesh_tile_capacity(num_atoms: int, mesh_dims, tile: int = 8) -> int:
 
 def _mesh_coords(positions, inv, mesh_dims):
     """Wrapped mesh coordinates ``mc [N, 3]`` in ``[0, dims)``."""
-    dims_f = torch.tensor([int(d) for d in mesh_dims], dtype=positions.dtype,
-                          device=positions.device)
+    dims_f = upload([int(d) for d in mesh_dims], positions.device,
+                    positions.dtype, "pme_mesh_dims")
     mc = apply_mat3(positions, inv) * dims_f
     mc = mc - torch.floor(mc / dims_f) * dims_f     # wrap into [0, dims)
     mc = torch.where(mc >= dims_f, torch.zeros_like(mc), mc)  # rounding seam
@@ -196,7 +197,8 @@ def _slot_maps(lin, ntiles: int, cap: int):
     flat_slot[order] = torch.where(rank_sorted >= cap,
                                    torch.full_like(rank_sorted, ntiles * cap),
                                    sorted_lin * cap + rank_sorted)
-    counts = torch.bincount(lin.long(), minlength=ntiles)
+    with host_read("pme_tiles_bincount", device, 2):
+        counts = torch.bincount(lin.long(), minlength=ntiles)
     starts = torch.cumsum(counts, 0) - counts
     src = starts[:, None] + torch.arange(cap, device=device)[None, :]
     src = torch.where(src < (starts + counts)[:, None], src, n)
@@ -210,8 +212,10 @@ def _inverse(tiles: MeshTiles, positions, cell):
     """The cached inverse cell, or the inverse of ``cell``."""
     if cell is None:
         return tiles.inv
-    return torch.linalg.inv(torch.as_tensor(
-        cell, dtype=positions.dtype, device=positions.device).reshape(3, 3))
+    with host_read("pme_tiles_inv", positions.device):
+        return torch.linalg.inv(upload(
+            cell, positions.device, positions.dtype,
+            "pme_tiles_cell").reshape(3, 3))
 
 
 def _slot_rows(rows, aid, ntiles: int, cap: int):
@@ -228,8 +232,9 @@ def build_mesh_tiles(positions, cell, mesh_dims, order: int, cap: int,
     the caller's overflow check."""
     dtype = positions.dtype
     nx, ny, nz = (int(d) for d in mesh_dims)
-    inv = torch.linalg.inv(torch.as_tensor(
-        cell, dtype=dtype, device=positions.device).reshape(3, 3))
+    with host_read("pme_tiles_inv", positions.device):
+        inv = torch.linalg.inv(upload(cell, positions.device, dtype,
+                                      "pme_tiles_cell").reshape(3, 3))
     rows, lin = _stencil_rows(positions, inv, (nx, ny, nz), order, tile,
                               need_grad)
     ntiles = (nx // tile) * (ny // tile) * (nz // tile)
@@ -350,7 +355,8 @@ def _extract_windows(mesh, tile: int):
     def win_idx(nt, n):
         idx = (np.arange(nt)[:, None] * tile - _HALO_LEFT
                + np.arange(w_win)[None, :]) % n
-        return torch.as_tensor(idx.reshape(-1), device=mesh.device)
+        return upload(idx.reshape(-1), mesh.device, None,
+                      "pme_window_index")
 
     a = torch.index_select(mesh, 0, win_idx(ntx, nx))    # [(tx,wx), ny, nz]
     a = a.reshape(ntx, w_win, ny, nz)

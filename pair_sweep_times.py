@@ -160,10 +160,9 @@ def main_path_walls(dev, reps, tree):
     import statistics
     import time
 
-    from nvalchemiops_torch import composite, grid
+    from nvalchemiops_torch import composite, grid, kernels
     from nvalchemiops_torch.interactions.dispersion import grid_d3
     from nvalchemiops_torch.interactions.electrostatics import pme
-    from nvalchemiops_torch.kernels import launch_counts
     from nvalchemiops_torch.spline_windowed import observed_tile_capacity
 
     (pos_np, cell_np, numbers, charges, rcov, r4r2, cna,
@@ -197,10 +196,10 @@ def main_path_walls(dev, reps, tree):
             compute_forces=True, tile_capacity=tile_cap),
     }
     for name, fn in calls.items():
-        before = sum(launch_counts.values())
+        before = sum(kernels.launches().values())
         fn()
         torch.cuda.synchronize()
-        launches = sum(launch_counts.values()) - before
+        launches = sum(kernels.launches().values()) - before
         walls = []
         for _ in range(reps):
             torch.cuda.synchronize()

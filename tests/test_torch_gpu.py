@@ -1551,15 +1551,15 @@ def test_xla_routes_on_card_match_cpu(cuda, name):
     it meets the f32 bar against the f64 call on CPU tensors.  The grid's
     neighbour counts (a plain sweep, no kernel) run in f64 and match
     exactly."""
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
 
     ref = _xla_calls(_xla_case("cpu", torch.float64))[name]()
     dtype = torch.float64 if name == "neighbor count" else torch.float32
     calls = _xla_calls(_xla_case(cuda, dtype))
     reset_launch_counts()
     out = calls[name]()
-    launched = {k for k, v in launch_counts.items() if v}
-    assert launched == set(XLA_ROUTES[name]), launch_counts
+    launched = {k for k, v in launches().items() if v}
+    assert launched == set(XLA_ROUTES[name]), launches()
     if name == "neighbor count":
         assert torch.equal(out.cpu(), ref)
     else:
@@ -1732,7 +1732,7 @@ def test_batched_kernels_match_plain_and_the_loop(cuda, engine):
     planes; the outputs agree with the per-system loop."""
     from nvalchemiops_torch.interactions.dispersion import grid_d3
     from nvalchemiops_torch.kernels import chunk_sweep as cs
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
     from nvalchemiops_torch.kernels import row_sweep as rs
     from nvalchemiops_torch.kernels import window_sweep as ws
 
@@ -1747,7 +1747,7 @@ def test_batched_kernels_match_plain_and_the_loop(cuda, engine):
     seen = _record([(grid_d3, name)], lambda: calls.append(
         grid_d3.batch_grid_dftd3(*args, engine=engine)))
     torch.cuda.synchronize()
-    counts = {k: v for k, v in launch_counts.items() if v}
+    counts = {k: v for k, v in launches().items() if v}
     assert counts == {f"{name}_{b}": 1 for b in ("cn", "d3_direct",
                                                   "chain")}, counts
     got = calls[0]
@@ -1939,17 +1939,17 @@ def test_f64_routes_on_card_match_cpu(cuda, entry):
     """f64 inputs on the card take the plain versions there: no kernel
     launches, and the outputs match the same call on CPU tensors within
     1e-10 of scale; f32 inputs of the same call launch kernels."""
-    from nvalchemiops_torch.kernels import launch_counts, reset_launch_counts
+    from nvalchemiops_torch.kernels import launches, reset_launch_counts
 
     ref = _route_calls("cpu")[entry]()
     reset_launch_counts()
     got = _route_calls(cuda)[entry]()
     torch.cuda.synchronize()
-    assert not any(launch_counts.values()), launch_counts
+    assert not any(launches().values()), launches()
     _close_cpu(tuple(got), tuple(ref), rtol=1e-10)
     reset_launch_counts()
     _route_calls(cuda, torch.float32)[entry]()
-    assert any(launch_counts.values()), entry
+    assert any(launches().values()), entry
 
 
 def test_kernel_runs_on_a_second_card():
@@ -1971,3 +1971,121 @@ def test_kernel_runs_on_a_second_card():
     assert launch_counts["row_sweep_d3_direct"] == 1
     assert all(a[1].device == dev for a, _ in seen.values())
     _replay(seen)
+
+
+def _entry_sequences(device):
+    """One call of each traced path, at a small size, as callers make it:
+    ``(name, fn, uploads, upload_bytes)`` with the uploads each path makes
+    and their bytes on the card, counted here from the host arrays it is
+    given.  The MD force step (``build_atom_grid``, ``grid_dftd3``,
+    ``grid_coulomb_energy_forces``, ``pme_reciprocal_space`` with forces;
+    1,024 atoms, positions, cell and charges on the card, element numbers,
+    tables and pbc on the host), and ``batch_dftd3`` on a batch routed to
+    the dense engine and on one forced to the batched grid (positions on
+    the card, the rest on the host)."""
+    from nvalchemiops_torch import composite, grid
+    from nvalchemiops_torch import spline_windowed as sw
+    from nvalchemiops_torch.interactions.dispersion import dense_d3, grid_d3
+    from nvalchemiops_torch.interactions.electrostatics import pme
+
+    f32 = torch.float32
+    pos_np, cell_np, numbers, charges, rcov, r4r2, cna, c6 = (
+        composite.build_system(8))
+    numbers, rcov, r4r2, c6, cna = grid_d3.compact_d3_elements(
+        numbers, rcov, r4r2, c6, cna)
+    pos = torch.as_tensor(pos_np, dtype=f32, device=device)
+    cell = torch.as_tensor(cell_np, dtype=f32, device=device)
+    q = torch.as_tensor(charges, dtype=f32, device=device)
+    pbc = np.array([True] * 3)
+    mesh = composite.MESH
+    dims, radius, cap, origin = grid.choose_grid_geometry(
+        pos, cell, pbc, composite.CUTOFF)
+    tile_cap = sw.observed_tile_capacity(pos, cell, mesh)
+
+    def tables(z1, m):
+        # rcov, r4r2, c6, cn_ref and the C6 mask, as float32 on the card
+        return 4 * (2 * z1 + z1 * z1 * m * m + 2 * z1 * m)
+
+    def md_step():
+        g = grid.build_atom_grid(pos, cell, pbc, dims, radius, cap,
+                                 origin=origin)
+        grid_d3.grid_dftd3(g, numbers, rcov, r4r2, c6, cna,
+                           composite.CUTOFF, composite.D3_A1,
+                           composite.D3_A2, composite.D3_S8)
+        grid.grid_coulomb_energy_forces(g, q, composite.CUTOFF,
+                                        composite.ALPHA)
+        pme.pme_reciprocal_space(pos, q, cell, composite.ALPHA,
+                                 mesh_dimensions=mesh, compute_forces=True,
+                                 tile_capacity=tile_cap)
+
+    w_win = 8 + sw._HALO_LEFT + sw._HALO_RIGHT
+    z1, m = cna.shape
+    md_bytes = (3 + 12 + (0 if origin is None else 12)    # pbc, dims, origin
+                + 4 * numbers.size + tables(z1, m)        # D3
+                + 4 + 12                                  # PME alpha, dims
+                + sum(8 * (d // 8) * w_win for d in mesh))  # window indices
+    md_uploads = 2 + (origin is not None) + 6 + 2 + 3
+
+    rng = np.random.default_rng(41)
+    brcov, br4r2, bc6, bcna = _d3_tables(rng)
+    bz1, bm = bcna.shape
+    d3_args = (brcov, br4r2, bc6, bcna, 0.42, 4.1, 1.7)
+
+    def batch(b, n, box, cutoff, engine):
+        bpos = torch.as_tensor(rng.uniform(0.0, box, (b, n, 3)), dtype=f32,
+                               device=device)
+        bnum = rng.integers(1, bz1, (b, n)).astype(np.int32)
+
+        def call():
+            dense_d3.batch_dftd3(bpos, bnum, np.eye(3) * box, pbc, cutoff,
+                                 *d3_args, engine=engine)
+        return call, bnum.nbytes
+
+    dense, dense_num = batch(4, 100, 15.0, 5.0, "auto")
+    gridb, grid_num = batch(2, 500, 18.0, 6.0, "grid")
+    return [
+        ("md step", md_step, md_uploads, md_bytes),
+        # cells, numbers, tables
+        ("batch dense", dense, 1 + 1 + 5, 36 + dense_num + tables(bz1, bm)),
+        # grid cells, pbc, dims; numbers, tables
+        ("batch grid", gridb, 3 + 1 + 5,
+         36 + 3 + 12 + grid_num + tables(bz1, bm)),
+    ]
+
+
+def test_host_reads_count_every_synchronisation(cuda):
+    """Each traced path's host reads (``host_reads.*``) number exactly the
+    synchronising operations that ``torch.cuda.set_sync_debug_mode``
+    reports in one call, its uploads and their bytes are those of the host
+    arrays it is given, and every counter beside the launch counts belongs
+    to one of the counter families."""
+    import warnings
+
+    from nvalchemiops_torch import trace
+
+    def family(before, name):
+        return sum(v - before.get(k, 0) for k, v in trace.counts.items()
+                   if k.startswith(name + "."))
+
+    for name, fn, uploads, nbytes in _entry_sequences(cuda):
+        fn()                      # kernels built and loaded, memory cached
+        torch.cuda.synchronize()
+        before = dict(trace.counts)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        assert syncs > 0, name
+        assert family(before, "host_reads") == syncs, (name, syncs, {
+            k: v - before.get(k, 0) for k, v in trace.counts.items()
+            if k.startswith("host_reads.")})
+        assert family(before, "uploads") == uploads, name
+        assert family(before, "upload_bytes") == nbytes, name
+    assert all(k in trace.LAUNCH_KEYS or k.split(".")[0] in trace.FAMILIES
+               for k in trace.counts), sorted(trace.counts)
