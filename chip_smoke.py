@@ -3573,14 +3573,19 @@ def own_split_probe(calls, label):
     grid axis): the time of each, and the split's output against the
     whole cell's."""
     from nvalchemiops_torch.kernels import window_sweep as ws
+    from nvalchemiops_torch.kernels.build import on_device
 
     for key, (args, kwargs) in sorted(calls.items()):
         body, radius, own, cand, params = args[:5]
         cap = own.shape[-1]
-        slots, _ = ws.window_plan(body, radius, cap, cand.shape[-5], params)
+        n_sm = torch.cuda.get_device_properties(
+            own.device).multi_processor_count
+        with on_device(own):
+            sm = ws.residency(ws.body_id(body, params), own.device.index)
+        slots, _ = ws.window_plan(body, radius, cap, cand.shape[-5], params,
+                                  0, n_sm, sm)
         default = ws.window_plan(body, radius, cap, cand.shape[-5], params,
-                                 1, torch.cuda.get_device_properties(
-                                     own.device).multi_processor_count)
+                                 1, n_sm, sm)
         split = (slots, -(-cap // OWN_SPLIT))
         whole = ws.window_sweep(*args, plan=(slots, cap), **kwargs)
         parts = ws.window_sweep(*args, plan=split, **kwargs)

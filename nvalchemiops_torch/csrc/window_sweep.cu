@@ -53,13 +53,24 @@
 // the on-card tolerance against the plain version.  What bounds it now
 // (PERF.md): the bodies run on full warps and are no longer most of
 // the time; the per-cell work around them (staging, the distance tests,
-// each own slot's drain and reduction) is.
+// each own slot's drain and reduction) is, and the distance tests wait on
+// latency: a warp step is three shared loads, a few FMAs, a ballot and a
+// queue push, one after another.  So the warps an SM holds set the rate.
+// Registers allow 6 blocks of 256 threads an SM (40 a thread), 4 of the D3
+// bodies (64), and shared memory decides the rest: staging every window a
+// block can hold left the benchmark cells' caps (128, 904) at 1-2 blocks
+// an SM, 108-292 G slot pairs tested a second, where 3-6 blocks test
+// 238-478 G (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  Where the launch
+// fills every SM, the plan (window_plan) sizes the staging groups for the
+// blocks the registers allow, reading the registers, the resident blocks
+// and the SM's shared memory from the card (nv_window_sweep_occupancy).
 //
 // Windows that overflow shared memory.  Where a cell's windows do not fit
-// in 227 KB, the block stages them in groups of ncs slots one after
-// another, each group flushed before the next: whole windows where each
-// fits, and where one window alone exceeds ncs (a cell of thousands of
-// slots: one cell a system at dims 1^3), slices of it, a group ending part
+// in what a block stages (227 KB, or the share of the SM's 228 KB that
+// lets the plan's blocks reside), the block stages them in groups of ncs
+// slots one after another, each group flushed before the next: whole
+// windows where each fits, and where one window alone exceeds ncs (a cell
+// of hundreds or thousands of slots), slices of it, a group ending part
 // of the way through a window and the next starting at that slot
 // (tests/test_torch_pair_queue.py:window_groups mirrors the loop).  Across
 // slices the home row's i < j rule is kept by absolute slot (hoff), each
@@ -69,9 +80,11 @@
 // runs a plan that needs no slice on an instantiation without the slice
 // bookkeeping (kSliced false), as fast as a kernel that never slices.  Where a
 // window overflows and the cells of the launch leave SMs idle (one cell
-// of one system: one block, one SM), the cell's own slots are split over
-// blocks along gridDim.z: each block writes its own slots' sums, and all
-// add j sums with the same global atomics, so no new atomics are needed.
+// of one system: one block, one SM), or make too few waves of the plan's
+// resident blocks (432 cells of the grid batch against 6 x 132), the
+// cell's own slots are split over blocks along gridDim.z: each block
+// writes its own slots' sums, and all add j sums with the same global
+// atomics, so no new atomics are needed.
 //
 // Batches.  One launch sweeps the n_sys systems of a batched grid (the
 // per-system grids of grid.batch_build_atom_grid, one geometry): block
@@ -97,8 +110,6 @@ using namespace pair_bodies;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-using D3CoulombSeparate = D3CoulombBody<false, false>;
-using D3CoulombCombined = D3CoulombBody<false, true>;
 
 // Window w of own cell (z, y, x): w = 0 is the home row from the centre cell
 // on ((rx+1)*cap slots), w >= 1 the half-space row offset w - 1 over its
@@ -344,6 +355,48 @@ cudaError_t launch(const float* own, const float* cand, float* own_out,
   return cudaGetLastError();
 }
 
+// Registers a thread, and blocks resident on an SM of the current card at
+// smem bytes of dynamic shared memory, of Body's instantiation with or
+// without the slice bookkeeping; then the card's shared memory an SM and
+// what each resident block reserves of it.
+template <class Body>
+cudaError_t occupancy(bool sliced, int smem, int* out) {
+  auto* kernel = sliced ? sweep_kernel<Body, true> : sweep_kernel<Body, false>;
+  cudaFuncAttributes attr;
+  int dev = 0;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kThreads,
+                                                      smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[2],
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[3],
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess) out[0] = attr.numRegs;
+  return e;
+}
+
+using D3CoulombSeparate = D3CoulombBody<false, false>;
+using D3CoulombCombined = D3CoulombBody<false, true>;
+
+// f(Body{}) for the body id of the C interface.
+template <class F>
+cudaError_t with_body(int body, F&& f) {
+  switch (body) {
+    case 0: return f(CnBody{});
+    case 1: return f(D3DirectBody<false>{});
+    case 2: return f(ChainBody{});
+    case 3: return f(CoulombBody{});
+    case 4: return f(D3CoulombSeparate{});
+    case 5: return f(D3CoulombCombined{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // body: 0 = CN, 1 = D3 direct, 2 = CN chain, 3 = Coulomb, 4 = D3 direct +
@@ -360,17 +413,19 @@ extern "C" int nv_window_sweep(int body, const float* own, const float* cand,
                                int n_sys, int ncs, int opb, void* stream) {
   const Params p{cutoff_sq, a1, a2, s6, s8, k1, k3, alpha, ccutoff_sq, zm, mesh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(B) \
-  launch<B>(own, cand, own_out, j_out, cz, cy, cx, rz, ry, rx, cap, n_cand, lf, \
-            p, n_sys, ncs, opb, st)
-  switch (body) {
-    case 0: return LAUNCH(CnBody);
-    case 1: return LAUNCH(D3DirectBody<false>);
-    case 2: return LAUNCH(ChainBody);
-    case 3: return LAUNCH(CoulombBody);
-    case 4: return LAUNCH(D3CoulombSeparate);
-    case 5: return LAUNCH(D3CoulombCombined);
-    default: return cudaErrorInvalidValue;
-  }
-#undef LAUNCH
+  return with_body(body, [&](auto b) {
+    return launch<decltype(b)>(own, cand, own_out, j_out, cz, cy, cx, rz, ry,
+                               rx, cap, n_cand, lf, p, n_sys, ncs, opb, st);
+  });
+}
+
+// out[0..3]: registers a thread, and blocks resident on an SM at smem bytes
+// of dynamic shared memory, of the body's instantiation with (sliced != 0)
+// or without the slice bookkeeping, on the current card; the card's shared
+// memory an SM, and what each resident block reserves of it.
+extern "C" int nv_window_sweep_occupancy(int body, int sliced, int smem,
+                                         int* out) {
+  return with_body(body, [&](auto b) {
+    return occupancy<decltype(b)>(sliced != 0, smem, out);
+  });
 }

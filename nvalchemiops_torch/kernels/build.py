@@ -43,6 +43,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nv_window_sweep": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] * 9
                        + [_I] * 5 + [_P],
+    "nv_window_sweep_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     "nv_row_sweep": [_I] + [_P] * 6 + [_I] * 12 + [_F] * 8 + [_P],
     "nv_chunk_sweep": [_I] + [_P] * 6 + [_I] * 12 + [_F] * 9 + [_P],
     "nv_stencil_sweep": [_I] + [_P] * 3 + [_I] * 8 + [_F] * 3 + [_P],

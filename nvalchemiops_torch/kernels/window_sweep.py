@@ -35,7 +35,8 @@ runtime floats (:class:`SweepParams`): no rebuild per parameter set.
 On a batched grid every array takes a leading system axis (``own [B,
 n_own, ..]``, ``cand [B, n_cand, ..]``, ``lf [B, ..]``, and the outputs
 likewise) and one launch sweeps the B systems.  Where the candidate
-windows of a cell do not fit a block's shared memory, the kernel stages
+windows of a cell do not fit a block's shared memory, or the share of an
+SM's that lets the blocks its registers allow reside, the kernel stages
 them in groups of slots, and cuts a window that alone exceeds them into
 slices (:func:`window_plan`).
 
@@ -47,6 +48,8 @@ validity flags.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -61,7 +64,7 @@ from nvalchemiops_torch.mathops.math import erfc_approx
 from nvalchemiops_torch.trace import count
 
 __all__ = ["SweepParams", "BODIES", "window_sweep", "window_sweep_plain",
-           "window_plan", "body_outputs", "BODY_FNS",
+           "window_plan", "Residency", "body_outputs", "BODY_FNS",
            "halfspace_zy", "slot_pairs", "chunk_slot_pairs"]
 
 #: body name -> (C body id, n_own, n_out, n_j); the D3 bodies have 6 (7 with
@@ -227,6 +230,37 @@ SMEM_BYTES = 232448
 QUEUE = 64
 #: kernel 1's warps a block (csrc/window_sweep.cu: kWarps)
 WARPS = 8
+#: kernel 1's plan (window_plan): the blocks an SM holds (24 warps) from
+#: which a plan is left as it is, and down to which it keeps windows whole
+#: rather than slice them for one block more; the waves of resident blocks
+#: a launch is split into at least
+MIN_BLOCKS = 3
+WAVES = 4
+#: the unit in which an SM allots shared memory to a block (the CUDA
+#: occupancy calculator's granularity from compute capability 8.0 on)
+SMEM_UNIT = 128
+
+
+@dataclass(frozen=True)
+class Residency:
+    """What an SM of the card offers one of kernel 1's bodies
+    (:func:`residency`): ``blocks`` resident as the body's registers and
+    threads allow, and ``smem`` bytes of shared memory, of which each
+    resident block reserves ``reserve`` besides its own."""
+    blocks: int
+    smem: int
+    reserve: int
+
+    def held(self, smem: int) -> int:
+        """Blocks an SM holds at ``smem`` bytes of shared memory a block,
+        as the occupancy calculator counts them."""
+        unit = -(-(smem + self.reserve) // SMEM_UNIT) * SMEM_UNIT
+        return min(self.blocks, self.smem // unit)
+
+    def budget(self, blocks: int) -> int:
+        """The most shared memory a block may take for an SM to hold
+        ``blocks`` of them."""
+        return (self.smem // blocks - self.reserve) // SMEM_UNIT * SMEM_UNIT
 
 
 def window_lengths(radius, cap: int) -> list[int]:
@@ -257,32 +291,96 @@ def chunk_slot_pairs(radius, cap: int, cells: int) -> int:
     return cells * (home + half)
 
 
+def plan_smem(body: str, params: SweepParams, n_cand: int, slots: int,
+              own: int) -> int:
+    """Shared memory bytes a block of kernel 1 takes under the plan
+    ``(slots, own)``: the staged candidates and their j sums, the own sums
+    and the warps' pair queues (csrc/window_sweep.cu: ``launch``)."""
+    n_out, n_j = body_outputs(body, params)
+    return 4 * ((n_cand + n_j) * slots + n_out * own + WARPS * QUEUE)
+
+
 def window_plan(body: str, radius, cap: int, n_cand: int,
-                params: SweepParams, blocks: int = 0,
-                n_sm: int = 0) -> tuple[int, int]:
+                params: SweepParams, blocks: int, n_sm: int,
+                sm: Residency) -> tuple[int, int]:
     """Kernel 1's staging plan ``(slots, own)``: the candidate slots a
     staging group holds in shared memory and the own slots a block takes.
 
     Every window at once where that fits, else the most slots that fit
     (the kernel cuts the windows into groups of them, a window that
-    exceeds them into slices).  A block takes the whole cell unless
-    its own sums would fill more than a quarter of the 227 KB, or a window
-    alone exceeds the slots while the launch's ``blocks`` (cells times
-    systems) leave some of the card's ``n_sm`` SMs idle; the cell's slots
-    are then split evenly over blocks (the grid's third axis), at least
-    4 own slots a warp."""
+    exceeds them into slices).  A block takes the whole cell unless its
+    own sums would fill more than a quarter of the 227 KB.
+
+    Where the launch's ``blocks`` (cells times systems) leave some of the
+    card's ``n_sm`` SMs idle, that plan stands, except that where a window
+    alone exceeds the slots the cell's own slots are split evenly over
+    blocks (the grid's third axis) until the SMs are busy, at least 4 own
+    slots a warp.
+
+    Otherwise it stands where its shared memory lets an SM hold
+    ``MIN_BLOCKS`` blocks, or the fewer that the registers allow
+    (``sm.blocks``) or the launch can fill at 4 own slots a warp.  Else the
+    plan is sized for residency: at ``t`` blocks an SM each block stages
+    what ``1 / t`` of the SM's shared memory holds, its own sums at most a
+    quarter of that, and the cell's own slots are split over blocks until
+    the launch makes ``WAVES`` waves of ``t`` blocks on every SM (or 4 own
+    slots a warp).  ``t`` is ``sm.blocks`` where the windows stay whole
+    there, else one block fewer where they stay whole there and that is
+    ``MIN_BLOCKS`` or more, else ``sm.blocks`` with the windows in slices.
+    The distance tests wait on shared loads and ballots, so the warps an
+    SM holds set their rate up to about 24; a slice or a group more costs
+    each own slot one more queue drain and reduction (PERF.md)."""
     n_out, n_j = body_outputs(body, params)
     lens = window_lengths(radius, cap)
+    most = -(-cap // (4 * WARPS))
 
-    def fit(own):
-        fixed = 4 * (n_out * own + WARPS * QUEUE)
-        return min(sum(lens), (SMEM_BYTES - fixed) // (4 * (n_cand + n_j)))
+    def fit(own, budget=SMEM_BYTES):
+        free = budget - plan_smem(body, params, n_cand, 0, own)
+        return min(sum(lens), free // (4 * (n_cand + n_j)))
+
+    def split_into(split, budget=SMEM_BYTES):
+        own = -(-cap // split)
+        return fit(own, budget), own
 
     split = -(-cap // (SMEM_BYTES // 4 // (4 * n_out)))
-    if fit(-(-cap // split)) < max(lens) and 0 < blocks < n_sm:
-        split = max(split, min(-(-n_sm // blocks), -(-cap // (4 * WARPS))))
-    own = -(-cap // split)
-    return fit(own), own
+    if blocks < n_sm:
+        if blocks and fit(-(-cap // split)) < max(lens):
+            split = max(split, min(-(-n_sm // blocks), most))
+        return split_into(split)
+    plan = split_into(split)
+    target = min(sm.blocks, -(-blocks * most // n_sm))
+    if sm.held(plan_smem(body, params, n_cand, *plan)) >= min(target,
+                                                               MIN_BLOCKS):
+        return plan
+
+    def at(t):
+        budget = min(SMEM_BYTES, sm.budget(t))
+        return split_into(max(-(-cap // (budget // 4 // (4 * n_out))),
+                              min(most, -(-WAVES * n_sm * t // blocks))),
+                          budget)
+
+    plan = at(target)
+    if plan[0] < max(lens) and target - 1 >= MIN_BLOCKS:
+        whole = at(target - 1)
+        if whole[0] >= max(lens):
+            return whole
+    return plan
+
+
+@functools.cache
+def occupancy(body_id: int, sliced: bool, smem: int,
+              device: int) -> tuple[int, int, int, int]:
+    """``(registers, blocks, sm_smem, reserve)`` of kernel 1's
+    instantiation for C body id ``body_id`` with or without the slice
+    bookkeeping on card ``device`` (the current card, inside
+    :func:`on_device`): registers a thread, and blocks resident on an SM
+    at ``smem`` bytes of shared memory a block, as the compiled kernel and
+    the card's occupancy calculator give them; the card's shared memory an
+    SM and what each resident block reserves of it."""
+    out = (ctypes.c_int * 4)()
+    check_launch("window_sweep occupancy", load_library()
+                 .nv_window_sweep_occupancy(body_id, int(sliced), smem, out))
+    return tuple(out)
 
 
 def _planes(body, radius, own, cand, lf):
@@ -304,30 +402,44 @@ def window_sweep(body: str, radius, own, cand, params: SweepParams, lf=None,
     own_b, cand_b, lf_b, single = _planes(body, radius, own, cand, lf)
     if not launches_kernel(own_b):
         return window_sweep_plain(body, radius, own, cand, params, lf)
-    out = _launch(body, radius, own_b, cand_b, params, lf_b, plan)
+    out, warps = _launch(body, radius, own_b, cand_b, params, lf_b, plan)
     launch_counts[f"window_sweep_{body}"] += 1
-    count(f"slot_pairs.window_sweep_{body}",
-          slot_pairs(radius, own_b.shape[-1],
-                     own_b.shape[0] * math.prod(own_b.shape[2:5])))
+    pairs = slot_pairs(radius, own_b.shape[-1],
+                       own_b.shape[0] * math.prod(own_b.shape[2:5]))
+    count(f"slot_pairs.window_sweep_{body}", pairs)
+    count(f"resident_warps.window_sweep_{body}", pairs * warps)
     return (out[0][0], out[1][0]) if single else out
+
+
+def body_id(body: str, params: SweepParams) -> int:
+    """The C interface's id of a pass body under ``params``."""
+    if body == "d3_direct_coulomb" and params.combine_forces:
+        return 5
+    return BODIES[body][0]
+
+
+def residency(body_id: int, device: int) -> Residency:
+    """What an SM of card ``device`` offers kernel 1's body ``body_id``
+    (inside :func:`on_device`): the blocks the fewer of its two
+    instantiations' registers and threads allow, and the card's shared
+    memory."""
+    figures = [occupancy(body_id, sliced, 0, device)
+               for sliced in (False, True)]
+    return Residency(min(f[1] for f in figures), *figures[0][2:])
 
 
 def _launch(body, radius, own, cand, params, lf, plan):
     """Launch kernel 1 over the systems of ``own [B, ..]``; returns
-    ``(own_out [B, ..], j_out [B, ..])``."""
+    ``((own_out [B, ..], j_out [B, ..]), warps)``, ``warps`` the warps an
+    SM holds of the launched instantiation at its shared memory."""
     check_cuda_tensors("window_sweep", own, cand,
                        *([lf] if lf is not None else []))
-    body_id = BODIES[body][0]
-    if body == "d3_direct_coulomb" and params.combine_forces:
-        body_id = 5
+    bid = body_id(body, params)
     n_out, n_j = body_outputs(body, params)
     n_sys, n_cand, cz, cy, cx, cap = own.shape[:1] + cand.shape[1:2] \
         + own.shape[2:]
     rz, ry, rx = radius
     ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
-    slots, own_slots = plan or window_plan(
-        body, radius, cap, n_cand, params, n_sys * cz * cy * cx,
-        torch.cuda.get_device_properties(own.device).multi_processor_count)
     own_out = torch.empty((n_sys, n_out, cz, cy, cx, cap), dtype=own.dtype,
                           device=own.device)
     j_out = torch.zeros((n_sys, n_j, ez, ey, ex, cap), dtype=own.dtype,
@@ -336,9 +448,17 @@ def _launch(body, radius, own, cand, params, lf, plan):
     mesh = (n_cand - base) // 2 if body.startswith("d3_direct") else 0
     zm = lf.shape[-1] // 2 if lf is not None else 0
     p = params
+    index = own.device.index
     with on_device(own):
+        slots, own_slots = plan or window_plan(
+            body, radius, cap, n_cand, params, n_sys * cz * cy * cx,
+            torch.cuda.get_device_properties(own.device).multi_processor_count,
+            residency(bid, index))
+        sliced = own_slots < cap or slots < max(window_lengths(radius, cap))
+        warps = WARPS * occupancy(bid, sliced, plan_smem(
+            body, params, n_cand, slots, own_slots), index)[1]
         err = load_library().nv_window_sweep(
-            body_id, own.data_ptr(), cand.data_ptr(),
+            bid, own.data_ptr(), cand.data_ptr(),
             lf.data_ptr() if lf is not None else None,
             own_out.data_ptr(), j_out.data_ptr(),
             cz, cy, cx, rz, ry, rx, cap, n_cand,
@@ -347,7 +467,7 @@ def _launch(body, radius, own, cand, params, lf, plan):
             own_slots, current_stream(own),
         )
     check_launch(f"window_sweep[{body}]", err)
-    return own_out, j_out
+    return (own_out, j_out), warps
 
 
 # ---------------------------------------------------------------------------

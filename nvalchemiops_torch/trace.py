@@ -20,6 +20,10 @@ count their launches under keys without a dot (``window_sweep_cn``,
 - ``slot_pairs.<kernel>_<body>``: the slot pairs a grid sweep's launches
   test for distance (kernel 1: ``window_sweep``; kernels 7 and 8:
   ``row_sweep``, ``chunk_sweep``): host arithmetic on the shapes;
+- ``resident_warps.window_sweep_<body>``: each kernel 1 launch's slot
+  pairs times the warps an SM holds of its instantiation at its shared
+  memory (the card's occupancy calculator); over ``slot_pairs`` of the
+  same body, the resident warps weighted by the tests made at them;
 - ``span_n.<name>``: spans of ``<name>`` recorded (counted only while a
   profiler records).
 
@@ -96,7 +100,8 @@ LAUNCH_KEYS = (
 )
 
 #: the counter families beside the launch counts (keys ``<family>.<name>``)
-FAMILIES = ("host_reads", "uploads", "upload_bytes", "slot_pairs", "span_n")
+FAMILIES = ("host_reads", "uploads", "upload_bytes", "slot_pairs",
+            "resident_warps", "span_n")
 
 #: the process's counters: launch counts, then ``<family>.<name>`` keys as
 #: they first count

@@ -33,9 +33,17 @@ path (tile capacity 1) and the 1,024-atom composite on the dense engine
 or one a stencil row) with the batched call cut to 1, 4, 16, 32 and 64
 systems (the change tree only).
 
+Kernel 1 is also timed at the large caps that stage its windows in
+groups (:func:`cell_calls`): the 524,288-atom CsCl crystal at the D3
+cutoff of 21.2 A (radius (1, 1, 3), cap 128; CN, D3 direct, chain, and
+Coulomb at 9.6 A on the same grid), 16 x 16,000 atoms in 82.4 A boxes at
+21.2 A (radius 1, cap 904, 432 cells) and the 128 x 2,000-atom batched D3
+at 9 A (radius 1, cap 120, 3,456 cells).
+
 ``--main-path`` times the main path's kernels only (kernels 1, 7, 8 and
-2 above), and ``--walls N`` first prints the host wall time of the main
-path's public calls, as phase 4 of ``chip_smoke.py`` makes them (grid
+2 above, and kernel 1 at the large caps), and ``--walls N`` first prints
+the host wall time of the main path's public calls, as phase 4 of
+``chip_smoke.py`` makes them (grid
 build, ``grid_dftd3`` on the window, block and pallas engines,
 ``grid_coulomb_energy_forces``, ``pme_reciprocal_space``): the median of N
 calls after a warm-up, each from a synchronized card to the end of a
@@ -224,6 +232,90 @@ def main_path_walls(dev, reps, tree):
                 pass
         us = (time.perf_counter() - t0) / n * 1e6
         print(json.dumps({"tree": tree, "on_device_us": us}), flush=True)
+
+
+#: the large-cap shapes of kernel 1: the CsCl crystal (2 x 64^3 atoms,
+#: D3 at 21.2 A, Coulomb at 9.6 A on its grid) and 16 x 16,000 atoms
+#: uniform in 82.4 A boxes at 21.2 A (numpy seed 5, zmax-16 tables)
+LARGE_CRYSTAL = dict(n_rep=64, cutoff=21.2, coulomb_cutoff=9.6, alpha=0.35)
+LARGE_BATCH = dict(b=16, n=16000, box=82.4, cutoff=21.2, seed=5)
+
+
+def cell_calls(dev):
+    """Kernel 1's calls at the large caps: the 524,288-atom crystal's CN,
+    D3 direct, chain and Coulomb passes on its grid at 21.2 A (radius (1,
+    1, 3), cap 128), and ``batch_grid_dftd3``'s CN, D3 direct and chain
+    passes with the system axis on 16 x 16,000 atoms at 21.2 A (radius 1,
+    cap 904) and on ``chip_smoke.d3_batch_system``'s 128 x 2,000 atoms at
+    9 A (radius 1, cap 120).  Returns ``(calls, labels)``, keys
+    ``window_sweep[<body>] <shape>``."""
+    from nvalchemiops_torch import composite, grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    pbc = np.array([True] * 3)
+    cfg = LARGE_CRYSTAL
+    (pos_np, cell_np, numbers, charges, rcov, r4r2, cna,
+     c6) = composite.build_system(cfg["n_rep"])
+    numbers, rcov, r4r2, c6, cna = grid_d3.compact_d3_elements(
+        numbers, rcov, r4r2, c6, cna)
+    pos = torch.as_tensor(pos_np, dtype=torch.float32, device=dev)
+    cell = torch.as_tensor(cell_np, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(charges, dtype=torch.float32, device=dev)
+    dims, radius, cap, origin = grid.choose_grid_geometry(pos, cell, pbc,
+                                                          cfg["cutoff"])
+    observed = int(grid.build_atom_grid(pos, cell, pbc, dims, radius, cap,
+                                        origin=origin).counts_max)
+    g = grid.build_atom_grid(pos, cell, pbc, dims, radius,
+                             max(cap, grid._capacity_of(observed)),
+                             origin=origin)
+
+    def crystal():
+        grid_d3.grid_dftd3(g, numbers, rcov, r4r2, c6, cna, cfg["cutoff"],
+                           composite.D3_A1, composite.D3_A2,
+                           composite.D3_S8)
+        grid.grid_coulomb_energy_forces(g, q, cfg["coulomb_cutoff"],
+                                        cfg["alpha"])
+
+    tables, pos9, numbers9, *_ = chip_smoke.d3_batch_system(dev)
+    big = LARGE_BATCH
+    rng = np.random.default_rng(big["seed"])
+    pos_b = torch.as_tensor(
+        rng.uniform(0, big["box"], (big["b"], big["n"], 3)),
+        dtype=torch.float32, device=dev)
+    numbers_b = rng.integers(1, tables[0].shape[0],
+                             (big["b"], big["n"])).astype(np.int32)
+
+    def batch(p, z, box, cutoff):
+        return lambda: grid_d3.batch_grid_dftd3(
+            p, z, torch.eye(3, device=dev) * box, pbc, cutoff, *tables,
+            *chip_smoke.D3_PARAMS)
+
+    b9 = chip_smoke.D3_BATCH
+    shapes = (
+        (f"crystal {pos.shape[0]}", crystal),
+        (f"batch {big['b']} x {big['n']}",
+         batch(pos_b, numbers_b, big["box"], big["cutoff"])),
+        (f"batch {b9['b']} x {b9['n']} at {b9['cutoff']} A",
+         batch(pos9, numbers9, b9["box"], b9["cutoff"])))
+    calls, labels = {}, {}
+    for name, run in shapes:
+        found = {}
+        undo = [record(m, "window_sweep", window_key, found)
+                for m in (grid, grid_d3)]
+        try:
+            run()
+        finally:
+            for u in undo:
+                u()
+        for key, (fn, a, kw) in found.items():
+            own = a[2]
+            systems = own.shape[0] if own.dim() == 6 else 1
+            calls[f"{key} {name}"] = (fn, a, kw)
+            labels[f"{key} {name}"] = (
+                f"{systems} x {tuple(own.shape[-4:-1])} cells, radius "
+                f"{tuple(a[1])}, cap {own.shape[-1]}")
+    torch.cuda.synchronize()
+    return calls, labels
 
 
 def gather_key(smat, win, w_win):
@@ -459,7 +551,8 @@ def main():
         crystal, crystal_label = crystal_calls(dev)
         gathers = gather_calls(dev)
         dense = dense_calls(dev)
-    calls = {**main, **batch, **dense, **crystal, **gathers}
+    cells, cell_labels = cell_calls(dev)
+    calls = {**main, **batch, **dense, **crystal, **gathers, **cells}
     if args.profiler_check:
         fn, a, kw = calls["windowed_gather_grad W=12"]
         lost = len(chip_smoke.LOST_PROFILES)
@@ -470,7 +563,8 @@ def main():
             "lost": chip_smoke.LOST_PROFILES[lost:]}}), flush=True)
     for key, (fn, a, kw) in sorted(calls.items()):
         ms = chip_smoke.device_time_ms(lambda: fn(*a, **kw), reps=args.reps)
-        shape = ("8 x 2,000 atoms, 64^3, W = 20" if key in batch
+        shape = (cell_labels[key] if key in cells
+                 else "8 x 2,000 atoms, 64^3, W = 20" if key in batch
                  else "128 x 2,000" if key.startswith("dense")
                  else crystal_label if key in crystal
                  else key.split(" ", 1)[1] if key in gathers else label)

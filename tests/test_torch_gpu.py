@@ -740,6 +740,47 @@ def _window_case(cuda, seed, n, box, cutoff, geometry=None,
     return g, numbers, q, tab
 
 
+def _window_calls(g, numbers, q, tab, cutoff, ccutoff):
+    """Kernel 1's calls on every body it launches (CN, D3 direct, chain,
+    Coulomb, the fused body separate and combined) on grid ``g``:
+    ``{(body, combined): (args, kwargs)}``."""
+    from nvalchemiops_torch import grid
+    from nvalchemiops_torch.interactions.dispersion import grid_d3
+
+    seen = {}
+
+    def run():
+        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7)
+        grid.grid_coulomb_energy_forces(g, q, cutoff, 0.35)
+        for combine in (False, True):
+            grid_d3.grid_dftd3_coulomb(
+                g, numbers, q, *tab, cutoff, 0.42, 4.1, 1.7,
+                coulomb_cutoff=ccutoff, alpha=0.35, engine="window",
+                combine_forces=combine)
+
+    def record(orig):
+        def wrapper(body, *args, **kwargs):
+            fused = body == "d3_direct_coulomb"
+            seen.setdefault((body, fused and args[3].combine_forces),
+                            (args, kwargs))
+            return orig(body, *args, **kwargs)
+        return wrapper
+
+    undo = [(m, m.window_sweep) for m in (grid_d3, grid)]
+    for m, orig in undo:
+        m.window_sweep = record(orig)
+    try:
+        run()
+    finally:
+        for m, orig in undo:
+            m.window_sweep = orig
+    assert sorted(seen) == [("chain", False), ("cn", False),
+                            ("coulomb", False), ("d3_direct", False),
+                            ("d3_direct_coulomb", False),
+                            ("d3_direct_coulomb", True)]
+    return seen
+
+
 @pytest.mark.parametrize("case", ["full cell, ccutoff below",
                                   "empty cells, ccutoff above",
                                   "staged window groups"])
@@ -774,37 +815,7 @@ def test_distance_first_window_kernel_matches_plain(cuda, case):
     if case.startswith("empty"):
         assert int((counts == 0).sum()) > 0
 
-    seen = {}
-
-    def run():
-        grid_d3.grid_dftd3(g, numbers, *tab, cutoff, 0.42, 4.1, 1.7)
-        grid.grid_coulomb_energy_forces(g, q, cutoff, 0.35)
-        for combine in (False, True):
-            grid_d3.grid_dftd3_coulomb(
-                g, numbers, q, *tab, cutoff, 0.42, 4.1, 1.7,
-                coulomb_cutoff=ccutoff, alpha=0.35, engine="window",
-                combine_forces=combine)
-
-    def record(orig):
-        def wrapper(body, *args, **kwargs):
-            fused = body == "d3_direct_coulomb"
-            seen.setdefault((body, fused and args[3].combine_forces),
-                            (args, kwargs))
-            return orig(body, *args, **kwargs)
-        return wrapper
-
-    undo = [(m, m.window_sweep) for m in (grid_d3, grid)]
-    for m, orig in undo:
-        m.window_sweep = record(orig)
-    try:
-        run()
-    finally:
-        for m, orig in undo:
-            m.window_sweep = orig
-    assert sorted(seen) == [("chain", False), ("cn", False),
-                            ("coulomb", False), ("d3_direct", False),
-                            ("d3_direct_coulomb", False),
-                            ("d3_direct_coulomb", True)]
+    seen = _window_calls(g, numbers, q, tab, cutoff, ccutoff)
     for (body, _), (args, kwargs) in seen.items():
         out_k = ws.window_sweep(body, *args, **kwargs)
         out_p = ws.window_sweep_plain(body, *args, **kwargs)
@@ -812,6 +823,98 @@ def test_distance_first_window_kernel_matches_plain(cuda, case):
         for a, b in zip(out_k, out_p):
             for fa, fb in zip(a, b):            # per output plane
                 _close(fa, fb)
+
+
+#: (geometry (dims, radius, cap), blocks of the cell's launches, box, atoms,
+#: cutoff): the benchmark cells' kernel 1 shapes (the 524,288-atom
+#: crystal's radius and cap over its 5,184 cells; the grid batch's over 16
+#: systems of 3^3 cells) on a few cells of the same radius and cap, and the
+#: reference's batched D3 at 9 A (128 systems of 2,000 atoms in 27 A boxes)
+#: on systems of its own size
+CELL_PLANS = {
+    "crystal": (((3, 3, 9), (1, 1, 3), 128), 5184, 19.5, 2000, 6.0),
+    "grid batch": (((2, 2, 2), (1, 1, 1), 904), 432, 20.0, 2000, 9.0),
+    "batch at 9 A": (((3, 3, 3), (1, 1, 1), 120), 3456, 27.0, 2000, 9.0),
+}
+
+
+@pytest.mark.parametrize("shape", list(CELL_PLANS))
+def test_occupancy_plans_match_plain(cuda, shape):
+    """Kernel 1 on every body under the plan the launch of that shape gets
+    (the crystal and the 9 A batch: whole windows, a block a cell; the
+    grid batch: own slots split over blocks, windows in slices), on one
+    grid and on two systems batched, against its plain version; then the
+    two systems under the plan the launch itself picks, whose
+    ``resident_warps`` counter adds the slot pairs times the warps the
+    occupancy calculator gives for the launched instantiation at its
+    shared memory, the blocks the plan's figures of the card give too."""
+    from nvalchemiops_torch.kernels import launch_counts
+    from nvalchemiops_torch.kernels import window_sweep as ws
+    from nvalchemiops_torch.kernels.build import on_device
+
+    geometry, blocks, box, n, cutoff = CELL_PLANS[shape]
+    systems = [_window_case(cuda, 71 + k, n, box, cutoff, geometry=geometry)
+               for k in range(2)]
+    assert all(g.cap == geometry[2] for g, *_ in systems)
+    calls = [_window_calls(*case, cutoff, 0.8 * cutoff) for case in systems]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    radius, cap = geometry[1:]
+    cells = 2 * int(np.prod(geometry[0]))
+    for key, (args, kwargs) in calls[0].items():
+        body = key[0]
+        _, own, cand, params = args
+        other, other_kw = calls[1][key]
+        batched = (radius, torch.stack([own, other[1]]),
+                   torch.stack([cand, other[2]]), params)
+        batched_kw = {k: None if v is None else torch.stack([v, other_kw[k]])
+                      for k, v in kwargs.items()}
+        bid = ws.body_id(body, params)
+        with on_device(own):
+            sm = ws.residency(bid, own.device.index)
+            per_thread = [ws.occupancy(bid, sliced, 0, own.device.index)[0]
+                          for sliced in (False, True)]
+        # 65,536 registers an SM, allotted 8 a thread at a time; 2,048
+        # threads an SM at most
+        assert sm.blocks == min(min(8, 65536 // (256 * 8 * -(-r // 8)))
+                                for r in per_thread), per_thread
+        plan = ws.window_plan(body, radius, cap, cand.shape[0], params,
+                              blocks, n_sm, sm)
+        if shape == "crystal":
+            assert plan[1] == cap and (plan[0] >= 7 * cap
+                                       or body == "d3_direct_coulomb"), plan
+        elif shape == "grid batch":
+            assert plan[1] < cap and plan[0] < 3 * cap, plan
+        else:
+            assert plan[1] == cap and plan[0] >= 3 * cap, plan
+        for a, kw in ((args, kwargs), (batched, batched_kw)):
+            out_k = ws.window_sweep(body, *a, plan=plan, **kw)
+            out_p = ws.window_sweep_plain(body, *a, **kw)
+            torch.cuda.synchronize()
+            for x, y in zip(out_k, out_p):
+                for fx, fy in zip(x, y):
+                    _close(fx, fy)
+        before = dict(launch_counts)
+        out_k = ws.window_sweep(body, *batched, **batched_kw)
+        out_p = ws.window_sweep_plain(body, *batched, **batched_kw)
+        torch.cuda.synchronize()
+        for x, y in zip(out_k, out_p):
+            for fx, fy in zip(x, y):
+                _close(fx, fy)
+        pairs = ws.slot_pairs(radius, cap, cells)
+        assert launch_counts[f"slot_pairs.window_sweep_{body}"] - before.get(
+            f"slot_pairs.window_sweep_{body}", 0) == pairs
+        slots, own_slots = ws.window_plan(body, radius, cap, cand.shape[0],
+                                          params, cells, n_sm, sm)
+        sliced = own_slots < cap or slots < max(ws.window_lengths(radius,
+                                                                  cap))
+        smem = ws.plan_smem(body, params, cand.shape[0], slots, own_slots)
+        with on_device(own):
+            resident = ws.occupancy(bid, sliced, smem, own.device.index)[1]
+        assert resident >= 1
+        assert min(sm.blocks, resident) == sm.held(smem), (sm, smem,
+                                                           resident)
+        key = f"resident_warps.window_sweep_{body}"
+        assert launch_counts[key] - before.get(key, 0) == pairs * 8 * resident
 
 
 @pytest.mark.parametrize("order", [1, 2, 3, 4])

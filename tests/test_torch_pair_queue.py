@@ -531,6 +531,19 @@ OVERFLOW_CAPS = (("batched D3 row", 3032, 170), ("dry run", 1336, 50))
 #: at cap 120 and radius 2 at cap 26
 PLANS_TODAY = ((16, 40, 1, 30), (16, 32, 1, 170), (3, 120, 1, 30),
                (6, 26, 2, 30))
+#: blocks an H100 SM holds of each kernel 1 body as its registers allow at
+#: 256 threads, the figure ``register_blocks`` reads on the card (nvcc
+#: -Xptxas -v: CN 40 registers, 32 sliced; D3 direct 64; chain and Coulomb
+#: 40; the fused body 64)
+REGISTER_BLOCKS = {"cn": 6, "d3_direct": 4, "chain": 6, "coulomb": 6,
+                   "d3_direct_coulomb": 4}
+#: (name, radius, cap, blocks) of kernel 1's launches on a card of 132
+#: SMs: the benchmark's 524,288-atom crystal (12 x 12 x 36 cells) and grid
+#: batch (16 systems of 3^3 cells), and the reference's batched D3 at 9 A
+#: (128 x 2,000 atoms in 27 A boxes: 128 systems of 3^3 cells)
+CELL_SHAPES = (("crystal", (1, 1, 3), 128, 5184),
+               ("grid batch", (1, 1, 1), 904, 432),
+               ("batch at 9 A", (1, 1, 1), 120, 3456))
 
 
 def _kernel1_cases(cap, nf):
@@ -557,6 +570,86 @@ def _today_slots(body, radius, cap, n_cand, params):
     return ncs if ncs >= max(lens) else None
 
 
+def _sm(body):
+    """An H100 SM as ``window_sweep.residency`` reads it for ``body``: the
+    blocks its registers allow, 228 KB of shared memory, 1 KB reserved for
+    each block."""
+    return ws.Residency(REGISTER_BLOCKS[body], SMEM + 1024, 1024)
+
+
+def _assert_groups_cover_each_slot_once(radius, cap, slots):
+    """Kernel 1's staging groups of ``slots`` cover each window's slots
+    exactly once: slices of a window in order, none past its end."""
+    lens = ws.window_lengths(radius, cap)
+    seen = [np.zeros(n, int) for n in lens]
+    for group in window_groups(radius, cap, slots):
+        assert sum(n for _, _, n, _ in group) <= slots
+        offs = [off for _, _, _, off in group]
+        assert offs == sorted(offs) and offs[0] == 0
+        for w, l0, n, _ in group:
+            seen[w][l0:l0 + n] += 1
+    assert all((s == 1).all() for s in seen)
+
+
+def _kept(body, radius, cap, n_cand, params, blocks):
+    """Whether kernel 1's plan before residency, every window at once and a
+    block a cell, stands for ``blocks`` blocks on 132 SMs: it fits, and
+    the launch leaves SMs idle, or its shared memory lets an SM hold 3
+    blocks, or the fewer that the registers allow or the launch fills at 4
+    own slots a warp."""
+    today = _today_slots(body, radius, cap, n_cand, params)
+    if today is None:
+        return False
+    n_out, n_j = ws.body_outputs(body, params)
+    smem = 4 * ((n_cand + n_j) * today + n_out * cap + 8 * 64)
+    fill = -(-blocks * -(-cap // 32) // 132)
+    return blocks < 132 or _sm(body).held(smem) >= min(fill, 3)
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("name,radius,cap,blocks", CELL_SHAPES)
+def test_staging_plans_leave_the_register_blocks_resident(name, radius, cap,
+                                                          blocks, case):
+    """At the shapes of the benchmark cells and of the batch at 9 A kernel
+    1's plan leaves an SM 3 blocks or more: the plan of every window at
+    once where that already does, else the blocks its registers allow, or
+    one fewer where the windows stay whole there but not at the registers'
+    count; its groups cover each window's slots exactly once, and no
+    window is sliced where a whole one fits at that residency.  The
+    crystal's 5,184 cells and the 9 A batch's 3,456 keep a block a cell;
+    the grid batch's 432 split their own slots until every SM holds that
+    residency."""
+    body, n_cand, params = list(_kernel1_cases(cap, 0))[case]
+    n_out, n_j = ws.body_outputs(body, params)
+    regs = REGISTER_BLOCKS[body]
+    slots, own = ws.window_plan(body, radius, cap, n_cand, params, blocks,
+                                132, _sm(body))
+    fixed = 4 * (n_out * own + 8 * 64)
+    smem = fixed + 4 * (n_cand + n_j) * slots
+    lens = ws.window_lengths(radius, cap)
+
+    def whole_at(t):
+        return (_sm(body).budget(t) - fixed) // (
+            4 * (n_cand + n_j)) >= max(lens)
+
+    whole = all(l0 == 0 and n == lens[w]
+                for group in window_groups(radius, cap, slots)
+                for w, l0, n, _ in group)
+    t = _sm(body).held(smem)
+    assert smem <= SMEM and t >= 3
+    if _kept(body, radius, cap, n_cand, params, blocks):
+        assert (slots, own) == (_today_slots(body, radius, cap, n_cand,
+                                             params), cap)
+    elif t < regs:
+        assert t == regs - 1 and whole and not whole_at(regs)
+    assert whole or not whole_at(t)
+    _assert_groups_cover_each_slot_once(radius, cap, slots)
+    if name == "grid batch":
+        assert own < cap and blocks * -(-cap // own) >= 132 * t
+    else:
+        assert own == cap
+
+
 @pytest.mark.parametrize("name,cap,nf", OVERFLOW_CAPS)
 def test_staging_plans_fit_and_cover_every_slot(name, cap, nf):
     """At the overflow caps every kernel gets a plan within 232,448 bytes:
@@ -566,31 +659,30 @@ def test_staging_plans_fit_and_cover_every_slot(name, cap, nf):
     exactly once."""
     radius = (1, 1, 1)
     for body, n_cand, params in _kernel1_cases(cap, nf):
-        slots, own = ws.window_plan(body, radius, cap, n_cand, params)
+        slots, own = ws.window_plan(body, radius, cap, n_cand, params, 0,
+                                    132, _sm(body))
         n_out, n_j = ws.body_outputs(body, params)
         assert 4 * ((n_cand + n_j) * slots + n_out * own + 8 * 64) <= SMEM
-        # one cell of one system on a card of 132 SMs: where a window alone
-        # overflows the slots, the cell's own slots split over blocks, at
-        # least 32 each; the slots fit with them
-        slots1, own1 = ws.window_plan(body, radius, cap, n_cand, params,
-                                      blocks=1, n_sm=132)
-        if slots < max(ws.window_lengths(radius, cap)):
-            assert 32 <= own1 < cap and slots1 >= slots
-        else:
-            assert (slots1, own1) == (slots, own)
-        assert 4 * ((n_cand + n_j) * slots1 + n_out * own1 + 8 * 64) <= SMEM
+        # one cell of one system, and the 128 single-cell systems of the
+        # batched D3 row, on a card of 132 SMs: where a window alone
+        # overflows the slots, the cell's own slots split over blocks until
+        # the SMs are busy, at least 32 each, whatever blocks the registers
+        # allow; the slots fit with them
+        for blocks in (1, 128):
+            slots1, own1 = ws.window_plan(body, radius, cap, n_cand, params,
+                                          blocks, 132, _sm(body))
+            if slots < max(ws.window_lengths(radius, cap)):
+                split = min(-(-132 // blocks), -(-cap // 32))
+                assert own1 == -(-cap // split)
+                assert 32 <= own1 < cap and slots1 >= slots
+            else:
+                assert (slots1, own1) == (slots, own)
+            assert 4 * ((n_cand + n_j) * slots1 + n_out * own1
+                        + 8 * 64) <= SMEM
         if body.startswith("d3_direct"):     # refused before slicing
             assert _today_slots(body, radius, cap, n_cand, params) is None
         assert own <= cap and -(-cap // own) * own - cap < -(-cap // own)
-        lens = ws.window_lengths(radius, cap)
-        seen = [np.zeros(n, int) for n in lens]
-        for group in window_groups(radius, cap, slots):
-            assert sum(n for _, _, n, _ in group) <= slots
-            offs = [off for _, _, _, off in group]
-            assert offs == sorted(offs) and offs[0] == 0
-            for w, l0, n, _ in group:
-                seen[w][l0:l0 + n] += 1
-        assert all((s == 1).all() for s in seen)
+        _assert_groups_cover_each_slot_once(radius, cap, slots)
     for kernel, picker, slicer, smem in (
             ("row", lambda b: rs.row_group_cells(b, 1, cap, 1, nf),
              lambda b, g: rs.row_slices(b, g, 1, cap, 1, nf),
@@ -618,17 +710,22 @@ def test_staging_plans_fit_and_cover_every_slot(name, cap, nf):
 @pytest.mark.parametrize("cx,cap,rx,nf", PLANS_TODAY)
 def test_staging_plans_that_fit_stay_as_they_were(cx, cap, rx, nf):
     """Where a cell's windows fit, kernel 1 stages the same slot count in
-    the same whole-window groups as before slicing, a block takes the
-    whole cell, and kernels 7 and 8 keep their G with the whole group and
-    window staged."""
+    the same whole-window groups as before slicing and a block takes the
+    whole cell wherever the launch leaves SMs idle or that plan already
+    lets an SM hold 3 blocks or more, or as many as the registers allow or
+    the launch can fill (every plan of the main path); kernels 7 and 8
+    keep their G with the whole group and window staged."""
     radius = (rx, rx, rx)
     for body, n_cand, params in _kernel1_cases(cap, nf):
         today = _today_slots(body, radius, cap, n_cand, params)
         if today is None:
             continue
-        for blocks in (0, 1, 1000):
-            assert ws.window_plan(body, radius, cap, n_cand, params, blocks,
-                                  132) == (today, cap)
+        for blocks in (0, 1, 128, 1000, 4096):
+            kept = _kept(body, radius, cap, n_cand, params, blocks)
+            assert kept or (cx, cap) != (16, 40)
+            if kept:
+                assert ws.window_plan(body, radius, cap, n_cand, params,
+                                      blocks, 132, _sm(body)) == (today, cap)
         lens = ws.window_lengths(radius, cap)
         for group in window_groups(radius, cap, today):
             assert all(l0 == 0 and n == lens[w] for w, l0, n, _ in group)
